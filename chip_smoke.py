@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-GPU: builds the hand-written kernels from the sources in this checkout,
-holds each against its plain PyTorch version at the main path's shapes,
-times them, serves full-width qwen3-0.6b through the paged
-continuous-batching engine, and checks the card's greedy tokens against
-the CPU's.
+GPU: builds the four hand-written attention kernels from the sources in
+this checkout, holds each against its plain PyTorch version at the main
+paths' shapes on poisoned inputs, times them, serves full-width
+qwen3-0.6b through each main path (the paged continuous engine, round
+mode with the SAC scheduler, the dense continuous engine) with exact
+kernel launch counts, and checks the card's greedy tokens against the
+CPU's on all three.
 
     python3 chip_smoke.py
 
@@ -33,8 +35,15 @@ HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
 #: kernel vs plain version, fp32: summation order differs, nothing else
 TOL = 1e-4
-#: layers whose every decode iteration / prefill chunk launches a kernel
+#: the model every main path serves at full width
 FULL = "qwen3-0.6b"
+#: kernel name -> the TPU kernel it replaces (file:line of its function)
+REPLACES = {
+    "paged_decode_attention": "src/repro/kernels/decode_attention.py:164",
+    "paged_prefill_attention": "src/repro/kernels/prefill_attention.py:85",
+    "flash_attention": "src/repro/kernels/flash_attention.py:75",
+    "decode_attention": "src/repro/kernels/decode_attention.py:67",
+}
 
 
 def log(msg: str) -> None:
@@ -72,6 +81,8 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     paths = _build.build()
+    if set(paths) != set(REPLACES):
+        fail(f"build: kernels {sorted(paths)}, expected {sorted(REPLACES)}")
     log(f"build: {len(paths)} kernels in {time.perf_counter() - t0:.2f} s "
         f"(one nvcc per source, in parallel)")
     for name in paths:
@@ -80,7 +91,33 @@ def phase_build() -> None:
                 log(f"  {name}: {line.strip()}")
 
 
+
+
 # ---------------------------------------------------------------- phase 3
+def _wrappers():
+    """name -> (module, kernel wrapper, plain version)."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import prefill_attention as pre
+
+    return {"paged_decode_attention": (dec.paged_decode_attention,
+                                       dec.paged_decode_attention_plain),
+            "paged_prefill_attention": (pre.paged_prefill_attention,
+                                        pre.paged_prefill_attention_plain),
+            "flash_attention": (fl.flash_attention, fl.flash_attention_plain),
+            "decode_attention": (dec.decode_attention,
+                                 dec.decode_attention_plain)}
+
+
+def reset_launches() -> None:
+    for kern, _ in _wrappers().values():
+        kern.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: kern.launches for name, (kern, _) in _wrappers().items()}
+
+
 def _poisoned_pools(torch, rng, n_pool, bs, KV, hd, live_slots, device):
     """Random pools whose every slot outside ``live_slots`` (a set of
     (block, slot) pairs) is NaN, block 0 included."""
@@ -111,8 +148,8 @@ def _tables(rng, lens, nb, bs, n_pool):
     return tables, live
 
 
-def decode_case(torch, device, B=8, H=16, KV=8, hd=128, bs=16, nb=40,
-                seed=1):
+def paged_decode_case(torch, device, B=8, H=16, KV=8, hd=128, bs=16, nb=40,
+                      seed=1):
     rng = np.random.default_rng(seed)
     lens = np.array([1, 17, 100, 257, 333, 480, 639, nb * bs][:B],
                     np.int32)
@@ -127,8 +164,8 @@ def decode_case(torch, device, B=8, H=16, KV=8, hd=128, bs=16, nb=40,
                 scale=hd ** -0.5)
 
 
-def prefill_case(torch, device, T, pos, H=16, KV=8, hd=128, bs=16, nb=40,
-                 seed=2):
+def paged_prefill_case(torch, device, T, pos, H=16, KV=8, hd=128, bs=16,
+                       nb=40, seed=2):
     rng = np.random.default_rng(seed + T)
     n_pool = nb + 1
     tables, live = _tables(rng, [pos + T], nb, bs, n_pool)
@@ -141,46 +178,118 @@ def prefill_case(torch, device, T, pos, H=16, KV=8, hd=128, bs=16, nb=40,
                 scale=hd ** -0.5)
 
 
+def _nan_tailed(torch, a, device, extra=64):
+    """``a`` (1, n, ...) on the card as the head of a buffer whose next
+    ``extra`` rows are NaN: a kernel reading past row n reads NaN."""
+    buf = np.full((1, a.shape[1] + extra) + a.shape[2:], np.nan, np.float32)
+    buf[:, :a.shape[1]] = a
+    return torch.from_numpy(buf).to(device)[:, :a.shape[1]]
+
+
+def flash_case(torch, device, B, S, T, causal=True, window=None, H=16, KV=8,
+               hd=128, seed=3):
+    """Random q (B,S,H,hd), k/v (B,T,KV,hd); with B = 1 each lies at the
+    head of a NaN-tailed buffer, so a read past S or T poisons the
+    output."""
+    rng = np.random.default_rng(seed + S + T)
+    arrs = [rng.standard_normal((B, n, h, hd)).astype(np.float32)
+            for n, h in ((S, H), (T, KV), (T, KV))]
+    if B == 1:
+        q, k, v = (_nan_tailed(torch, a, device) for a in arrs)
+    else:
+        q, k, v = (torch.from_numpy(a).to(device) for a in arrs)
+    return dict(q=q, k=k, v=v, scale=hd ** -0.5, causal=causal,
+                window=window)
+
+
+#: (B, S, T, causal, window): round-mode prefills (S = T, causal) at one
+#: and eight prompts, a length off the 64-slot tile, a window, and a
+#: non-causal case with T off the tile and T != S
+FLASH_CASES = ((1, 16, 16, True, None), (1, 100, 100, True, None),
+               (1, 512, 512, True, None), (8, 16, 16, True, None),
+               (8, 100, 100, True, None), (8, 512, 512, True, None),
+               (8, 512, 512, True, 64), (1, 40, 100, False, None))
+
+
+def decode_case(torch, device, C, mode, B=8, H=16, KV=8, hd=128, seed=4):
+    """q (8,1,16,128) against a dense (B, C, 8, 128) cache. ``mode``:
+    "linear" (ragged frontiers, full capacity included), "round" (every
+    row at one frontier, as a round's lock-step decode), or "ring" (the
+    reference's ring mask with window 64, wrapping ones included).
+    Returns the kernel's case (invalid slots NaN) and the plain
+    version's (the same cache with them zeroed)."""
+    rng = np.random.default_rng(seed + C)
+    slots = np.arange(C)[None, :]
+    if mode == "linear":
+        lens = np.array([1, 17, 100, 257, 333, 480, C - 1, C][:B])
+        valid = slots < lens[:, None]
+    elif mode == "round":
+        valid = np.broadcast_to(slots < C - 16, (B, C))
+    else:
+        pos = np.array([5, 63, 64, 300, C - 1, C, C + 60, 3 * C + 7][:B])
+        k_pos = pos[:, None] - ((pos[:, None] - slots) % C)
+        valid = (k_pos >= 0) & (k_pos > pos[:, None] - 64)
+    k = rng.standard_normal((B, C, KV, hd)).astype(np.float32)
+    v = rng.standard_normal((B, C, KV, hd)).astype(np.float32)
+    q = rng.standard_normal((B, 1, H, hd)).astype(np.float32)
+    k0, v0 = np.where(valid[..., None, None], k, 0), \
+        np.where(valid[..., None, None], v, 0)
+    k[~valid], v[~valid] = np.nan, np.nan
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    vt = t(valid)
+    return (dict(q=t(q), k=t(k), v=t(v), valid=vt, scale=hd ** -0.5),
+            dict(q=t(q), k=t(k0), v=t(v0), valid=vt, scale=hd ** -0.5))
+
+
+#: (C, mode): the round's cache (prompt bucket 512 + 32 new tokens) and
+#: the dense continuous engine's (max_seq 640), then a ring mask
+DECODE_CASES = ((544, "round"), (544, "linear"), (640, "linear"),
+                (640, "ring"))
+
 #: (T, pos): one row at the last slot, chunks starting mid-block, a full
 #: 512-token first chunk and one that ends at the full 640 capacity
 PREFILL_CASES = ((1, 639), (16, 8), (128, 200), (512, 0), (512, 128))
 
 
-def phase_kernels(torch, device):
-    """Kernel vs plain version at the main path's shapes, on poisoned
-    inputs. Returns name -> max abs error."""
-    from repro_torch.kernels import decode_attention as dec
-    from repro_torch.kernels import prefill_attention as pre
-
-    errs = {}
-    c = decode_case(torch, device)
-    got = dec.paged_decode_attention(**c)
-    want = dec.paged_decode_attention_plain(**c)
+def _check(torch, name, got, want, what):
     if not torch.isfinite(got).all():
-        fail("paged_decode_attention: non-finite output (poison read)")
-    errs["paged_decode_attention"] = float((got - want).abs().max())
-    log(f"paged_decode_attention q {tuple(c['q'].shape)} pools "
-        f"{tuple(c['k_pool'].shape)} tables "
-        f"{tuple(c['block_tables'].shape)} seq_lens "
-        f"{c['seq_lens'].tolist()}: max abs err vs plain "
-        f"{errs['paged_decode_attention']:.3e} (tolerance {TOL:g})")
-    worst = 0.0
+        fail(f"{name} {what}: non-finite output (poison read)")
+    err = float((got - want).abs().max())
+    log(f"{name} {what}: max abs err vs plain {err:.3e} (tolerance {TOL:g})")
+    if not err <= TOL:
+        fail(f"{name} {what} disagrees with its plain version: {err:.3e} > "
+             f"{TOL:g}")
+    return err
+
+
+def phase_kernels(torch, device):
+    """Every kernel vs its plain version at the main paths' shapes, on
+    poisoned inputs. Returns name -> worst max abs error."""
+    w = _wrappers()
+    errs = {name: 0.0 for name in w}
+
+    def run(name, what, kern_args, plain_args=None):
+        kern, plain = w[name]
+        got = kern(**kern_args)
+        want = plain(**(plain_args or kern_args))
+        errs[name] = max(errs[name], _check(torch, name, got, want, what))
+
+    c = paged_decode_case(torch, device)
+    run("paged_decode_attention", f"q {tuple(c['q'].shape)} pools "
+        f"{tuple(c['k_pool'].shape)} seq_lens {c['seq_lens'].tolist()}", c)
     for T, pos in PREFILL_CASES:
-        c = prefill_case(torch, device, T, pos)
-        got = pre.paged_prefill_attention(**c)
-        want = pre.paged_prefill_attention_plain(**c)
-        if not torch.isfinite(got).all():
-            fail(f"paged_prefill_attention T={T} pos={pos}: non-finite "
-                 "output (poison read)")
-        err = float((got - want).abs().max())
-        worst = max(worst, err)
-        log(f"paged_prefill_attention q {tuple(c['q'].shape)} pos {pos}: "
-            f"max abs err vs plain {err:.3e} (tolerance {TOL:g})")
-    errs["paged_prefill_attention"] = worst
-    for name, err in errs.items():
-        if not err <= TOL:
-            fail(f"{name} disagrees with its plain version: {err:.3e} > "
-                 f"{TOL:g}")
+        run("paged_prefill_attention", f"q (1,{T},16,128) pos {pos}",
+            paged_prefill_case(torch, device, T, pos))
+    for B, S, T, causal, window in FLASH_CASES:
+        c = flash_case(torch, device, B, S, T, causal, window)
+        run("flash_attention", f"B={B} S={S} T={T} causal={causal} "
+            f"window={window}", c)
+    for C, mode in DECODE_CASES:
+        kc, pc = decode_case(torch, device, C, mode)
+        run("decode_attention", f"q (8,1,16,128) C={C} {mode}, "
+            f"{int(kc['valid'].sum())} valid slots", kc, pc)
     return errs
 
 
@@ -202,28 +311,9 @@ def _time_ms(torch, fn, n_args, iters=50):
     return start.elapsed_time(end) / iters
 
 
-def _gathered(torch, c, last):
-    """The logical K/V view (B, KV, S, hd) and a bool mask (B, 1, T, S)
-    from query row limits ``last`` (B, T): the library yardstick's
-    inputs, built outside its timing."""
-    B, nb = c["block_tables"].shape
-    N, bs, KV, hd = c["k_pool"].shape
-    tbl = c["block_tables"].long()
-    live = (torch.arange(nb, device=tbl.device)[None] * bs
-            <= last[:, -1:]) & (tbl >= 0) & (tbl < N)
-    tbl = torch.where(live, tbl, 0)
-    k = c["k_pool"][tbl].reshape(B, nb * bs, KV, hd)
-    v = c["v_pool"][tbl].reshape(B, nb * bs, KV, hd)
-    slot = torch.arange(nb * bs, device=tbl.device)
-    mask = slot[None, None, :] <= last[:, :, None]
-    v = torch.where(mask.any(1)[:, :, None, None], v, 0.0)
-    k = torch.where(mask.any(1)[:, :, None, None], k, 0.0)
-    return (k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
-            mask[:, None])
-
-
 def _sdpa(torch, q, k, v, mask, scale):
-    """scaled_dot_product_attention over the gathered view (GQA)."""
+    """scaled_dot_product_attention, q (B,T,H,hd) against k/v
+    (B,KV,S,hd) (GQA)."""
     F = torch.nn.functional
     qh = q.transpose(1, 2)  # (B, H, T, hd)
     try:
@@ -236,107 +326,191 @@ def _sdpa(torch, q, k, v, mask, scale):
             attn_mask=mask, scale=scale)
 
 
-def _bound(case, last, H, hd, KV):
-    """Least time for the function on the card: each input byte it needs
-    read once (q, the live K/V slots, live table entries), the output
-    written once, against the flops of the two products over the slots
-    each query row attends. Returns (ms, "bytes" | "operations")."""
-    attended = (last + 1).clamp(min=0)                  # (B, T)
-    per_seq = attended.max(1).values                    # K/V slots read
-    bs = case["k_pool"].shape[1]
-    n_bytes = (2 * case["q"].numel() * 4
-               + int(per_seq.sum()) * KV * hd * 4 * 2
-               + 4 * int((-(-per_seq // bs)).sum()) + 4 * last.shape[0])
-    flops = 4 * H * hd * int(attended.sum())
+def _bound(n_bytes, flops):
+    """Least time on the card: bytes over HBM, flops over fp32 peak.
+    Returns (ms, "bytes" | "operations")."""
     t_bytes, t_ops = n_bytes / HBM_BPS, flops / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
+def _paged_job(torch, device, make, kw):
+    """Inputs, library yardstick and bound of a paged kernel at one shape:
+    the library call is SDPA over the pre-gathered logical view; the
+    bound counts q, the live K/V slots and table entries read once, the
+    output written once, and 4 * hd flops per (query head, attended
+    slot)."""
+    copies = [make(torch, device, seed=10 + i, **kw) for i in range(4)]
+    c0 = copies[0]
+    B, T, H, hd = c0["q"].shape
+    N, bs, KV, _ = c0["k_pool"].shape
+    if "seq_lens" in c0:
+        last = [(c["seq_lens"].long() - 1)[:, None] for c in copies]
+    else:
+        last = [c["pos"].long()[:, None]
+                + torch.arange(T, device=device)[None] for c in copies]
+    lib_in = []
+    for c, lst in zip(copies, last):
+        nb = c["block_tables"].shape[1]
+        tbl = c["block_tables"].long()
+        live = (torch.arange(nb, device=device)[None] * bs
+                <= lst[:, -1:]) & (tbl >= 0) & (tbl < N)
+        tbl = torch.where(live, tbl, 0)
+        mask = torch.arange(nb * bs, device=device)[None, None, :] \
+            <= lst[:, :, None]
+        rows = mask.any(1)[:, :, None, None]
+        k = torch.where(rows, c["k_pool"][tbl].reshape(B, nb * bs, KV, hd),
+                        0.0)
+        v = torch.where(rows, c["v_pool"][tbl].reshape(B, nb * bs, KV, hd),
+                        0.0)
+        lib_in.append((k.transpose(1, 2).contiguous(),
+                       v.transpose(1, 2).contiguous(), mask[:, None]))
+
+    def lib(i):
+        k, v, mask = lib_in[i]
+        return _sdpa(torch, copies[i]["q"], k, v, mask, c0["scale"])
+
+    attended = (last[0] + 1).clamp(min=0)              # (B, T)
+    per_seq = attended.max(1).values                    # K/V slots read
+    n_bytes = (2 * c0["q"].numel() * 4 + int(per_seq.sum()) * KV * hd * 8
+               + 4 * int((-(-per_seq // bs)).sum()) + 4 * B)
+    flops = 4 * H * hd * int(attended.sum())
+    return copies, copies, lib, _bound(n_bytes, flops), \
+        f"q {tuple(c0['q'].shape)}"
+
+
+def _flash_job(torch, device, B, S, T, causal, window):
+    """The library call is SDPA with the same bool mask; the bound counts
+    q, k, v read once, the output written once, and 4 * hd flops per
+    (query head, attended pair)."""
+    copies = [flash_case(torch, device, B, S, T, causal, window, seed=20 + i)
+              for i in range(4)]
+    c0 = copies[0]
+    H, hd = c0["q"].shape[2], c0["q"].shape[3]
+    qpos = torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(T, device=device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    kv_t = [(c["k"].transpose(1, 2).contiguous(),
+             c["v"].transpose(1, 2).contiguous()) for c in copies]
+
+    def lib(i):
+        return _sdpa(torch, copies[i]["q"], *kv_t[i], mask, c0["scale"])
+
+    n_bytes = 4 * (2 * c0["q"].numel() + c0["k"].numel() + c0["v"].numel())
+    flops = 4 * B * H * hd * int(mask.sum())
+    return copies, copies, lib, _bound(n_bytes, flops), \
+        f"B={B} S={S} T={T} causal={causal} window={window}"
+
+
+def _decode_job(torch, device, C, mode):
+    """The library call is SDPA over the zeroed cache under the validity
+    mask; the bound counts q, the valid K/V slots and the mask read once,
+    the output written once."""
+    pairs = [decode_case(torch, device, C, mode, seed=30 + i)
+             for i in range(4)]
+    kern = [k for k, _ in pairs]
+    plain = [p for _, p in pairs]
+    c0 = plain[0]
+    B, _, H, hd = c0["q"].shape
+    KV = c0["k"].shape[2]
+    kv_t = [(p["k"].transpose(1, 2).contiguous(),
+             p["v"].transpose(1, 2).contiguous(),
+             p["valid"][:, None, None, :]) for p in plain]
+
+    def lib(i):
+        return _sdpa(torch, plain[i]["q"], *kv_t[i], c0["scale"])
+
+    n_valid = int(c0["valid"].sum())
+    n_bytes = 2 * c0["q"].numel() * 4 + n_valid * KV * hd * 8 + B * C
+    flops = 4 * H * hd * n_valid
+    return kern, plain, lib, _bound(n_bytes, flops), \
+        f"q (8,1,16,128) C={C} {mode}"
+
+
 def phase_timing(torch, device, smi):
     """CUDA-event times of kernel, plain version and the library call, in
-    the order plain, kernel, kernel, plain (library at both ends)."""
-    from repro_torch.kernels import decode_attention as dec
-    from repro_torch.kernels import prefill_attention as pre
-
+    the order plain, kernel, kernel, plain (library at both ends). The
+    first shape of each kernel is its row in the result line."""
+    w = _wrappers()
+    jobs = [("paged_decode_attention", lambda: _paged_job(
+        torch, device, paged_decode_case, {}))]
+    jobs += [("paged_prefill_attention", lambda T=T, pos=pos: _paged_job(
+        torch, device, paged_prefill_case, {"T": T, "pos": pos}))
+        for T, pos in ((512, 0), (128, 200), (16, 8))]
+    jobs += [("flash_attention", lambda a=a: _flash_job(torch, device, *a))
+             for a in ((8, 512, 512, True, None), (1, 100, 100, True, None),
+                       (8, 512, 512, True, 64))]
+    jobs += [("decode_attention", lambda a=a: _decode_job(torch, device, *a))
+             for a in ((544, "round"), (640, "linear"), (640, "ring"))]
     out = {}
-    jobs = [("paged_decode_attention", dec.paged_decode_attention,
-             dec.paged_decode_attention_plain, decode_case, {})]
-    jobs += [("paged_prefill_attention", pre.paged_prefill_attention,
-              pre.paged_prefill_attention_plain, prefill_case,
-              {"T": T, "pos": pos}) for T, pos in ((16, 8), (128, 200),
-                                                   (512, 0))]
-    for name, kern, plain, make, kw in jobs:
-        copies = [make(torch, device, seed=10 + i, **kw) for i in range(4)]
-        c0 = copies[0]
-        B, T, H, hd = c0["q"].shape
-        KV = c0["k_pool"].shape[2]
-        args = copies
-        if "seq_lens" in c0:
-            last = [(c["seq_lens"].long() - 1)[:, None] for c in copies]
-        else:
-            last = [c["pos"].long()[:, None]
-                    + torch.arange(T, device=device)[None] for c in copies]
-        lib_in = [_gathered(torch, c, lst) for c, lst in zip(copies, last)]
-
-        def run_lib(i):
-            k, v, mask = lib_in[i]
-            return _sdpa(torch, copies[i]["q"], k, v, mask, c0["scale"])
-
+    for name, make in jobs:
+        kern, plain = w[name]
+        k_args, p_args, lib, (bound, by), what = make()
         t = {"lib": [], "plain": [], "kern": []}
-        t["lib"].append(_time_ms(torch, run_lib, 4))
-        t["plain"].append(_time_ms(torch, lambda i: plain(**args[i]), 4))
-        t["kern"].append(_time_ms(torch, lambda i: kern(**args[i]), 4))
-        t["kern"].append(_time_ms(torch, lambda i: kern(**args[i]), 4))
-        t["plain"].append(_time_ms(torch, lambda i: plain(**args[i]), 4))
-        t["lib"].append(_time_ms(torch, run_lib, 4))
-        lib_out = run_lib(0).transpose(1, 2)
-        lib_err = float((lib_out - plain(**args[0])).abs().max())
-        bound, by = _bound(c0, last[0], H, hd, KV)
+        t["lib"].append(_time_ms(torch, lib, 4))
+        t["plain"].append(_time_ms(torch, lambda i: plain(**p_args[i]), 4))
+        t["kern"].append(_time_ms(torch, lambda i: kern(**k_args[i]), 4))
+        t["kern"].append(_time_ms(torch, lambda i: kern(**k_args[i]), 4))
+        t["plain"].append(_time_ms(torch, lambda i: plain(**p_args[i]), 4))
+        t["lib"].append(_time_ms(torch, lib, 4))
+        lib_out = lib(0).transpose(1, 2)
+        lib_err = float((lib_out - plain(**p_args[0])).abs().max())
         row = {"ms": float(np.mean(t["kern"])),
                "plain_ms": float(np.mean(t["plain"])),
                "library_ms": float(np.mean(t["lib"])),
                "bound_ms": bound, "bound_by": by}
-        log(f"timing {name} q {tuple(c0['q'].shape)}: kernel_ms "
-            f"{row['ms']:.4f} (runs {t['kern']}), plain_ms "
-            f"{row['plain_ms']:.4f}, library_ms {row['library_ms']:.4f} "
-            f"(sdpa vs plain max err {lib_err:.2e}), bound_ms "
-            f"{bound:.4f} by {by}, {row['bound_ms'] / row['ms']:.1%} of "
+        log(f"timing {name} {what}: kernel_ms {row['ms']:.4f} (runs "
+            f"{t['kern']}), plain_ms {row['plain_ms']:.4f}, library_ms "
+            f"{row['library_ms']:.4f} (sdpa vs plain max err {lib_err:.2e}),"
+            f" bound_ms {bound:.4f} by {by}, {bound / row['ms']:.1%} of "
             f"bound [{smi}]")
-        if T in (1, 512):  # decode; the largest prefill chunk
-            out[name] = row
+        out.setdefault(name, row)
+        del k_args, p_args, lib
+        torch.cuda.empty_cache()
     return out
 
 
-# ---------------------------------------------------------------- phase 5
-def _watch_logits(torch, model, bad):
-    """Wrap the model's forwards so each output's finiteness is recorded
-    (as device booleans, read once at the end)."""
-    for attr in ("decode_step", "prefill_chunk"):
+# ---------------------------------------------------------------- phases 5-8
+def _watch_logits(torch, model, bad, attrs):
+    """Wrap the model's forwards ``attrs`` so each output's finiteness is
+    recorded (as device booleans, read once at the end)."""
+    for attr in attrs:
         orig = getattr(model, attr)
 
-        def checked(params, cache, batch, _orig=orig):
-            logits, cache = _orig(params, cache, batch)
+        def checked(*args, _orig=orig):
+            logits, cache = _orig(*args)
             bad.append(~torch.isfinite(logits).all())
             return logits, cache
         setattr(model, attr, checked)
 
 
-def phase_e2e(torch, device, cfg, smi, n_req=16, max_new=32, seed=0):
+#: kernels each continuous layout launches per decode iteration and per
+#: prefill chunk (the dense layout's chunks attend in plain PyTorch)
+LAYOUT_KERNELS = {"paged": ("paged_decode_attention",
+                            "paged_prefill_attention"),
+                  "dense": ("decode_attention", None)}
+
+
+def phase_e2e(torch, device, cfg, params, smi, kv_layout, n_req=16,
+              max_new=32, seed=0, profile=True):
     """Serve ``n_req`` seeded requests (prompts 4..500 tokens) through the
-    paged engine at full width until drained; check every request and
-    the launch counts. Returns the kernels' main-path launch counts."""
-    from repro_torch.kernels import decode_attention as dec
-    from repro_torch.kernels import prefill_attention as pre
+    continuous engine with ``kv_layout`` at full width until drained;
+    check every request and the launch counts, then (with ``profile``)
+    profile a prefill step and three decode steps. Returns (the kernels'
+    launches, the end-to-end numbers)."""
     from repro_torch.serving.engine import ContinuousBatchingEngine
 
     t0 = time.perf_counter()
     eng = ContinuousBatchingEngine(cfg, max_slots=8, max_seq=640,
-                                   kv_layout="paged", token_budget=512,
-                                   device=device, seed=seed)
+                                   kv_layout=kv_layout, token_budget=512,
+                                   device=device, params=params)
     torch.cuda.synchronize()
-    log(f"e2e: {cfg.name} L={cfg.n_layers} d={cfg.d_model} engine built in "
-        f"{time.perf_counter() - t0:.1f} s, pool "
+    log(f"e2e {kv_layout}: {cfg.name} L={cfg.n_layers} d={cfg.d_model} "
+        f"engine built in {time.perf_counter() - t0:.1f} s, layer cache "
         f"{tuple(eng.cache[0]['k'].shape)} x {len(eng.cache)} layers x k,v")
     rng = np.random.default_rng(seed)
     eng.run([rng.integers(1, cfg.vocab_size, 9).astype(np.int32)],
@@ -345,12 +519,11 @@ def phase_e2e(torch, device, cfg, smi, n_req=16, max_new=32, seed=0):
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
                for n in lens]
     bad = []
-    _watch_logits(torch, eng.model, bad)
+    _watch_logits(torch, eng.model, bad, ("decode_step", "prefill_chunk"))
     it0, ch0, tok0 = eng.n_iters, eng.n_prefill_chunks, \
         eng.n_prefill_chunk_tokens
     torch.cuda.reset_peak_memory_stats()
-    dec.paged_decode_attention.launches = 0
-    pre.paged_prefill_attention.launches = 0
+    reset_launches()
     for p in prompts:
         eng.submit(p, max_new_tokens=max_new)
     results, decode_ms, prefill_s = [], [], 0.0
@@ -366,39 +539,44 @@ def phase_e2e(torch, device, cfg, smi, n_req=16, max_new=32, seed=0):
         else:
             prefill_s += dt
     wall = time.perf_counter() - t0
-    launches = {"paged_decode_attention": dec.paged_decode_attention.launches,
-                "paged_prefill_attention":
-                    pre.paged_prefill_attention.launches}
+    launches = read_launches()
     n_iters, n_chunks = eng.n_iters - it0, eng.n_prefill_chunks - ch0
     n_pre = eng.n_prefill_chunk_tokens - tok0
     if len(results) != n_req or any(len(r.tokens) != max_new
                                     for r in results):
-        fail(f"e2e: {len(results)} of {n_req} requests finished, token "
-             f"counts {[len(r.tokens) for r in results]}")
+        fail(f"e2e {kv_layout}: {len(results)} of {n_req} requests "
+             f"finished, token counts {[len(r.tokens) for r in results]}")
     if bool(torch.stack(bad).any()):
-        fail("e2e: non-finite logits")
+        fail(f"e2e {kv_layout}: non-finite logits")
     L = cfg.n_layers
-    if launches["paged_decode_attention"] != L * n_iters or \
-            launches["paged_prefill_attention"] != L * n_chunks:
-        fail(f"e2e: launches {launches} != {L} x ({n_iters} decode "
-             f"iterations, {n_chunks} prefill chunks)")
+    dec_k, chunk_k = LAYOUT_KERNELS[kv_layout]
+    want = {name: 0 for name in launches}
+    want[dec_k] = L * n_iters
+    if chunk_k:
+        want[chunk_k] = L * n_chunks
+    if launches != want:
+        fail(f"e2e {kv_layout}: launches {launches} != {want} ({L} x "
+             f"{n_iters} decode iterations, {n_chunks} prefill chunks)")
     gen = sum(len(r.tokens) for r in results)
-    log(f"e2e: {n_req} requests (prompts {int(lens.min())}..{int(lens.max())}"
-        f" tokens), {gen} generated tokens, {n_iters} decode iterations, "
-        f"{n_chunks} prefill chunks ({n_pre} tokens), wall {wall:.3f} s, "
-        f"{gen / wall:.1f} generated tokens/s, decode-only iteration ms p50 "
-        f"{np.percentile(decode_ms, 50):.3f} p99 "
-        f"{np.percentile(decode_ms, 99):.3f} (n={len(decode_ms)}), "
-        f"prefill {n_pre / max(prefill_s, 1e-9):.0f} tokens/s over steps "
-        f"with prefill ({prefill_s:.3f} s, their decode included), peak "
-        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-        f"[{smi}]")
-    log(f"e2e: launches {launches} == {L} x ({n_iters} iterations, "
-        f"{n_chunks} chunks)")
-    phase_profile(torch, eng, rng, float(np.percentile(decode_ms, 50)), smi)
+    res = {"tokens_per_s": gen / wall,
+           "p50": float(np.percentile(decode_ms, 50)),
+           "p99": float(np.percentile(decode_ms, 99)),
+           "prefill_tokens_per_s": n_pre / max(prefill_s, 1e-9)}
+    log(f"e2e {kv_layout}: {n_req} requests (prompts {int(lens.min())}.."
+        f"{int(lens.max())} tokens), {gen} generated tokens, {n_iters} "
+        f"decode iterations, {n_chunks} prefill chunks ({n_pre} tokens), "
+        f"wall {wall:.3f} s, {res['tokens_per_s']:.1f} generated tokens/s, "
+        f"decode-only iteration ms p50 {res['p50']:.3f} p99 "
+        f"{res['p99']:.3f} (n={len(decode_ms)}), prefill "
+        f"{res['prefill_tokens_per_s']:.0f} tokens/s over steps with "
+        f"prefill ({prefill_s:.3f} s, their decode included), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
+    log(f"e2e {kv_layout}: launches {launches} == {want}")
+    if profile:
+        phase_profile(torch, eng, rng, res["p50"], smi, kv_layout)
     del eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, res
 
 
 def _profiled(torch, fn):
@@ -423,13 +601,25 @@ def _profiled(torch, fn):
     return wall, sum(by_name.values()), n, by_name
 
 
-def phase_profile(torch, eng, rng, decode_p50_ms, smi):
+def _report_profile(report, smi, label):
+    if not all(r[3] > 0 for r in report):
+        fail(f"profile {label}: torch.profiler recorded no device time")
+    for what, steps, wall, busy, n, names in report:
+        top = sorted(names.items(), key=lambda kv: -kv[1])[:6]
+        log(f"profile {label} {what}: device busy {busy / steps:.3f} "
+            f"ms/step, {n // steps} kernels/step, profiled wall "
+            f"{wall * 1e3 / steps:.3f} ms/step [{smi}]")
+        for name, ms in top:
+            log(f"  {ms / steps:8.3f} ms/step {ms / busy:6.1%}  {name[:90]}")
+
+
+def phase_profile(torch, eng, rng, decode_p50_ms, smi, label):
     """Where an iteration's time goes: one prefill-heavy step (8 prompts
     of 30..400 tokens admitted at once under the 512-token budget) and
     three decode-only steps, each under torch.profiler. Device busy time
     is the sum of kernel durations; the decode steps' busy share is taken
-    against the unprofiled decode p50 of phase 5 (the profiler slows the
-    host)."""
+    against the unprofiled decode p50 of the drain (the profiler slows
+    the host)."""
     for n in (100, 200, 300, 400, 30, 60, 90, 120):
         eng.submit(rng.integers(1, eng.cfg.vocab_size, n).astype(np.int32),
                    max_new_tokens=16)
@@ -443,100 +633,235 @@ def phase_profile(torch, eng, rng, decode_p50_ms, smi):
             eng.step()
     wall, busy, n, names = _profiled(torch, three)
     report.append(("decode-only step", 3, wall, busy, n, names))
-    if not all(r[3] > 0 for r in report):
-        fail("profile: torch.profiler recorded no device time")
-    for label, steps, wall, busy, n, names in report:
-        top = sorted(names.items(), key=lambda kv: -kv[1])[:6]
-        log(f"profile {label}: device busy {busy / steps:.3f} ms/step, "
-            f"{n // steps} kernels/step, profiled wall "
-            f"{wall * 1e3 / steps:.3f} ms/step [{smi}]")
-        for name, ms in top:
-            log(f"  {ms / steps:8.3f} ms/step {ms / busy:6.1%}  {name[:90]}")
+    _report_profile(report, smi, label)
     busy = report[1][3] / 3
-    log(f"profile: decode-only device busy {busy:.3f} ms of the unprofiled "
-        f"p50 {decode_p50_ms:.3f} ms per iteration: idle share "
+    log(f"profile {label}: decode-only device busy {busy:.3f} ms of the "
+        f"unprofiled p50 {decode_p50_ms:.3f} ms per iteration: idle share "
         f"{1 - busy / decode_p50_ms:.1%}")
 
 
 def phase_serve(torch, device, cfg):
-    """The normal entry point, serve_continuous, at full width."""
-    from repro_torch.kernels import decode_attention as dec
-    from repro_torch.kernels import prefill_attention as pre
+    """The normal entry point, serve_continuous (paged), at full width."""
     from repro_torch.launch.engine_serve import serve_continuous
 
-    dec.paged_decode_attention.launches = 0
-    pre.paged_prefill_attention.launches = 0
+    reset_launches()
     stats = serve_continuous(cfg=cfg, kv_layout="paged", duration_s=5.0,
                              device=device)
+    got = read_launches()
     L = cfg.n_layers
-    if stats["served"] < 1 or \
-            dec.paged_decode_attention.launches != L * stats["n_iters"] or \
-            pre.paged_prefill_attention.launches != \
-            L * stats["n_prefill_chunks"]:
-        fail(f"serve_continuous: served {stats['served']}, launches "
-             f"{dec.paged_decode_attention.launches}/"
-             f"{pre.paged_prefill_attention.launches} vs stats {stats}")
+    want = {"paged_decode_attention": L * stats["n_iters"],
+            "paged_prefill_attention": L * stats["n_prefill_chunks"],
+            "flash_attention": 0, "decode_attention": 0}
+    if stats["served"] < 1 or got != want:
+        fail(f"serve_continuous: served {stats['served']}, launches {got} "
+             f"!= {want}")
     torch.cuda.empty_cache()
 
 
-# ---------------------------------------------------------------- phase 6
-def _margin(torch, cfg, params, prompt, tokens, a, b):
-    """|logit[a] - logit[b]| of the CPU model after ``prompt`` (padded as
-    the engine pads it) and ``tokens``, in one prefill chunk."""
-    from repro_torch.models import build_model
-    from repro_torch.serving.engine import SEQ_BUCKETS, _bucket
+#: batch sizes of the round-mode phase's rounds (the SAC action set)
+ROUND_SIZES = (1, 2, 4, 8, 8, 4)
 
-    S = _bucket(len(prompt), buckets=SEQ_BUCKETS)
-    seq = np.concatenate([np.zeros(S - len(prompt), np.int32), prompt,
-                          np.asarray(tokens, np.int32)])
-    bs = 16
-    nb = -(-len(seq) // bs)
-    model = build_model(cfg)
-    cache = model.init_paged_cache(1, len(seq), nb + 1, bs, device="cpu")
-    batch = {"tokens": torch.from_numpy(seq[None]),
-             "pos": torch.zeros(1, dtype=torch.int32),
-             "block_tables": torch.arange(1, nb + 1,
-                                          dtype=torch.int32)[None]}
-    logits, _ = model.prefill_chunk(params, cache, batch)
+
+def phase_round(torch, device, cfg, params, smi, max_new=32, seed=0):
+    """Round mode at full width: ``InferenceEngine.generate`` over rounds
+    of ``ROUND_SIZES`` seeded prompts (4..500 tokens), ``max_new`` tokens
+    each. Checks the launch counts (one flash launch per layer and round,
+    one decode launch per layer and token) and finite logits, then
+    profiles one round. Returns (launches, numbers)."""
+    from repro_torch.serving.engine import InferenceEngine
+
+    eng = InferenceEngine(cfg, device=device, params=params)
+    rng = np.random.default_rng(seed + 7)
+    eng.generate([rng.integers(1, cfg.vocab_size, 9).astype(np.int32)],
+                 max_new_tokens=2)  # warm-up
+    bad = []
+    _watch_logits(torch, eng.model, bad, ("prefill", "decode_step"))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rows, n_tok, total_ms = [], 0, 0.0
+    for b in ROUND_SIZES:
+        prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+                   for n in rng.integers(4, 501, b)]
+        res = eng.generate(prompts, max_new_tokens=max_new)
+        if res.tokens.shape != (b, max_new):
+            fail(f"round: tokens {res.tokens.shape} for b={b}")
+        S = max(len(p) for p in prompts)
+        rows.append((b, S, res))
+        n_tok += b * max_new
+        total_ms += res.total_ms
+    launches = read_launches()
+    L, n = cfg.n_layers, len(ROUND_SIZES)
+    want = {"paged_decode_attention": 0, "paged_prefill_attention": 0,
+            "flash_attention": L * n, "decode_attention": L * max_new * n}
+    if launches != want:
+        fail(f"round: launches {launches} != {want}")
+    if bool(torch.stack(bad).any()):
+        fail("round: non-finite logits")
+    for b, S, res in rows:
+        log(f"round b={b} (longest prompt {S}): prefill {res.prefill_ms:.1f}"
+            f" ms, decode {res.decode_ms / max_new:.2f} ms/token, "
+            f"{b * max_new / res.total_ms * 1e3:.1f} generated tokens/s "
+            f"[{smi}]")
+    out = {"tokens_per_s": n_tok / total_ms * 1e3,
+           "prefill_ms": float(np.mean([r.prefill_ms for _, _, r in rows])),
+           "decode_ms_per_token": float(np.mean(
+               [r.decode_ms / max_new for _, _, r in rows]))}
+    log(f"round: {n} rounds, {n_tok} generated tokens in "
+        f"{total_ms / 1e3:.3f} s: {out['tokens_per_s']:.1f} generated "
+        f"tokens/s, mean prefill {out['prefill_ms']:.1f} ms/round, mean "
+        f"decode {out['decode_ms_per_token']:.2f} ms/token, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
+    log(f"round: launches {launches} == {want}")
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (100, 200, 300, 400, 30, 60, 90, 120)]
+    wall, busy, nk, names = _profiled(
+        torch, lambda: eng.generate(prompts, max_new_tokens=4))
+    _report_profile([("round b=8 S=512 +4 tokens", 1, wall, busy, nk,
+                      names)], smi, "round")
+    del eng
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def phase_serve_round(torch, device, cfg, smi):
+    """The normal entry point, serve_round, at full width: the SAC agent
+    picks each round's batch size and learns from its utility."""
+    from repro_torch.launch.engine_serve import serve_round
+
+    reset_launches()
+    # 20 s (the reference's default) hold enough rounds for the agent's
+    # 32-round mini-batch
+    stats = serve_round(cfg=cfg, duration_s=20.0, device=device)
+    got = read_launches()
+    L, r = cfg.n_layers, int(stats["rounds"])
+    # the entry point's warm-up round decodes 2 tokens, each round 4
+    want = {"paged_decode_attention": 0, "paged_prefill_attention": 0,
+            "flash_attention": L * (r + 1),
+            "decode_attention": L * (4 * r + 2)}
+    if stats["served"] < 1 or stats["sac_updates"] < 1 or got != want:
+        fail(f"serve_round: {stats}, launches {got} != {want}")
+    log(f"serve_round: {stats['served']:.0f} requests in {r} rounds, "
+        f"{stats['sac_updates']:.0f} SAC updates; SAC act "
+        f"{stats['sac_act_ms']:.3f} ms/round, update "
+        f"{stats['sac_update_ms']:.3f} ms [{smi}]")
+    torch.cuda.empty_cache()
+    return stats
+
+
+# ---------------------------------------------------------------- phase 9
+def _margin(torch, cfg, params, seq, a, b):
+    """|logit[a] - logit[b]| of the CPU model after the token sequence
+    ``seq`` (padded prompt and emitted tokens), in one prefill."""
+    from repro_torch.models import build_model
+
+    logits, _ = build_model(cfg).prefill(
+        params, {"tokens": torch.from_numpy(np.asarray(seq, np.int32)[None])})
     return float((logits[0, -1, a] - logits[0, -1, b]).abs())
 
 
+def _padded(prompt, S):
+    return np.concatenate([np.zeros(S - len(prompt), np.int32), prompt])
+
+
+def _compare(torch, cfg, params, label, prompts, pads, card, cpu):
+    """Identical greedy streams, or a first divergence at a tie (logit
+    margin below 1e-5 on the CPU model). Returns tokens compared."""
+    n_tok = 0
+    for p, S, g, c in zip(prompts, pads, card, cpu):
+        g, c = np.asarray(g), np.asarray(c)
+        n_tok += len(c)
+        if np.array_equal(g, c):
+            continue
+        k = int(np.argmax(g != c))
+        m = _margin(torch, cfg, params,
+                    np.concatenate([_padded(p, S), c[:k]]), int(c[k]),
+                    int(g[k]))
+        log(f"parity {label}: diverges at token {k} (cpu {c[k]}, card "
+            f"{g[k]}), logit margin {m:.3e}")
+        if not m < 1e-5:
+            fail(f"parity {label}: card and CPU tokens differ beyond a tie "
+                 f"(margin {m:.3e})")
+    return n_tok
+
+
 def phase_parity(torch, device, cfg, n_req=8, max_new=16, seed=0):
-    """Same weights, same requests: the engine on the card (kernels) and on
-    the CPU (plain versions) must emit identical greedy tokens; a
-    divergence counts as a tie only below a logit margin of 1e-5."""
+    """Same weights, same requests: on the card (kernels) and on the CPU
+    (plain versions), the paged and the dense continuous engines and the
+    round engine must emit identical greedy tokens; a divergence counts
+    as a tie only below a logit margin of 1e-5."""
     from repro_torch.models.transformer import init_params
-    from repro_torch.serving.engine import ContinuousBatchingEngine
+    from repro_torch.serving.engine import (SEQ_BUCKETS,
+                                            ContinuousBatchingEngine,
+                                            InferenceEngine, _bucket)
 
     params = init_params(cfg, seed=seed, device="cpu")
     rng = np.random.default_rng(seed + 1)
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
                for n in np.linspace(3, 100, n_req).round().astype(int)]
-    runs = {}
-    for dev in (device, torch.device("cpu")):
-        eng = ContinuousBatchingEngine(cfg, max_slots=4, max_seq=192,
-                                       token_budget=64, device=dev,
-                                       params=params)
-        runs[dev.type] = eng.run(prompts, max_new_tokens=max_new)
-    n_tok = 0
-    for p, g, c in zip(prompts, runs[device.type], runs["cpu"]):
-        n_tok += len(c.tokens)
-        if np.array_equal(g.tokens, c.tokens):
-            continue
-        k = int(np.argmax(g.tokens != c.tokens))
-        m = _margin(torch, cfg, params, p, c.tokens[:k], int(c.tokens[k]),
-                    int(g.tokens[k]))
-        log(f"parity: request {c.request_id} diverges at token {k} "
-            f"(cpu {c.tokens[k]}, card {g.tokens[k]}), logit margin {m:.3e}")
-        if not m < 1e-5:
-            fail(f"parity: card and CPU tokens differ beyond a tie "
-                 f"(margin {m:.3e})")
+    own = [_bucket(len(p), buckets=SEQ_BUCKETS) for p in prompts]
+    for layout in ("paged", "dense"):
+        runs = {}
+        for dev in (device, torch.device("cpu")):
+            eng = ContinuousBatchingEngine(cfg, max_slots=4, max_seq=192,
+                                           kv_layout=layout, token_budget=64,
+                                           device=dev, params=params)
+            runs[dev.type] = [r.tokens for r in
+                              eng.run(prompts, max_new_tokens=max_new)]
+        n_tok = _compare(torch, cfg, params, layout, prompts, own,
+                         runs[device.type], runs["cpu"])
+        log(f"parity {layout}: {n_req} requests, {n_tok} greedy tokens "
+            "identical on card and CPU")
+    runs = {dev.type: InferenceEngine(cfg, device=dev, params=params)
+            .generate(prompts, max_new_tokens=max_new).tokens
+            for dev in (device, torch.device("cpu"))}
+    S = _bucket(max(len(p) for p in prompts), buckets=SEQ_BUCKETS)
+    n_tok = _compare(torch, cfg, params, "round", prompts, [S] * n_req,
+                     runs[device.type], runs["cpu"])
+    log(f"parity round: one round of {n_req} prompts, {n_tok} greedy "
+        "tokens identical on card and CPU")
     log(f"parity: {cfg.name} reduced (L={cfg.n_layers}, d={cfg.d_model}, "
-        f"H={cfg.n_heads}, KV={cfg.n_kv_heads}): {n_req} requests, {n_tok} "
-        f"greedy tokens identical on card and CPU")
+        f"H={cfg.n_heads}, KV={cfg.n_kv_heads}) passed on all three paths")
 
 
 # ---------------------------------------------------------------- main
+def run(torch, device, full, reduced, smi):
+    """Every phase after the build: kernels vs plain, timing, the three
+    serving paths at the width of ``full``, card-vs-CPU parity at the
+    width of ``reduced``. Returns the result line's kernel rows."""
+    from repro_torch.models.transformer import init_params
+
+    errs = phase_kernels(torch, device)
+    times = phase_timing(torch, device, smi)
+    params = init_params(full, seed=0, device=device)
+    # the two layouts' drains in turns (paged, dense, dense, paged): host
+    # time on a shared machine drifts, so only alternated runs compare
+    runs = {"paged": [], "dense": []}
+    by_layout = {}
+    for i, layout in enumerate(("paged", "dense", "dense", "paged")):
+        got, res = phase_e2e(torch, device, full, params, smi, layout,
+                             profile=i < 2)
+        by_layout.setdefault(layout, got)
+        runs[layout].append(res)
+    paged, dense = by_layout["paged"], by_layout["dense"]
+    for key, what in (("tokens_per_s", "generated tokens/s"),
+                      ("p50", "decode iteration p50 ms"),
+                      ("p99", "decode iteration p99 ms")):
+        log(f"e2e paged vs dense, {what}: {[r[key] for r in runs['paged']]}"
+            f" vs {[r[key] for r in runs['dense']]} [{smi}]")
+    phase_serve(torch, device, full)
+    rnd, _ = phase_round(torch, device, full, params, smi)
+    del params
+    torch.cuda.empty_cache()
+    phase_serve_round(torch, device, full, smi)
+    phase_parity(torch, device, reduced)
+    launches = {name: paged[name] + dense[name] + rnd[name]
+                for name in REPLACES}
+    src = "src/repro_torch/kernels/csrc/{}.cu"
+    return [{"name": n, "route": "cuda", "source": src.format(n),
+             "replaces": REPLACES[n], "launches": launches[n],
+             "max_abs_err": errs[n], **times[n]} for n in REPLACES]
+
+
 def main() -> int:
     import torch
 
@@ -555,19 +880,8 @@ def main() -> int:
     device = torch.device("cuda", 0)
     smi = phase_env(torch)
     phase_build()
-    errs = phase_kernels(torch, device)
-    times = phase_timing(torch, device, smi)
-    launches = phase_e2e(torch, device, get_config(FULL), smi)
-    phase_serve(torch, device, get_config(FULL))
-    phase_parity(torch, device, get_reduced_config(FULL))
-    src = "src/repro_torch/kernels/csrc/{}.cu"
-    replaces = {"paged_decode_attention":
-                "src/repro/kernels/decode_attention.py:164",
-                "paged_prefill_attention":
-                "src/repro/kernels/prefill_attention.py:85"}
-    kernels = [{"name": n, "route": "cuda", "source": src.format(n),
-                "replaces": replaces[n], "launches": launches[n],
-                "max_abs_err": errs[n], **times[n]} for n in replaces]
+    kernels = run(torch, device, get_config(FULL), get_reduced_config(FULL),
+                  smi)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

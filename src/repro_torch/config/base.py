@@ -1,6 +1,7 @@
-"""Model config dataclass: the port's own copy of the reference
-``ModelConfig`` (field for field, so ``dataclasses.asdict`` of one builds
-the other). ``InputShape`` and ``ServingConfig`` come with later slices.
+"""Config dataclasses: the port's own copies of the reference's
+``ModelConfig`` and ``ServingConfig`` (field for field, so
+``dataclasses.asdict`` of one builds the other). ``InputShape`` comes
+with a later slice.
 """
 from __future__ import annotations
 
@@ -133,3 +134,115 @@ class ModelConfig:
             total += self.n_enc_layers * (attn_p + dense_ffn(self.d_ff))
             total += self.n_layers * attn_p  # decoder cross-attention
         return int(total)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingConfig:
+    """BCEdge scheduler + serving layer parameters (paper §IV/§V-A); a copy
+    of the reference's, with its action codecs.
+
+    The scheduler's discrete action encodes, innermost first, the batch
+    size b, the concurrency m_c, the per-iteration token budget (0 =
+    uncapped), the speculation depth k and the tensor-parallel degree.
+    Each wider codec keeps the narrower ones' digits, so the default
+    single level of an outer axis leaves every action id unchanged.
+    ``exec_mode`` selects round (run-to-completion batches, the paper's
+    semantics) or continuous (iteration-level) execution. Out-of-range
+    values raise ``ValueError``.
+    """
+
+    batch_sizes: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64, 128)
+    concurrency_levels: Tuple[int, ...] = (1, 2, 3, 4, 5, 6, 7, 8)
+    arrival_rps: float = 30.0  # Poisson rate (paper: 30 rps)
+    platform: str = "xavier_nx"
+    slo_scale: float = 1.0  # multiply per-model SLOs (stress knob)
+    max_queue: int = 512
+    seed: int = 0
+    use_interference_predictor: bool = True
+    exec_mode: str = "round"  # "round" | "continuous"
+    decode_steps_mean: float = 1.0  # mean decode iterations per request
+    token_budgets: Tuple[int, ...] = (0,)
+    prefill_tokens_mean: float = 0.0  # mean prompt tokens (0 = single-shot)
+    preemption: bool = False  # SLO-aware eviction (continuous mode)
+    preempt_margin_ms: float = 50.0  # victim must out-slack urgent by this
+    max_preemptions: int = 2  # per-request cap (anti-thrash)
+    shared_prefix_tokens: float = 0.0
+    prefix_population: int = 4
+    prefix_cache: bool = False
+    spec_depths: Tuple[int, ...] = (0,)
+    spec_accept_rate: float = 0.6
+    tp_degrees: Tuple[int, ...] = (1,)
+
+    def __post_init__(self):
+        checks = (
+            (self.exec_mode in ("round", "continuous"), "exec_mode"),
+            (self.decode_steps_mean >= 1.0, "decode_steps_mean"),
+            (len(self.token_budgets) > 0
+             and all(t >= 0 for t in self.token_budgets), "token_budgets"),
+            (self.prefill_tokens_mean >= 0.0, "prefill_tokens_mean"),
+            (self.shared_prefix_tokens >= 0.0, "shared_prefix_tokens"),
+            (self.prefix_population >= 1, "prefix_population"),
+            (len(self.spec_depths) > 0
+             and all(k >= 0 for k in self.spec_depths), "spec_depths"),
+            (0.0 <= self.spec_accept_rate <= 1.0, "spec_accept_rate"),
+            (len(self.tp_degrees) > 0
+             and all(d >= 1 for d in self.tp_degrees), "tp_degrees"),
+        )
+        for ok, name in checks:
+            if not ok:
+                raise ValueError(f"ServingConfig.{name} out of range: "
+                                 f"{getattr(self, name)!r}")
+
+    @property
+    def n_actions(self) -> int:
+        return len(self.batch_sizes) * len(self.concurrency_levels) * \
+            len(self.token_budgets) * len(self.spec_depths) * \
+            len(self.tp_degrees)
+
+    def action_to_pair(self, a: int) -> Tuple[int, int]:
+        nb = len(self.batch_sizes)
+        a = a % (nb * len(self.concurrency_levels))
+        return self.batch_sizes[a % nb], self.concurrency_levels[a // nb]
+
+    def pair_to_action(self, b: int, m_c: int) -> int:
+        return self.concurrency_levels.index(m_c) * len(self.batch_sizes) + \
+            self.batch_sizes.index(b)
+
+    def action_to_triple(self, a: int) -> Tuple[int, int, int]:
+        nb, nm = len(self.batch_sizes), len(self.concurrency_levels)
+        nt = len(self.token_budgets)
+        a = a % (nb * nm * nt)
+        b, m_c = self.action_to_pair(a)
+        return b, m_c, self.token_budgets[a // (nb * nm)]
+
+    def triple_to_action(self, b: int, m_c: int, token_budget: int) -> int:
+        nb, nm = len(self.batch_sizes), len(self.concurrency_levels)
+        return self.token_budgets.index(token_budget) * nb * nm + \
+            self.pair_to_action(b, m_c)
+
+    def action_to_quad(self, a: int) -> Tuple[int, int, int, int]:
+        nb, nm = len(self.batch_sizes), len(self.concurrency_levels)
+        nt, nk = len(self.token_budgets), len(self.spec_depths)
+        a = a % (nb * nm * nt * nk)
+        b, m_c, tb = self.action_to_triple(a)
+        return b, m_c, tb, self.spec_depths[a // (nb * nm * nt)]
+
+    def quad_to_action(self, b: int, m_c: int, token_budget: int,
+                       spec_k: int) -> int:
+        nb, nm = len(self.batch_sizes), len(self.concurrency_levels)
+        nt = len(self.token_budgets)
+        return self.spec_depths.index(spec_k) * nb * nm * nt + \
+            self.triple_to_action(b, m_c, token_budget)
+
+    def action_to_quint(self, a: int) -> Tuple[int, int, int, int, int]:
+        nb, nm = len(self.batch_sizes), len(self.concurrency_levels)
+        nt, nk = len(self.token_budgets), len(self.spec_depths)
+        b, m_c, tb, sk = self.action_to_quad(a)
+        return b, m_c, tb, sk, self.tp_degrees[a // (nb * nm * nt * nk)]
+
+    def quint_to_action(self, b: int, m_c: int, token_budget: int,
+                        spec_k: int, tp_degree: int) -> int:
+        nb, nm = len(self.batch_sizes), len(self.concurrency_levels)
+        nt, nk = len(self.token_budgets), len(self.spec_depths)
+        return self.tp_degrees.index(tp_degree) * nb * nm * nt * nk + \
+            self.quad_to_action(b, m_c, token_budget, spec_k)

@@ -33,7 +33,21 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: <checkout>/build/kernels (kernels -> repro_torch -> src -> checkout)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
-KERNELS = ("paged_decode_attention", "paged_prefill_attention")
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: each kernel's C entry point ``<name>_f32``: the types of its leading
+#: arguments (device pointers, then ints, then the float scale); every
+#: entry point then takes the device index and the stream, and returns the
+#: launch's ``cudaError_t``
+KERNELS: Dict[str, tuple] = {
+    # q, out, k_pool, v_pool, tables, seq_lens; B H KV hd N bs nb
+    "paged_decode_attention": (_P,) * 6 + (_I,) * 7 + (_F,),
+    # q, out, k_pool, v_pool, tables, pos; B T H KV hd N bs nb
+    "paged_prefill_attention": (_P,) * 6 + (_I,) * 8 + (_F,),
+    # q, out, k, v; B S T H KV hd causal window
+    "flash_attention": (_P,) * 4 + (_I,) * 8 + (_F,),
+    # q, out, k, v, valid; B C H KV hd
+    "decode_attention": (_P,) * 5 + (_I,) * 5 + (_F,),
+}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -69,7 +83,7 @@ def _digest() -> str:
 
 def library_path(name: str) -> Path:
     if name not in KERNELS:
-        raise KeyError(f"unknown kernel {name!r}; have {KERNELS}")
+        raise KeyError(f"unknown kernel {name!r}; have {sorted(KERNELS)}")
     return BUILD_DIR / f"lib{name}-{_digest()}.so"
 
 
@@ -78,7 +92,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     missing, one ``nvcc`` process per source, all started together.
     Returns name -> library path. Raises with the compiler's output on a
     failed build."""
-    names = tuple(names) if names is not None else KERNELS
+    names = tuple(names) if names is not None else tuple(KERNELS)
     paths = {n: library_path(n) for n in names}
     todo = {n: p for n, p in paths.items() if not p.exists()}
     if not todo:
@@ -114,22 +128,49 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def load(name: str, n_ints: int) -> Callable[..., int]:
+def load(name: str) -> Callable[..., int]:
     """The C entry point ``<name>_f32`` of kernel ``name``, built first
-    if needed. Its arguments: six device pointers (q, out, k_pool,
-    v_pool, tables, per-sequence vector), ``n_ints`` ints, the float
-    scale, the device index and the stream. It returns the launch's
+    if needed, with the argument types ``KERNELS[name]`` lists followed
+    by the device index and the stream. It returns the launch's
     ``cudaError_t``."""
     with _LOCK:
         fn = _FNS.get(name)
         if fn is None:
             lib = ctypes.CDLL(str(build([name])[name]))
             fn = getattr(lib, f"{name}_f32")
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * n_ints
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+            fn.argtypes = list(KERNELS[name]) + [_I, _P]
             fn.restype = ctypes.c_int
             _FNS[name] = fn
         return fn
+
+
+def _check_common(name: str, q, k, v, others: Dict[str, tuple]) -> None:
+    """What every attention kernel takes: float32 q (B,T,H,hd) and k/v of
+    one 4-D shape with hd a multiple of 4 and H a multiple of KV; every
+    tensor contiguous and on q's CUDA device; the float tensors 16-byte
+    aligned. ``others`` maps a name to (tensor, required dtype)."""
+    def need(ok: bool, what: str) -> None:
+        if not ok:
+            raise ValueError(f"{name}: {what}")
+
+    floats = {"q": q, "k": k, "v": v}
+    tensors = {**floats, **{n: t for n, (t, _) in others.items()}}
+    for tname, t in tensors.items():
+        need(t.device == q.device, f"{tname} on {t.device}, q on {q.device}")
+        need(t.is_contiguous(), f"{tname} must be contiguous")
+    for tname, t in floats.items():
+        need(t.data_ptr() % 16 == 0, f"{tname} must be 16-byte aligned")
+        need(t.dtype == torch.float32,
+             f"{tname} must be float32 (got {t.dtype}); other types are "
+             "still to port (ROADMAP.md)")
+    for tname, (t, dtype) in others.items():
+        need(t.dtype == dtype, f"{tname} must be {dtype} (got {t.dtype})")
+    need(q.dim() == 4 and k.dim() == 4, "q and k/v must be 4-D")
+    hd, KV, H = q.shape[3], k.shape[2], q.shape[2]
+    need(v.shape == k.shape, "k and v shapes differ")
+    need(k.shape[3] == hd and hd % 4 == 0, f"head_dim {hd} vs "
+         f"{k.shape[3]}, must be equal and a multiple of 4")
+    need(KV >= 1 and H % KV == 0, f"{H} query heads over {KV} KV heads")
 
 
 def check_launch_args(name: str, q, k_pool, v_pool, block_tables,
@@ -138,31 +179,28 @@ def check_launch_args(name: str, q, k_pool, v_pool, block_tables,
     and pools (N,bs,KV,hd), int32 tables (B,nb) and per-sequence vector
     (B,), all contiguous and on one CUDA device; hd a multiple of 4 and
     H a multiple of KV. Raises ``ValueError`` otherwise."""
-    def need(ok: bool, what: str) -> None:
-        if not ok:
-            raise ValueError(f"{name}: {what}")
+    _check_common(name, q, k_pool, v_pool,
+                  {"block_tables": (block_tables, torch.int32),
+                   "per-sequence": (per_seq, torch.int32)})
+    B = q.shape[0]
+    if block_tables.dim() != 2 or block_tables.shape[0] != B:
+        raise ValueError(f"{name}: block_tables "
+                         f"{tuple(block_tables.shape)} for batch {B}")
+    if tuple(per_seq.shape) != (B,):
+        raise ValueError(f"{name}: per-sequence vector "
+                         f"{tuple(per_seq.shape)} for batch {B}")
 
-    tensors = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
-               "block_tables": block_tables, "per-sequence": per_seq}
-    for tname, t in tensors.items():
-        need(t.device == q.device, f"{tname} on {t.device}, q on {q.device}")
-        need(t.is_contiguous(), f"{tname} must be contiguous")
-        need(t.data_ptr() % 16 == 0, f"{tname} must be 16-byte aligned")
-    for tname in ("q", "k_pool", "v_pool"):
-        need(tensors[tname].dtype == torch.float32,
-             f"{tname} must be float32 (got {tensors[tname].dtype}); other "
-             "types are still to port (ROADMAP.md)")
-    for tname in ("block_tables", "per-sequence"):
-        need(tensors[tname].dtype == torch.int32,
-             f"{tname} must be int32 (got {tensors[tname].dtype})")
-    need(q.dim() == 4 and k_pool.dim() == 4, "q and pools must be 4-D")
-    B, _, H, hd = q.shape
-    _, _, KV, hd_k = k_pool.shape
-    need(v_pool.shape == k_pool.shape, "k_pool and v_pool shapes differ")
-    need(hd_k == hd and hd % 4 == 0, f"head_dim {hd} vs {hd_k}, must be "
-         "equal and a multiple of 4")
-    need(KV >= 1 and H % KV == 0, f"{H} query heads over {KV} KV heads")
-    need(block_tables.dim() == 2 and block_tables.shape[0] == B,
-         f"block_tables {tuple(block_tables.shape)} for batch {B}")
-    need(tuple(per_seq.shape) == (B,), f"per-sequence vector "
-         f"{tuple(per_seq.shape)} for batch {B}")
+
+def check_dense_args(name: str, q, k, v, valid=None) -> None:
+    """Validate what a dense attention kernel takes: float32 q (B,S,H,hd)
+    and k/v (B,T,KV,hd), and, for decode, a torch.bool ``valid`` (B,T),
+    all contiguous and on one CUDA device; hd a multiple of 4 and H a
+    multiple of KV. Raises ``ValueError`` otherwise."""
+    others = {} if valid is None else {"valid": (valid, torch.bool)}
+    _check_common(name, q, k, v, others)
+    B, T = q.shape[0], k.shape[1]
+    if k.shape[0] != B:
+        raise ValueError(f"{name}: k/v batch {k.shape[0]}, q batch {B}")
+    if valid is not None and tuple(valid.shape) != (B, T):
+        raise ValueError(f"{name}: valid {tuple(valid.shape)} for k/v "
+                         f"{tuple(k.shape)}")

@@ -9,7 +9,7 @@
 // block_tables[b, j] itself, only for live j < ceil(seq_lens[b] / bs).
 // Bound on an H100: the bytes of live K/V (decode does 4 * hd flops per
 // 8 * hd bytes of K/V per head pair, far below the fp32 ridge).
-#include "paged_attention.cuh"
+#include "attention.cuh"
 
 namespace {
 
@@ -26,9 +26,14 @@ __global__ void paged_decode_kernel(const float* __restrict__ q,
   const int G = H / KV;
   // q, out (B, 1, H, hd): the group's heads are contiguous
   const size_t base = ((size_t)b * H + (size_t)kvh * G) * hd;
-  paged_attn::attend(q + base, out + base, (size_t)H * hd, 1, G, hd, k_pool,
-                     v_pool, tables + (size_t)b * nb, nb, n_pool, bs, KV,
-                     kvh, seq_lens[b] - 1, scale, smem);
+  const int lim0 = seq_lens[b] - 1;
+  const attn::PagedSrc src{tables + (size_t)b * nb, n_pool, bs, G, lim0,
+                           (size_t)bs * KV * hd};
+  // slots past the table's nb blocks do not exist
+  const int t_end = min(lim0 + 1, nb * bs);
+  attn::attend(q + base, out + base, (size_t)H * hd, 1, G, hd,
+               k_pool + (size_t)kvh * hd, v_pool + (size_t)kvh * hd,
+               (size_t)KV * hd, src, 0, t_end, bs, scale, smem);
 }
 
 }  // namespace
@@ -42,8 +47,8 @@ extern "C" int paged_decode_attention_f32(
     int n_pool, int bs, int nb, float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = paged_attn::smem_bytes(H / KV, hd, bs);
-  err = paged_attn::allow_smem(paged_decode_kernel, smem);
+  const size_t smem = attn::smem_bytes(H / KV, hd, bs);
+  err = attn::allow_smem(paged_decode_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(KV, B);
   paged_decode_kernel<<<grid, 128, smem, (cudaStream_t)stream>>>(

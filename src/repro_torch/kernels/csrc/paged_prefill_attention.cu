@@ -13,7 +13,7 @@
 // Bound on an H100: bytes of live K/V at small T; at large T the score and
 // value products (4 * hd flops per query row and attended slot), against
 // 67 TFLOP/s fp32 outside the tensor cores.
-#include "paged_attention.cuh"
+#include "attention.cuh"
 
 namespace {
 
@@ -32,9 +32,15 @@ __global__ void paged_prefill_kernel(const float* __restrict__ q,
   const int n_rows = min(tq, T - i0);
   // q, out (B, T, H, hd): row i of the tile, heads of the group contiguous
   const size_t base = (((size_t)b * T + i0) * H + (size_t)kvh * G) * hd;
-  paged_attn::attend(q + base, out + base, (size_t)H * hd, n_rows, G, hd,
-                     k_pool, v_pool, tables + (size_t)b * nb, nb, n_pool, bs,
-                     KV, kvh, pos[b] + i0, scale, smem);
+  const int lim0 = pos[b] + i0;
+  const attn::PagedSrc src{tables + (size_t)b * nb, n_pool, bs, G, lim0,
+                           (size_t)bs * KV * hd};
+  // the sweep stops at the last row's limit; slots past the table's nb
+  // blocks do not exist
+  const int t_end = min(lim0 + n_rows, nb * bs);
+  attn::attend(q + base, out + base, (size_t)H * hd, n_rows, G, hd,
+               k_pool + (size_t)kvh * hd, v_pool + (size_t)kvh * hd,
+               (size_t)KV * hd, src, 0, t_end, bs, scale, smem);
 }
 
 }  // namespace
@@ -52,10 +58,10 @@ extern "C" int paged_prefill_attention_f32(
   // 16 query rows per tile; fewer when a wide group would not fit the
   // 227 KB of shared memory a block may use
   int tq = 16;
-  while (tq > 1 && paged_attn::smem_bytes(tq * G, hd, bs) > 227 * 1024)
+  while (tq > 1 && attn::smem_bytes(tq * G, hd, bs) > attn::SMEM_MAX)
     tq /= 2;
-  const size_t smem = paged_attn::smem_bytes(tq * G, hd, bs);
-  err = paged_attn::allow_smem(paged_prefill_kernel, smem);
+  const size_t smem = attn::smem_bytes(tq * G, hd, bs);
+  err = attn::allow_smem(paged_prefill_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + tq - 1) / tq, KV, B);
   paged_prefill_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(

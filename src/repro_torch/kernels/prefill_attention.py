@@ -83,7 +83,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0 or T == 0:
         return out
-    fn = _build.load("paged_prefill_attention", n_ints=8)
+    fn = _build.load("paged_prefill_attention")
     rc = fn(q.data_ptr(), out.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), block_tables.data_ptr(), pos.data_ptr(),
             B, T, H, KV, hd, N, bs, block_tables.shape[1], float(scale),

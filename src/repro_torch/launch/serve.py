@@ -1,10 +1,13 @@
-"""Serving launcher of the port: the real engine over a paged KV cache, on
-the GPU unless ``--device cpu`` (a subset of ``repro.launch.serve``).
+"""Serving launcher of the port: the real engine in round or continuous
+mode, on the GPU unless ``--device cpu`` (a subset of
+``repro.launch.serve``, with its defaults: round mode, dense KV).
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine
     PYTHONPATH=src python -m repro_torch.launch.serve --engine \
-        --exec-mode continuous --kv-layout paged
+        --exec-mode continuous --kv-layout dense
     PYTHONPATH=src python -m repro_torch.launch.serve --engine \
-        --exec-mode continuous --token-budget 64 --device cpu
+        --exec-mode continuous --kv-layout paged --token-budget 64 \
+        --device cpu
 """
 from __future__ import annotations
 
@@ -16,19 +19,20 @@ def main(argv=None) -> None:
     ap.add_argument("--engine", action="store_true",
                     help="serve a real model (the simulator is not ported "
                          "yet; required)")
-    ap.add_argument("--exec-mode", default="continuous",
+    ap.add_argument("--exec-mode", default="round",
                     choices=["round", "continuous"],
-                    help="continuous = iteration-level batching; round "
-                         "mode is not ported yet")
+                    help="round = run-to-completion batches whose size the "
+                         "SAC agent picks (the default, as in the JAX CLI); "
+                         "continuous = iteration-level batching")
     ap.add_argument("--arch", default="qwen3-0.6b",
                     help="architecture id, served at its reduced width")
     ap.add_argument("--rps", type=float, default=12.0,
                     help="Poisson arrival rate, requests per second")
-    ap.add_argument("--kv-layout", default="paged",
+    ap.add_argument("--kv-layout", default="dense",
                     choices=["dense", "paged"],
-                    help="KV cache layout. Defaults to paged here (the "
-                         "JAX CLI defaults to dense); the dense layout is "
-                         "not ported yet")
+                    help="KV cache layout of continuous mode (default "
+                         "dense, as in the JAX CLI; round mode always uses "
+                         "a dense per-round cache)")
     ap.add_argument("--kv-block-budget", type=int, default=None,
                     help="KV blocks in the engine's pool (default: the "
                          "dense-equivalent worst case)")

@@ -14,6 +14,9 @@ follows:
   applied as ``x @ W`` on both sides, so nothing is transposed.
 * **Tied head.** The tied LM head is the ``(V, d)`` embedding table
   itself (``transformer.py:418-421``); an untied ``lm_head`` is (d, V).
+
+The SAC scheduler's nets (:func:`sac_nets_from_jax`) are ``{"layers":
+[{"w": (in, out), "b": (out,)}, ...]}`` on both sides, also untransposed.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.core.sac import NETS
 from repro_torch.models.transformer import check_supported
 
 
@@ -67,3 +71,23 @@ def params_from_jax(params_np: Dict, cfg: ModelConfig,
     if not cfg.tie_embeddings:
         p["lm_head"] = tensor(params_np["lm_head"])
     return p
+
+
+def sac_nets_from_jax(nets_np: Dict) -> Dict:
+    """``SACAgent.load_nets`` input from the reference agent's nets with
+    numpy leaves: ``{"policy", "q1", "q2", "q1_target", "q2_target"}``
+    each ``{"layers": [{"w", "b"}, ...]}``, and the scalar
+    ``"log_alpha"``. Each net becomes the state dict of a
+    ``repro_torch.core.networks.MLP`` (CPU tensors)."""
+    def tensor(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+    out: Dict = {}
+    for name in NETS:
+        sd = {}
+        for i, layer in enumerate(nets_np[name]["layers"]):
+            sd[f"w.{i}"] = tensor(layer["w"])
+            sd[f"b.{i}"] = tensor(layer["b"])
+        out[name] = sd
+    out["log_alpha"] = tensor(nets_np["log_alpha"])
+    return out

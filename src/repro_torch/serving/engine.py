@@ -1,19 +1,28 @@
-"""Continuous (iteration-level) batching over a paged KV cache: the port
-of ``repro.serving.engine.ContinuousBatchingEngine`` with
-``kv_layout="paged"`` and fused chunked prefill.
+"""Inference engines: the port of ``repro.serving.engine``'s round-based
+``InferenceEngine`` and its ``ContinuousBatchingEngine`` with the dense
+and the paged KV layout.
 
-A fixed number of slots is decoded one token per ``step()``; finished
-sequences are evicted at iteration boundaries and queued prompts are
-prefilled in budget-bounded chunks straight into the shared block pool
-through each slot's block table (docs/ARCHITECTURE.md §5). On the card
-the attention of every layer runs the hand-written kernels
+* ``InferenceEngine`` — the paper's round semantics (§IV-D): a batch of
+  left-padded prompts is prefilled in one shot (``Model.prefill``, the
+  flash attention kernel on the card) and decoded in lock step for a
+  fixed number of tokens over a dense per-round cache.
+* ``ContinuousBatchingEngine`` — iteration-level batching: a fixed number
+  of slots is decoded one token per ``step()``; finished sequences are
+  evicted at iteration boundaries and queued prompts are prefilled in
+  budget-bounded chunks. ``kv_layout="paged"`` writes the chunks straight
+  into a shared block pool through each slot's block table
+  (docs/ARCHITECTURE.md §5); ``kv_layout="dense"`` chunks into a per-slot
+  staging cache and grafts it into the slot's row of a dense
+  ``(n_slots, cache_len)`` cache when the prompt is done.
+
+On the card the attention of every layer runs the hand-written kernels
 (``repro_torch.kernels``); on the CPU their plain versions.
 
-What this slice leaves out raises ``NotImplementedError`` at
-construction (see ROADMAP.md): the dense layout, the prefix cache,
-speculative decoding, the host KV tier, tensor parallelism and layer
-kinds other than global attention. Preemption, cancellation, the
-lifecycle hooks and ``InferenceEngine`` (round mode) come later too.
+What is still to port raises (see ROADMAP.md): seeded sampling, the
+prefix cache, speculative decoding, the host KV tier, tensor
+parallelism, windowed layers under the paged layout and layer kinds
+other than attention. Preemption, cancellation and the lifecycle hooks
+come later too.
 """
 from __future__ import annotations
 
@@ -25,22 +34,11 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.device import resolve_device, to_device
 from repro_torch.models import build_model
 from repro_torch.models.bridge import params_from_jax
-from repro_torch.models.transformer import check_supported
-
-
-def resolve_device(device="cuda") -> torch.device:
-    """The device an entry point runs on. ``"cuda"`` (the default of every
-    entry point) needs a GPU and raises without one: nothing carries on
-    on the CPU unless the caller asked for it with ``device="cpu"``."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; repro_torch runs on the GPU "
-            "unless the caller passes device='cpu' (the CPU runs the "
-            "kernels' plain PyTorch versions)")
-    return device
+from repro_torch.models.transformer import (check_paged_supported,
+                                            check_supported, pad_cache)
 
 
 def _bucket(n: int, buckets=(1, 2, 4, 8, 16, 32, 64, 128)) -> int:
@@ -67,6 +65,98 @@ def sample_tokens(logits: torch.Tensor) -> np.ndarray:
     Returns an int32 ndarray shaped ``logits.shape[:-1]``. Seeded
     sampling is not ported yet (ROADMAP.md)."""
     return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+
+
+def make_prefill_batch(cfg: ModelConfig, prompts: List[np.ndarray]
+                       ) -> Tuple[Dict[str, np.ndarray], int, np.ndarray]:
+    """Left-pad ``prompts`` into a bucketed (B, S) int32 token batch:
+    B the power-of-two bucket of the prompt count (extra rows all token
+    0), S the ``SEQ_BUCKETS`` bucket of the longest prompt. The padding
+    tokens are real positions the prompt attends, as in the reference.
+    Returns ({"tokens": (B, S)}, S, prompt lengths (B,))."""
+    B = _bucket(len(prompts))
+    S = _bucket(max(len(p) for p in prompts), buckets=SEQ_BUCKETS)
+    toks = np.zeros((B, S), np.int32)
+    lens = np.zeros((B,), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, S - len(p):] = p  # left-pad (last position = last token)
+        lens[i] = len(p)
+    return {"tokens": toks}, S, lens
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    """Output of one round-mode ``generate`` call (paper §IV-D round)."""
+    tokens: np.ndarray          # (B, new)
+    prefill_ms: float
+    decode_ms: float
+    total_ms: float
+
+
+class InferenceEngine:
+    """Round-based (run-to-completion) execution backend (paper §IV-D).
+
+    ``generate`` runs one batch round: a bucketed one-shot prefill, then
+    ``max_new_tokens`` lock-step greedy decode iterations for every
+    request in the batch over a dense cache grown by ``pad_cache``.
+
+    Runs on ``device`` (default ``"cuda"``, which raises without a GPU;
+    pass ``device="cpu"`` for the kernels' plain versions). Weights are
+    drawn from ``seed`` unless ``params`` (the port's layout) are given
+    or :meth:`load_jax_params` carries the reference's across.
+    """
+
+    def __init__(self, cfg: ModelConfig, max_seq: int = 512,
+                 dtype=torch.float32, seed: int = 0, device="cuda",
+                 params: Optional[Dict] = None):
+        check_supported(cfg)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.max_seq = max_seq
+        self.model = build_model(cfg)
+        self.params = self.model.init(seed, dtype, self.device) \
+            if params is None else to_device(params, self.device)
+
+    def load_jax_params(self, params_np: Dict) -> None:
+        """Replace the weights with the reference's (its param pytree with
+        numpy leaves; see ``repro_torch.models.bridge``)."""
+        self.params = to_device(params_from_jax(params_np, self.cfg),
+                                self.device)
+
+    def generate(self, prompts: List[np.ndarray], max_new_tokens: int = 8,
+                 greedy: bool = True, seed: int = 0) -> GenerationResult:
+        """Prefill ``prompts`` as one left-padded batch, then decode
+        ``max_new_tokens`` greedy tokens for each. Times are host-clock
+        milliseconds up to the device finishing the work."""
+        if not greedy:
+            raise NotImplementedError(
+                "seeded sampling (greedy=False) is not ported yet "
+                "(ROADMAP.md, Queue A item 3)")
+        t0 = time.perf_counter()
+        batch, S, _ = make_prefill_batch(self.cfg, prompts)
+        tokens = torch.from_numpy(batch["tokens"]).to(self.device)
+        B = tokens.shape[0]
+        logits, cache = self.model.prefill(self.params, {"tokens": tokens})
+        if self.device.type == "cuda":  # time the prefill, not its enqueue
+            torch.cuda.synchronize(self.device)
+        t1 = time.perf_counter()
+        cache = pad_cache(self.cfg, cache, max_new_tokens)
+        pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
+        out = torch.empty((B, max_new_tokens), dtype=torch.int32,
+                          device=self.device)
+        # tokens stay on the device until the round ends: no host sync
+        # per decoded token
+        tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        for t in range(max_new_tokens):
+            out[:, t] = tok
+            logits, cache = self.model.decode_step(
+                self.params, cache, {"tokens": tok[:, None], "pos": pos})
+            tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+            pos = pos + 1
+        out = out.cpu().numpy()
+        t2 = time.perf_counter()
+        return GenerationResult(out[: len(prompts)], (t1 - t0) * 1e3,
+                                (t2 - t1) * 1e3, (t2 - t0) * 1e3)
 
 
 # =====================================================================
@@ -171,6 +261,8 @@ class _Slot:
     # chunked prefill state machine
     seq_tokens: Optional[np.ndarray] = None  # left-padded prompt
     prefill_pos: int = 0        # tokens of seq_tokens processed so far
+    #: dense layout: the one-slot cache the chunks prefill into
+    staging: Optional[List[Dict]] = None
     truncated: bool = False
     #: engine-clock time the first token landed (-1 before any token)
     first_token_s: float = -1.0
@@ -230,16 +322,24 @@ class ContinuousResult:
 
 
 class ContinuousBatchingEngine:
-    """Iteration-level batching backend over a paged KV cache.
+    """Iteration-level batching backend.
 
     Every ``step()`` admits queued prompts into free slots, advances
-    their chunked prefills under the per-iteration token budget (each
-    chunk attends the pool through the slot's block table:
-    ``paged_prefill_attention``), then runs ONE decode iteration over all
-    ``n_slots`` rows (``paged_decode_attention``). A slot only holds the
-    blocks its sequence needs (prompt bucket + requested decode tokens);
-    admission is gated on reservable blocks, blocks are allocated when
-    decode crosses a block boundary, and eviction returns them.
+    their chunked prefills under the per-iteration token budget, then
+    runs ONE decode iteration over all ``n_slots`` rows.
+
+    ``kv_layout="paged"`` (the default here; the reference defaults to
+    dense): each chunk attends the block pool through the slot's block
+    table (``paged_prefill_attention``) and decode reads it the same way
+    (``paged_decode_attention``). A slot only holds the blocks its
+    sequence needs (prompt bucket + requested decode tokens); admission
+    is gated on reservable blocks, blocks are allocated when decode
+    crosses a block boundary, and eviction returns them.
+
+    ``kv_layout="dense"``: one ``(n_slots, cache_len)`` cache row per slot
+    (a ``window``-slot ring for windowed layers). Chunks prefill into a
+    one-slot staging cache that is grafted into the slot's row when the
+    prompt is done; decode runs ``decode_attention`` over the rows.
 
     The engine runs on ``device`` (default ``"cuda"``, which raises
     without a GPU; pass ``device="cpu"`` for the plain versions). Weights
@@ -256,11 +356,7 @@ class ContinuousBatchingEngine:
                  prefix_cache: bool = False, spec_k: int = 0,
                  mesh=None, device="cuda",
                  params: Optional[Dict] = None):
-        if kv_layout == "dense":
-            raise NotImplementedError(
-                "kv_layout='dense' is not ported yet (ROADMAP.md, Queue A "
-                "item 3); the port serves kv_layout='paged'")
-        if kv_layout != "paged":
+        if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         for flag, what in ((prefix_cache, "prefix_cache"),
                            (spec_k > 0, "spec_k > 0"),
@@ -270,32 +366,43 @@ class ContinuousBatchingEngine:
                 raise NotImplementedError(
                     f"{what} is not ported yet (ROADMAP.md, Queue A items "
                     "5 and 10)")
-        check_supported(cfg)
+        if kv_layout == "paged":
+            check_paged_supported(cfg)
+        else:
+            check_supported(cfg)
         if token_budget is not None and token_budget < 1:
             raise ValueError(f"token_budget must be >= 1, got {token_budget}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.n_slots = max(1, max_slots)
         self.cache_len = max_seq
+        self.kv_layout = kv_layout
         #: per-iteration cap on prefill-chunk + resident-decode tokens
         #: (None = uncapped). Mutable between steps.
         self.token_budget = token_budget
         self.model = build_model(cfg)
         self.params = self.model.init(seed, device=self.device) \
-            if params is None else self._to_device(params)
-        self.block_size = block_size
-        self.blocks_per_slot = -(-self.cache_len // block_size)
-        if kv_blocks is None:
-            # dense-equivalent worst case: admission can never refuse a
-            # request the dense layout would have taken
-            kv_blocks = self.n_slots * self.blocks_per_slot
-        self.allocator = BlockAllocator(kv_blocks, block_size)
-        # pool includes the null block 0 (id range 0..kv_blocks)
-        self.cache = self.model.init_paged_cache(
-            self.n_slots, self.cache_len, kv_blocks + 1, block_size,
-            device=self.device)
-        self.block_tables = np.zeros(
-            (self.n_slots, self.blocks_per_slot), np.int32)
+            if params is None else to_device(params, self.device)
+        if kv_layout == "paged":
+            self.block_size = block_size
+            self.blocks_per_slot = -(-self.cache_len // block_size)
+            if kv_blocks is None:
+                # dense-equivalent worst case: admission can never refuse
+                # a request the dense layout would have taken
+                kv_blocks = self.n_slots * self.blocks_per_slot
+            self.allocator = BlockAllocator(kv_blocks, block_size)
+            # pool includes the null block 0 (id range 0..kv_blocks)
+            self.cache = self.model.init_paged_cache(
+                self.n_slots, self.cache_len, kv_blocks + 1, block_size,
+                device=self.device)
+            self.block_tables = np.zeros(
+                (self.n_slots, self.blocks_per_slot), np.int32)
+        else:
+            self.block_size = 0
+            self.allocator = None
+            self.block_tables = None
+            self.cache = self.model.init_cache(self.n_slots, self.cache_len,
+                                               device=self.device)
         self.pos = np.zeros((self.n_slots,), np.int32)
         self.pending_tok = np.zeros((self.n_slots,), np.int32)
         self.slots = [_Slot() for _ in range(self.n_slots)]
@@ -309,19 +416,11 @@ class ContinuousBatchingEngine:
         self._next_id = 0
         self._t0 = time.perf_counter()
 
-    def _to_device(self, params: Dict) -> Dict:
-        def move(t):
-            if isinstance(t, dict):
-                return {k: move(v) for k, v in t.items()}
-            if isinstance(t, list):
-                return [move(v) for v in t]
-            return t.to(self.device)
-        return move(params)
-
     def load_jax_params(self, params_np: Dict) -> None:
         """Replace the weights with the reference's (its param pytree with
         numpy leaves; see ``repro_torch.models.bridge``)."""
-        self.params = self._to_device(params_from_jax(params_np, self.cfg))
+        self.params = to_device(params_from_jax(params_np, self.cfg),
+                                self.device)
 
     # ---- bookkeeping -----------------------------------------------------
     def _now(self) -> float:
@@ -377,11 +476,12 @@ class ContinuousBatchingEngine:
         if room < 1:
             raise ValueError(
                 f"prompt bucket {S} does not fit cache_len {self.cache_len}")
-        need = self.allocator.blocks_for(S + min(max_new_tokens, room))
-        if need > self.allocator.n_blocks:
-            raise ValueError(
-                f"request needs {need} blocks, pool has only "
-                f"{self.allocator.n_blocks}")
+        if self.kv_layout == "paged":
+            need = self.allocator.blocks_for(S + min(max_new_tokens, room))
+            if need > self.allocator.n_blocks:
+                raise ValueError(
+                    f"request needs {need} blocks, pool has only "
+                    f"{self.allocator.n_blocks}")
         rid = self._next_id
         self._next_id += 1
         granted = min(max_new_tokens, room)
@@ -391,9 +491,10 @@ class ContinuousBatchingEngine:
         return rid
 
     def admit(self) -> int:
-        """Move waiting prompts into free slots, FIFO, while the head
-        request's worst-case block count is reservable. Admission only
-        ASSIGNS the slot (reserves blocks, allocates the prompt's blocks,
+        """Move waiting prompts into free slots, FIFO; under the paged
+        layout only while the head request's worst-case block count is
+        reservable. Admission only ASSIGNS the slot (reserves blocks and
+        allocates the prompt's blocks, or makes the dense staging cache;
         builds the left-padded token sequence); the prefill itself
         advances in budget-bounded chunks inside ``step()``. Returns
         #admissions."""
@@ -404,23 +505,31 @@ class ContinuousBatchingEngine:
             S = _bucket(len(w.prompt), buckets=SEQ_BUCKETS)
             seq = np.zeros((S,), np.int32)
             seq[S - len(w.prompt):] = w.prompt
-            reserved = self.allocator.blocks_for(S + w.max_new)
-            if not self.allocator.reserve(reserved):
-                break  # FIFO: head of queue blocks on memory
+            reserved = n0 = 0
+            ids: List[int] = []
+            staging = None
+            if self.kv_layout == "paged":
+                reserved = self.allocator.blocks_for(S + w.max_new)
+                if not self.allocator.reserve(reserved):
+                    break  # FIFO: head of queue blocks on memory
+                # allocate the prompt's blocks now; the decode tail of the
+                # reservation is claimed lazily at block boundaries in
+                # step(). block_tables stays on the null block until the
+                # prefill lands (the decode batch's dummy writes for this
+                # row keep sinking into the null block); chunks carry
+                # their own table row.
+                n0 = self.allocator.blocks_for(S)
+                ids = [self.allocator.alloc_reserved() for _ in range(n0)]
+            else:
+                staging = self.model.init_cache(1, self.cache_len,
+                                                device=self.device)
             self.waiting.pop(0)
             slot = free.pop(0)
-            # allocate the prompt's blocks now; the decode tail of the
-            # reservation is claimed lazily at block boundaries in step().
-            # block_tables stays on the null block until the prefill lands
-            # (the decode batch's dummy writes for this row keep sinking
-            # into the null block); chunks carry their own table row.
-            n0 = self.allocator.blocks_for(S)
-            ids = [self.allocator.alloc_reserved() for _ in range(n0)]
             self.slots[slot] = _Slot(
                 request_id=w.request_id, remaining=w.max_new,
                 submit_s=w.submit_s, admit_s=self._now(), blocks=ids,
                 n_outstanding=reserved - n0, seq_tokens=seq,
-                truncated=w.truncated)
+                staging=staging, truncated=w.truncated)
             self.pos[slot] = 0
             self.n_admitted += 1
             n += 1
@@ -433,11 +542,12 @@ class ContinuousBatchingEngine:
 
     def _prefill_step(self, budget_left: int) -> int:
         """Advance in-slot chunked prefills by at most ``budget_left``
-        tokens, in power-of-two pieces of at most ``_MAX_CHUNK``. Each
-        chunk runs directly against the paged pool through a table row
-        built from the slot's allocated blocks. A slot whose last chunk
-        lands joins the decode batch of this same iteration. Returns
-        tokens processed."""
+        tokens, in power-of-two pieces of at most ``_MAX_CHUNK``. Paged:
+        each chunk runs directly against the pool through a table row
+        built from the slot's allocated blocks. Dense: each chunk runs
+        against the slot's staging cache. A slot whose last chunk lands
+        joins the decode batch of this same iteration. Returns tokens
+        processed."""
         done_tokens = 0
         for i in list(self.prefilling_slots):
             s = self.slots[i]
@@ -448,13 +558,17 @@ class ContinuousBatchingEngine:
                 c = 1 << (c.bit_length() - 1)  # largest power of two <= c
                 toks = s.seq_tokens[s.prefill_pos:s.prefill_pos + c]
                 self.prefill_shapes.add((c, self.cache_len))
-                tbl = np.zeros((1, self.blocks_per_slot), np.int32)
-                tbl[0, :len(s.blocks)] = s.blocks
                 batch = {"tokens": self._int_tensor(toks[None, :]),
-                         "pos": self._int_tensor([s.prefill_pos]),
-                         "block_tables": self._int_tensor(tbl)}
-                logits, self.cache = self.model.prefill_chunk(
-                    self.params, self.cache, batch)
+                         "pos": self._int_tensor([s.prefill_pos])}
+                if self.kv_layout == "paged":
+                    tbl = np.zeros((1, self.blocks_per_slot), np.int32)
+                    tbl[0, :len(s.blocks)] = s.blocks
+                    batch["block_tables"] = self._int_tensor(tbl)
+                    logits, self.cache = self.model.prefill_chunk(
+                        self.params, self.cache, batch)
+                else:
+                    logits, s.staging = self.model.prefill_chunk(
+                        self.params, s.staging, batch)
                 self.n_prefill_chunks += 1
                 s.prefill_pos += c
                 budget_left -= c
@@ -466,20 +580,35 @@ class ContinuousBatchingEngine:
 
     def _finish_prefill(self, slot: int, logits: torch.Tensor) -> None:
         """Last chunk landed: point the block table at the prompt's blocks
+        (paged) or graft the staging cache into the slot's row (dense),
         and hand the slot to the decode loop."""
         s = self.slots[slot]
-        self.block_tables[slot, :len(s.blocks)] = s.blocks
+        if self.kv_layout == "paged":
+            self.block_tables[slot, :len(s.blocks)] = s.blocks
+        else:
+            self._graft(s.staging, slot)
+            s.staging = None
         self.pos[slot] = s.prefill_pos
         self.pending_tok[slot] = int(sample_tokens(logits[0, -1, :]))
 
+    def _graft(self, one_cache: List[Dict], slot: int) -> None:
+        """Copy a prefilled one-slot dense cache into row ``slot`` of every
+        layer's cache, in place. The staging cache has the slot row's
+        shape (both are ``cache_len`` long, rings ``window``), so the
+        whole row is replaced: prefill wrote [0, S), the rest is zeros."""
+        for full, one in zip(self.cache, one_cache):
+            for key in ("k", "v"):
+                full[key][slot].copy_(one[key][0])
+
     # ---- iteration -------------------------------------------------------
     def _release(self, i: int) -> None:
-        """Free-on-evict: blocks return to the pool and the unconsumed tail
-        of the reservation is cancelled."""
+        """Evict slot ``i``. Paged: free-on-evict, blocks return to the
+        pool and the unconsumed tail of the reservation is cancelled."""
         s = self.slots[i]
-        self.allocator.free(s.blocks)
-        self.allocator.unreserve(s.n_outstanding)
-        self.block_tables[i, :] = 0
+        if self.kv_layout == "paged":
+            self.allocator.free(s.blocks)
+            self.allocator.unreserve(s.n_outstanding)
+            self.block_tables[i, :] = 0
         self.pos[i] = 0
         self.slots[i] = _Slot()
         self.n_evicted += 1
@@ -489,8 +618,9 @@ class ContinuousBatchingEngine:
         per-iteration token budget, then ONE decode iteration over all
         slots; evicts after. The budget caps prefill-chunk plus resident
         decode tokens. Returns the sequences that finished. Inactive
-        slots decode a dummy token at position 0 into the null block,
-        keeping the decode shape fixed at (n_slots, 1)."""
+        slots decode a dummy token at position 0 (into the null block, or
+        their own row, which admission's graft overwrites), keeping the
+        decode shape fixed at (n_slots, 1)."""
         self.admit()
         n_dec = len(self.decoding_slots)
         budget = self.token_budget if self.token_budget is not None \
@@ -506,20 +636,21 @@ class ContinuousBatchingEngine:
             s.remaining -= 1
             if s.first_token_s < 0:
                 s.first_token_s = now
-        # alloc-on-decode-boundary: the write at ``pos`` needs its block
-        # mapped before the decode runs; the admission reservation
-        # guarantees the free list cannot be empty here
-        bs = self.block_size
-        for i in active:
-            s = self.slots[i]
-            while self.pos[i] >= len(s.blocks) * bs:
-                bid = self.allocator.alloc_reserved()
-                s.n_outstanding -= 1
-                self.block_tables[i, len(s.blocks)] = bid
-                s.blocks.append(bid)
         batch = {"tokens": self._int_tensor(self.pending_tok[:, None]),
-                 "pos": self._int_tensor(self.pos),
-                 "block_tables": self._int_tensor(self.block_tables)}
+                 "pos": self._int_tensor(self.pos)}
+        if self.kv_layout == "paged":
+            # alloc-on-decode-boundary: the write at ``pos`` needs its
+            # block mapped before the decode runs; the admission
+            # reservation guarantees the free list cannot be empty here
+            bs = self.block_size
+            for i in active:
+                s = self.slots[i]
+                while self.pos[i] >= len(s.blocks) * bs:
+                    bid = self.allocator.alloc_reserved()
+                    s.n_outstanding -= 1
+                    self.block_tables[i, len(s.blocks)] = bid
+                    s.blocks.append(bid)
+            batch["block_tables"] = self._int_tensor(self.block_tables)
         logits, self.cache = self.model.decode_step(self.params, self.cache,
                                                     batch)
         nxt = sample_tokens(logits[:, -1, :])
@@ -569,13 +700,19 @@ class ContinuousBatchingEngine:
 
     @property
     def kv_allocated_tokens(self) -> int:
-        """Cache positions committed: live blocks × block_size."""
-        return self.allocator.n_live * self.block_size
+        """Cache positions committed: the whole slab (dense), or live
+        blocks × block_size (paged)."""
+        if self.kv_layout == "paged":
+            return self.allocator.n_live * self.block_size
+        return self.n_slots * self.cache_len
 
     @property
     def kv_unique_used_tokens(self) -> int:
-        """Physical cache positions live sequences occupy, per block
-        (positions past a slot's allocated blocks do not count)."""
+        """Physical cache positions live sequences occupy: per block
+        under the paged layout (positions past a slot's allocated blocks
+        do not count), ``kv_used_tokens`` under the dense one."""
+        if self.kv_layout != "paged":
+            return self.kv_used_tokens
         bs = self.block_size
         total = 0
         for i, s in enumerate(self.slots):
@@ -603,7 +740,8 @@ class ContinuousBatchingEngine:
             "kv_allocated_tokens": alloc,
             "kv_waste_frac": 1.0 - uniq / alloc if alloc else 0.0,
             "kv_reserved_tokens": float(
-                self.allocator.n_reserved * self.block_size),
+                self.allocator.n_reserved * self.block_size
+                if self.kv_layout == "paged" else 0),
             "queue_depth": float(len(self.waiting)),
             "prefill_backlog_tokens": float(self.prefill_backlog_tokens),
             "token_budget": float(self.token_budget or 0),

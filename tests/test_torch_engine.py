@@ -157,8 +157,8 @@ def test_submit_validates_prompt_bounds():
 
 
 @pytest.mark.parametrize("kw", [
-    {"kv_layout": "dense"}, {"prefix_cache": True}, {"spec_k": 2},
-    {"kv_host_blocks": 4}, {"mesh": object()}])
+    {"kv_layout": "dense", "spec_k": 2}, {"prefix_cache": True},
+    {"spec_k": 2}, {"kv_host_blocks": 4}, {"mesh": object()}])
 def test_unported_engine_features_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ContinuousBatchingEngine(_torch_cfg(TINY), device="cpu", **kw)
@@ -191,19 +191,28 @@ def test_serve_continuous_serves_on_the_cpu_when_asked():
 
 
 def test_cli_defaults_and_refusals(monkeypatch):
-    """The CLI defaults to the paged layout (the reference CLI defaults
-    to dense), needs --engine, and passes --device through."""
+    """The CLI takes the reference CLI's defaults (round mode; the dense
+    layout in continuous mode), needs --engine, and passes --device and
+    the paged options through."""
     seen = {}
     monkeypatch.setattr(engine_serve, "serve_continuous",
                         lambda *a, **kw: seen.update(kw))
-    serve_cli.main(["--engine", "--device", "cpu", "--token-budget", "8",
+    monkeypatch.setattr(engine_serve, "serve_round",
+                        lambda *a, **kw: seen.update(round=True, **kw))
+    serve_cli.main(["--engine", "--exec-mode", "continuous", "--device",
+                    "cpu"])
+    assert seen["kv_layout"] == "dense" and seen["device"] == "cpu"
+    seen.clear()
+    serve_cli.main(["--engine", "--exec-mode", "continuous", "--kv-layout",
+                    "paged", "--device", "cpu", "--token-budget", "8",
                     "--kv-block-budget", "12"])
     assert seen["kv_layout"] == "paged" and seen["device"] == "cpu"
     assert seen["token_budget"] == 8 and seen["kv_block_budget"] == 12
+    seen.clear()
+    serve_cli.main(["--engine", "--device", "cpu"])
+    assert seen == {"round": True, "device": "cpu"}
     with pytest.raises(SystemExit):
         serve_cli.main([])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve_cli.main(["--engine", "--exec-mode", "round"])
 
 
 def _env():

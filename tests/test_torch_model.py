@@ -209,17 +209,24 @@ def test_embedding_rejects_out_of_range_ids():
 
 
 def test_unported_variants_raise():
+    """Rotary variants and layer kinds still to port raise, and so do
+    windowed layers under the paged layout (their dense rings are ported,
+    the ring-beside-pool layout is not)."""
     x = torch.zeros(1, 2, 1, 4)
     pos = torch.zeros(1, 2, dtype=torch.int32)
     for variant in ("rope2d", "mrope"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             apply_rope(x, pos, variant)
-    for name in ("windowed", "rglru", "rwkv", "swa"):
+    for name in ("rglru", "rwkv"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             init_params(_torch_cfg(KIND_CFGS[name]), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_cache(_torch_cfg(TINY), 1, 8, torch.float32, paged=None,
-                   device="cpu")
+    for name in ("windowed", "swa"):
+        cfg = _torch_cfg(KIND_CFGS[name])
+        init_params(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            make_cache(cfg, 1, 8, torch.float32, paged=(4, 8), device="cpu")
+        dense = make_cache(cfg, 2, 40, torch.float32, device="cpu")
+        assert [c["k"].shape[1] for c in dense] == [cfg.sliding_window] * 2
 
 
 def test_init_params_is_seeded_and_on_the_requested_device():
