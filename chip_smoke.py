@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-GPU: builds the four hand-written attention kernels from the sources in
-this checkout, holds each against its plain PyTorch version at the main
-paths' shapes on poisoned inputs, times them, serves full-width
-qwen3-0.6b through each main path (the paged continuous engine, round
-mode with the SAC scheduler, the dense continuous engine) with exact
-kernel launch counts, and checks the card's greedy tokens against the
-CPU's on all three.
+GPU: builds the six hand-written kernels (four attention kernels, the
+RG-LRU and the RWKV-6 scans) from the sources in this checkout, holds
+each against its plain PyTorch version at the main paths' shapes on
+poisoned inputs, times them, serves full-width qwen3-0.6b through each
+main path (the paged continuous engine, round mode with the SAC
+scheduler, the dense continuous engine) and full-width recurrentgemma-2b
+and rwkv6-3b through the dense continuous engine and round mode, with
+exact kernel launch counts, and checks the card's greedy tokens against
+the CPU's on every path at reduced width.
 
     python3 chip_smoke.py
 
@@ -35,14 +37,18 @@ HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
 #: kernel vs plain version, fp32: summation order differs, nothing else
 TOL = 1e-4
-#: the model every main path serves at full width
+#: the model every main path serves at full width, and the recurrent
+#: families served after it (dense continuous engine and round mode)
 FULL = "qwen3-0.6b"
+RECURRENT = ("recurrentgemma-2b", "rwkv6-3b")
 #: kernel name -> the TPU kernel it replaces (file:line of its function)
 REPLACES = {
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:164",
     "paged_prefill_attention": "src/repro/kernels/prefill_attention.py:85",
     "flash_attention": "src/repro/kernels/flash_attention.py:75",
     "decode_attention": "src/repro/kernels/decode_attention.py:67",
+    "rglru_scan": "src/repro/kernels/rglru_scan.py:50",
+    "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:59",
 }
 
 
@@ -95,10 +101,12 @@ def phase_build() -> None:
 
 # ---------------------------------------------------------------- phase 3
 def _wrappers():
-    """name -> (module, kernel wrapper, plain version)."""
+    """name -> (kernel wrapper, plain version)."""
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels import prefill_attention as pre
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rk
 
     return {"paged_decode_attention": (dec.paged_decode_attention,
                                        dec.paged_decode_attention_plain),
@@ -106,7 +114,9 @@ def _wrappers():
                                         pre.paged_prefill_attention_plain),
             "flash_attention": (fl.flash_attention, fl.flash_attention_plain),
             "decode_attention": (dec.decode_attention,
-                                 dec.decode_attention_plain)}
+                                 dec.decode_attention_plain),
+            "rglru_scan": (rg.rglru_scan, rg.rglru_scan_plain),
+            "rwkv6_scan": (rk.rwkv6_scan, rk.rwkv6_scan_plain)}
 
 
 def reset_launches() -> None:
@@ -178,12 +188,15 @@ def paged_prefill_case(torch, device, T, pos, H=16, KV=8, hd=128, bs=16,
                 scale=hd ** -0.5)
 
 
-def _nan_tailed(torch, a, device, extra=64):
-    """``a`` (1, n, ...) on the card as the head of a buffer whose next
-    ``extra`` rows are NaN: a kernel reading past row n reads NaN."""
-    buf = np.full((1, a.shape[1] + extra) + a.shape[2:], np.nan, np.float32)
-    buf[:, :a.shape[1]] = a
-    return torch.from_numpy(buf).to(device)[:, :a.shape[1]]
+def _nan_headed(torch, a, device, extra_rows=64):
+    """``a`` on the card as a contiguous tensor at the head of a flat
+    buffer followed by ``extra_rows`` rows' worth (of axis 1) of NaN: a
+    kernel reading past its last element (past S, T or W) reads NaN."""
+    extra = extra_rows * (a.size // max(a.shape[1], 1))
+    buf = torch.full((a.size + extra,), float("nan"), device=device)
+    buf[:a.size] = torch.from_numpy(np.ascontiguousarray(a).reshape(-1)).to(
+        device)
+    return buf[:a.size].view(a.shape)
 
 
 def flash_case(torch, device, B, S, T, causal=True, window=None, H=16, KV=8,
@@ -195,7 +208,7 @@ def flash_case(torch, device, B, S, T, causal=True, window=None, H=16, KV=8,
     arrs = [rng.standard_normal((B, n, h, hd)).astype(np.float32)
             for n, h in ((S, H), (T, KV), (T, KV))]
     if B == 1:
-        q, k, v = (_nan_tailed(torch, a, device) for a in arrs)
+        q, k, v = (_nan_headed(torch, a, device) for a in arrs)
     else:
         q, k, v = (torch.from_numpy(a).to(device) for a in arrs)
     return dict(q=q, k=k, v=v, scale=hd ** -0.5, causal=causal,
@@ -210,25 +223,33 @@ FLASH_CASES = ((1, 16, 16, True, None), (1, 100, 100, True, None),
                (8, 100, 100, True, None), (8, 512, 512, True, None),
                (8, 512, 512, True, 64), (1, 40, 100, False, None))
 
+#: the local layers of recurrentgemma-2b: 10 query heads over one KV head
+#: of 256 (MQA), window 2048 (wider than any prompt bucket), and the
+#: reduced config's 64-slot window
+RG_HEADS = {"H": 10, "KV": 1, "hd": 256}
+FLASH_RG_CASES = ((1, 100, 100, True, 2048), (8, 512, 512, True, 2048),
+                  (2, 512, 512, True, 64))
 
-def decode_case(torch, device, C, mode, B=8, H=16, KV=8, hd=128, seed=4):
-    """q (8,1,16,128) against a dense (B, C, 8, 128) cache. ``mode``:
+
+def decode_case(torch, device, C, mode, B=8, H=16, KV=8, hd=128, seed=4,
+                window=64, front=None):
+    """q (B,1,H,hd) against a dense (B, C, KV, hd) cache. ``mode``:
     "linear" (ragged frontiers, full capacity included), "round" (every
-    row at one frontier, as a round's lock-step decode), or "ring" (the
-    reference's ring mask with window 64, wrapping ones included).
-    Returns the kernel's case (invalid slots NaN) and the plain
-    version's (the same cache with them zeroed)."""
+    row at one frontier, ``front`` or C - 16, as a round's lock-step
+    decode), or "ring" (the reference's ring mask with ``window``,
+    wrapping ones included). Returns the kernel's case (invalid slots
+    NaN) and the plain version's (the same cache with them zeroed)."""
     rng = np.random.default_rng(seed + C)
     slots = np.arange(C)[None, :]
     if mode == "linear":
         lens = np.array([1, 17, 100, 257, 333, 480, C - 1, C][:B])
         valid = slots < lens[:, None]
     elif mode == "round":
-        valid = np.broadcast_to(slots < C - 16, (B, C))
+        valid = np.broadcast_to(slots < (front or C - 16), (B, C))
     else:
         pos = np.array([5, 63, 64, 300, C - 1, C, C + 60, 3 * C + 7][:B])
         k_pos = pos[:, None] - ((pos[:, None] - slots) % C)
-        valid = (k_pos >= 0) & (k_pos > pos[:, None] - 64)
+        valid = (k_pos >= 0) & (k_pos > pos[:, None] - window)
     k = rng.standard_normal((B, C, KV, hd)).astype(np.float32)
     v = rng.standard_normal((B, C, KV, hd)).astype(np.float32)
     q = rng.standard_normal((B, 1, H, hd)).astype(np.float32)
@@ -248,15 +269,64 @@ def decode_case(torch, device, C, mode, B=8, H=16, KV=8, hd=128, seed=4):
 DECODE_CASES = ((544, "round"), (544, "linear"), (640, "linear"),
                 (640, "ring"))
 
+#: (C, mode, extra): recurrentgemma-2b's local layers: a round's
+#: 2048-slot ring filled to 528 (prompt bucket 512 + 16 tokens), the
+#: dense engine's 640-slot rows, a 2048-slot ring wrapping with window
+#: 2048, and the reduced config's 64-slot ring
+DECODE_RG_CASES = ((2048, "round", {"front": 528}), (640, "linear", {}),
+                   (2048, "ring", {"window": 2048}),
+                   (64, "ring", {"window": 64}))
+
+#: (B, S, W): rglru_scan at recurrentgemma-2b's width 2560, one and
+#: eight 512-token sequences, and a ragged case off every tile
+RGLRU_CASES = ((1, 512, 2560), (8, 512, 2560), (2, 33, 100))
+#: (B, S, H, hd): rwkv6_scan at rwkv6-3b's 40 heads of 64, one and
+#: eight 512-token sequences, and the largest head size (128)
+RWKV_CASES = ((1, 512, 40, 64), (8, 512, 40, 64), (1, 64, 1, 128))
+
+
+def rglru_case(torch, device, B, S, W, seed=5):
+    """The distributions of tests/test_kernels.py: a in (0.4, 0.9),
+    x and h0 normal; every input at the head of a NaN-tailed buffer."""
+    rng = np.random.default_rng(seed + B * S + W)
+    arrs = {"a": rng.random((B, S, W)) * 0.5 + 0.4,
+            "x": rng.standard_normal((B, S, W)) * 0.3,
+            "h0": rng.standard_normal((B, W)) * 0.1}
+    return {n: _nan_headed(torch, a.astype(np.float32), device)
+            for n, a in arrs.items()}
+
+
+def rwkv_case(torch, device, B, S, H, hd, seed=6):
+    """The distributions of tests/test_kernels.py: w in (0.4, 0.9), the
+    rest normal; every input at the head of a NaN-tailed buffer."""
+    rng = np.random.default_rng(seed + B * S + H * hd)
+    seq = (B, S, H, hd)
+    arrs = {"r": rng.standard_normal(seq),
+            "k": rng.standard_normal(seq) * 0.3,
+            "v": rng.standard_normal(seq) * 0.3,
+            "w": rng.random(seq) * 0.5 + 0.4,
+            "u": rng.standard_normal((H, hd)) * 0.1,
+            "state": rng.standard_normal((B, H, hd, hd)) * 0.1}
+    return {n: _nan_headed(torch, a.astype(np.float32), device)
+            for n, a in arrs.items()}
+
 #: (T, pos): one row at the last slot, chunks starting mid-block, a full
 #: 512-token first chunk and one that ends at the full 640 capacity
 PREFILL_CASES = ((1, 639), (16, 8), (128, 200), (512, 0), (512, 128))
 
 
+def _outputs(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
 def _check(torch, name, got, want, what):
-    if not torch.isfinite(got).all():
-        fail(f"{name} {what}: non-finite output (poison read)")
-    err = float((got - want).abs().max())
+    """Max abs error of every output of ``got`` against ``want``; fails
+    on a non-finite output or an error above TOL."""
+    err = 0.0
+    for g, w in zip(_outputs(got), _outputs(want)):
+        if not torch.isfinite(g).all():
+            fail(f"{name} {what}: non-finite output (poison read)")
+        err = max(err, float((g - w).abs().max()))
     log(f"{name} {what}: max abs err vs plain {err:.3e} (tolerance {TOL:g})")
     if not err <= TOL:
         fail(f"{name} {what} disagrees with its plain version: {err:.3e} > "
@@ -290,6 +360,20 @@ def phase_kernels(torch, device):
         kc, pc = decode_case(torch, device, C, mode)
         run("decode_attention", f"q (8,1,16,128) C={C} {mode}, "
             f"{int(kc['valid'].sum())} valid slots", kc, pc)
+    for B, S, T, causal, window in FLASH_RG_CASES:
+        c = flash_case(torch, device, B, S, T, causal, window, **RG_HEADS)
+        run("flash_attention", f"H=10 KV=1 hd=256 B={B} S={S} T={T} "
+            f"window={window}", c)
+    for C, mode, extra in DECODE_RG_CASES:
+        kc, pc = decode_case(torch, device, C, mode, **RG_HEADS, **extra)
+        run("decode_attention", f"q (8,1,10,256) C={C} {mode} {extra}, "
+            f"{int(kc['valid'].sum())} valid slots", kc, pc)
+    for B, S, W in RGLRU_CASES:
+        run("rglru_scan", f"(B,S,W)=({B},{S},{W}), NaN-tailed inputs",
+            rglru_case(torch, device, B, S, W))
+    for B, S, H, hd in RWKV_CASES:
+        run("rwkv6_scan", f"(B,S,H,hd)=({B},{S},{H},{hd}), NaN-tailed "
+            "inputs", rwkv_case(torch, device, B, S, H, hd))
     return errs
 
 
@@ -379,12 +463,12 @@ def _paged_job(torch, device, make, kw):
         f"q {tuple(c0['q'].shape)}"
 
 
-def _flash_job(torch, device, B, S, T, causal, window):
+def _flash_job(torch, device, B, S, T, causal, window, **heads):
     """The library call is SDPA with the same bool mask; the bound counts
     q, k, v read once, the output written once, and 4 * hd flops per
     (query head, attended pair)."""
-    copies = [flash_case(torch, device, B, S, T, causal, window, seed=20 + i)
-              for i in range(4)]
+    copies = [flash_case(torch, device, B, S, T, causal, window, seed=20 + i,
+                         **heads) for i in range(4)]
     c0 = copies[0]
     H, hd = c0["q"].shape[2], c0["q"].shape[3]
     qpos = torch.arange(S, device=device)[:, None]
@@ -403,14 +487,14 @@ def _flash_job(torch, device, B, S, T, causal, window):
     n_bytes = 4 * (2 * c0["q"].numel() + c0["k"].numel() + c0["v"].numel())
     flops = 4 * B * H * hd * int(mask.sum())
     return copies, copies, lib, _bound(n_bytes, flops), \
-        f"B={B} S={S} T={T} causal={causal} window={window}"
+        f"B={B} S={S} T={T} causal={causal} window={window} {heads or ''}"
 
 
-def _decode_job(torch, device, C, mode):
+def _decode_job(torch, device, C, mode, **kw):
     """The library call is SDPA over the zeroed cache under the validity
     mask; the bound counts q, the valid K/V slots and the mask read once,
     the output written once."""
-    pairs = [decode_case(torch, device, C, mode, seed=30 + i)
+    pairs = [decode_case(torch, device, C, mode, seed=30 + i, **kw)
              for i in range(4)]
     kern = [k for k, _ in pairs]
     plain = [p for _, p in pairs]
@@ -428,7 +512,38 @@ def _decode_job(torch, device, C, mode):
     n_bytes = 2 * c0["q"].numel() * 4 + n_valid * KV * hd * 8 + B * C
     flops = 4 * H * hd * n_valid
     return kern, plain, lib, _bound(n_bytes, flops), \
-        f"q (8,1,16,128) C={C} {mode}"
+        f"q {tuple(c0['q'].shape)} C={C} {mode} {kw or ''}"
+
+
+def _copies(n_bytes):
+    """Input copies to cycle through so that together they exceed the
+    50 MB L2 three times over (4 to 16)."""
+    return int(min(16, max(4, -(-150e6 // n_bytes))))
+
+
+def _rglru_job(torch, device, B, S, W):
+    """No single PyTorch call computes the recurrence (library none); the
+    bound counts a, x and h0 read once, hs and the final h written once,
+    and 2 flops per (b, t, w)."""
+    n_bytes = 4 * (3 * B * S * W + 2 * B * W)
+    copies = [rglru_case(torch, device, B, S, W, seed=40 + i)
+              for i in range(_copies(n_bytes))]
+    return copies, copies, None, _bound(n_bytes, 2 * B * S * W), \
+        f"(B,S,W)=({B},{S},{W})"
+
+
+def _rwkv_job(torch, device, B, S, H, hd):
+    """No single PyTorch call computes the recurrence (library none); the
+    bound counts r, k, v, w, u and the state read once, the output and
+    the final state written once, and 5 * hd^2 + 5 * hd flops per (b, t,
+    head): r . S over the keys (2 hd^2), the decay and the k v^T update
+    (3 hd^2), and the bonus, which factors as v_j * sum_i r_i u_i k_i
+    (5 hd)."""
+    n_bytes = 4 * (5 * B * S * H * hd + H * hd + 2 * B * H * hd * hd)
+    copies = [rwkv_case(torch, device, B, S, H, hd, seed=50 + i)
+              for i in range(_copies(n_bytes))]
+    return copies, copies, None, _bound(n_bytes, B * S * H * (5 * hd * hd + 5 * hd)), \
+        f"(B,S,H,hd)=({B},{S},{H},{hd})"
 
 
 def phase_timing(torch, device, smi):
@@ -446,28 +561,42 @@ def phase_timing(torch, device, smi):
                        (8, 512, 512, True, 64))]
     jobs += [("decode_attention", lambda a=a: _decode_job(torch, device, *a))
              for a in ((544, "round"), (640, "linear"), (640, "ring"))]
+    jobs += [("flash_attention", lambda a=a: _flash_job(
+        torch, device, *a, **RG_HEADS)) for a in FLASH_RG_CASES[1:]]
+    jobs += [("decode_attention", lambda c=c, m=m, x=x: _decode_job(
+        torch, device, c, m, **RG_HEADS, **x))
+        for c, m, x in DECODE_RG_CASES[:3]]
+    jobs += [("rglru_scan", lambda a=a: _rglru_job(torch, device, *a))
+             for a in RGLRU_CASES[:2]]
+    jobs += [("rwkv6_scan", lambda a=a: _rwkv_job(torch, device, *a))
+             for a in RWKV_CASES[:2]]
     out = {}
     for name, make in jobs:
         kern, plain = w[name]
         k_args, p_args, lib, (bound, by), what = make()
+        n = len(k_args)
         t = {"lib": [], "plain": [], "kern": []}
-        t["lib"].append(_time_ms(torch, lib, 4))
-        t["plain"].append(_time_ms(torch, lambda i: plain(**p_args[i]), 4))
-        t["kern"].append(_time_ms(torch, lambda i: kern(**k_args[i]), 4))
-        t["kern"].append(_time_ms(torch, lambda i: kern(**k_args[i]), 4))
-        t["plain"].append(_time_ms(torch, lambda i: plain(**p_args[i]), 4))
-        t["lib"].append(_time_ms(torch, lib, 4))
-        lib_out = lib(0).transpose(1, 2)
-        lib_err = float((lib_out - plain(**p_args[0])).abs().max())
+        if lib:
+            t["lib"].append(_time_ms(torch, lib, n))
+        t["plain"].append(_time_ms(torch, lambda i: plain(**p_args[i]), n))
+        t["kern"].append(_time_ms(torch, lambda i: kern(**k_args[i]), n))
+        t["kern"].append(_time_ms(torch, lambda i: kern(**k_args[i]), n))
+        t["plain"].append(_time_ms(torch, lambda i: plain(**p_args[i]), n))
+        lib_note = "none (no single PyTorch call)"
+        if lib:
+            t["lib"].append(_time_ms(torch, lib, n))
+            lib_err = float((lib(0).transpose(1, 2)
+                             - plain(**p_args[0])).abs().max())
+            lib_note = (f"{np.mean(t['lib']):.4f} (sdpa vs plain max err "
+                        f"{lib_err:.2e})")
         row = {"ms": float(np.mean(t["kern"])),
                "plain_ms": float(np.mean(t["plain"])),
-               "library_ms": float(np.mean(t["lib"])),
+               "library_ms": float(np.mean(t["lib"])) if lib else None,
                "bound_ms": bound, "bound_by": by}
         log(f"timing {name} {what}: kernel_ms {row['ms']:.4f} (runs "
             f"{t['kern']}), plain_ms {row['plain_ms']:.4f}, library_ms "
-            f"{row['library_ms']:.4f} (sdpa vs plain max err {lib_err:.2e}),"
-            f" bound_ms {bound:.4f} by {by}, {bound / row['ms']:.1%} of "
-            f"bound [{smi}]")
+            f"{lib_note}, bound_ms {bound:.4f} by {by}, "
+            f"{bound / row['ms']:.1%} of bound [{smi}]")
         out.setdefault(name, row)
         del k_args, p_args, lib
         torch.cuda.empty_cache()
@@ -488,11 +617,30 @@ def _watch_logits(torch, model, bad, attrs):
         setattr(model, attr, checked)
 
 
-#: kernels each continuous layout launches per decode iteration and per
-#: prefill chunk (the dense layout's chunks attend in plain PyTorch)
-LAYOUT_KERNELS = {"paged": ("paged_decode_attention",
-                            "paged_prefill_attention"),
-                  "dense": ("decode_attention", None)}
+def _want(cfg, path, n_iters=0, n_chunks=0, n_rounds=0, n_tokens=0):
+    """The exact kernel launches of one serving path: per attention layer
+    (``attn``/``local_attn``) one decode kernel per decode iteration or
+    round token and, paged, one chunk kernel per prefill chunk (dense
+    chunks attend in plain PyTorch), or one flash launch per round; per
+    recurrent layer one scan per prefill chunk or round (decode steps are
+    the one-step formula)."""
+    kinds = cfg.layer_kinds()
+    A = sum(k in ("attn", "local_attn") for k in kinds)
+    want = {name: 0 for name in REPLACES}
+    if path == "paged":
+        want["paged_decode_attention"] = A * n_iters
+        want["paged_prefill_attention"] = A * n_chunks
+        return want
+    if path == "dense":
+        want["decode_attention"] = A * n_iters
+        seqs = n_chunks
+    else:  # round
+        want["flash_attention"] = A * n_rounds
+        want["decode_attention"] = A * n_tokens
+        seqs = n_rounds
+    want["rglru_scan"] = kinds.count("rglru") * seqs
+    want["rwkv6_scan"] = kinds.count("rwkv") * seqs
+    return want
 
 
 def phase_e2e(torch, device, cfg, params, smi, kv_layout, n_req=16,
@@ -509,9 +657,11 @@ def phase_e2e(torch, device, cfg, params, smi, kv_layout, n_req=16,
                                    kv_layout=kv_layout, token_budget=512,
                                    device=device, params=params)
     torch.cuda.synchronize()
-    log(f"e2e {kv_layout}: {cfg.name} L={cfg.n_layers} d={cfg.d_model} "
-        f"engine built in {time.perf_counter() - t0:.1f} s, layer cache "
-        f"{tuple(eng.cache[0]['k'].shape)} x {len(eng.cache)} layers x k,v")
+    layouts = sorted({str({k: tuple(t.shape) for k, t in c.items()})
+                      for c in eng.cache})
+    log(f"e2e {cfg.name} {kv_layout}: {cfg.name} L={cfg.n_layers} d={cfg.d_model} "
+        f"engine built in {time.perf_counter() - t0:.1f} s, layer caches "
+        f"{', '.join(layouts)} over {len(eng.cache)} layers")
     rng = np.random.default_rng(seed)
     eng.run([rng.integers(1, cfg.vocab_size, 9).astype(np.int32)],
             max_new_tokens=2)  # warm-up: cuBLAS handles, kernel libraries
@@ -544,25 +694,20 @@ def phase_e2e(torch, device, cfg, params, smi, kv_layout, n_req=16,
     n_pre = eng.n_prefill_chunk_tokens - tok0
     if len(results) != n_req or any(len(r.tokens) != max_new
                                     for r in results):
-        fail(f"e2e {kv_layout}: {len(results)} of {n_req} requests "
+        fail(f"e2e {cfg.name} {kv_layout}: {len(results)} of {n_req} requests "
              f"finished, token counts {[len(r.tokens) for r in results]}")
     if bool(torch.stack(bad).any()):
-        fail(f"e2e {kv_layout}: non-finite logits")
-    L = cfg.n_layers
-    dec_k, chunk_k = LAYOUT_KERNELS[kv_layout]
-    want = {name: 0 for name in launches}
-    want[dec_k] = L * n_iters
-    if chunk_k:
-        want[chunk_k] = L * n_chunks
+        fail(f"e2e {cfg.name} {kv_layout}: non-finite logits")
+    want = _want(cfg, kv_layout, n_iters=n_iters, n_chunks=n_chunks)
     if launches != want:
-        fail(f"e2e {kv_layout}: launches {launches} != {want} ({L} x "
+        fail(f"e2e {cfg.name} {kv_layout}: launches {launches} != {want} ("
              f"{n_iters} decode iterations, {n_chunks} prefill chunks)")
     gen = sum(len(r.tokens) for r in results)
     res = {"tokens_per_s": gen / wall,
            "p50": float(np.percentile(decode_ms, 50)),
            "p99": float(np.percentile(decode_ms, 99)),
            "prefill_tokens_per_s": n_pre / max(prefill_s, 1e-9)}
-    log(f"e2e {kv_layout}: {n_req} requests (prompts {int(lens.min())}.."
+    log(f"e2e {cfg.name} {kv_layout}: {n_req} requests (prompts {int(lens.min())}.."
         f"{int(lens.max())} tokens), {gen} generated tokens, {n_iters} "
         f"decode iterations, {n_chunks} prefill chunks ({n_pre} tokens), "
         f"wall {wall:.3f} s, {res['tokens_per_s']:.1f} generated tokens/s, "
@@ -571,9 +716,10 @@ def phase_e2e(torch, device, cfg, params, smi, kv_layout, n_req=16,
         f"{res['prefill_tokens_per_s']:.0f} tokens/s over steps with "
         f"prefill ({prefill_s:.3f} s, their decode included), peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
-    log(f"e2e {kv_layout}: launches {launches} == {want}")
+    log(f"e2e {cfg.name} {kv_layout}: launches {launches} == {want}")
     if profile:
-        phase_profile(torch, eng, rng, res["p50"], smi, kv_layout)
+        phase_profile(torch, eng, rng, res["p50"], smi,
+                      f"{cfg.name} {kv_layout}")
     del eng
     torch.cuda.empty_cache()
     return launches, res
@@ -640,21 +786,21 @@ def phase_profile(torch, eng, rng, decode_p50_ms, smi, label):
         f"{1 - busy / decode_p50_ms:.1%}")
 
 
-def phase_serve(torch, device, cfg):
-    """The normal entry point, serve_continuous (paged), at full width."""
+def phase_serve(torch, device, cfg, kv_layout):
+    """The normal entry point, serve_continuous, at full width."""
     from repro_torch.launch.engine_serve import serve_continuous
 
     reset_launches()
-    stats = serve_continuous(cfg=cfg, kv_layout="paged", duration_s=5.0,
+    stats = serve_continuous(cfg=cfg, kv_layout=kv_layout, duration_s=5.0,
                              device=device)
     got = read_launches()
-    L = cfg.n_layers
-    want = {"paged_decode_attention": L * stats["n_iters"],
-            "paged_prefill_attention": L * stats["n_prefill_chunks"],
-            "flash_attention": 0, "decode_attention": 0}
+    want = _want(cfg, kv_layout, n_iters=int(stats["n_iters"]),
+                 n_chunks=int(stats["n_prefill_chunks"]))
     if stats["served"] < 1 or got != want:
-        fail(f"serve_continuous: served {stats['served']}, launches {got} "
-             f"!= {want}")
+        fail(f"serve_continuous {cfg.name} {kv_layout}: served "
+             f"{stats['served']}, launches {got} != {want}")
+    log(f"serve_continuous {cfg.name} {kv_layout}: {stats['served']:.0f} "
+        f"requests in 5 s, launches {got} == {want}")
     torch.cuda.empty_cache()
 
 
@@ -690,15 +836,14 @@ def phase_round(torch, device, cfg, params, smi, max_new=32, seed=0):
         n_tok += b * max_new
         total_ms += res.total_ms
     launches = read_launches()
-    L, n = cfg.n_layers, len(ROUND_SIZES)
-    want = {"paged_decode_attention": 0, "paged_prefill_attention": 0,
-            "flash_attention": L * n, "decode_attention": L * max_new * n}
+    n = len(ROUND_SIZES)
+    want = _want(cfg, "round", n_rounds=n, n_tokens=max_new * n)
     if launches != want:
         fail(f"round: launches {launches} != {want}")
     if bool(torch.stack(bad).any()):
         fail("round: non-finite logits")
     for b, S, res in rows:
-        log(f"round b={b} (longest prompt {S}): prefill {res.prefill_ms:.1f}"
+        log(f"round {cfg.name} b={b} (longest prompt {S}): prefill {res.prefill_ms:.1f}"
             f" ms, decode {res.decode_ms / max_new:.2f} ms/token, "
             f"{b * max_new / res.total_ms * 1e3:.1f} generated tokens/s "
             f"[{smi}]")
@@ -706,7 +851,7 @@ def phase_round(torch, device, cfg, params, smi, max_new=32, seed=0):
            "prefill_ms": float(np.mean([r.prefill_ms for _, _, r in rows])),
            "decode_ms_per_token": float(np.mean(
                [r.decode_ms / max_new for _, _, r in rows]))}
-    log(f"round: {n} rounds, {n_tok} generated tokens in "
+    log(f"round {cfg.name}: {n} rounds, {n_tok} generated tokens in "
         f"{total_ms / 1e3:.3f} s: {out['tokens_per_s']:.1f} generated "
         f"tokens/s, mean prefill {out['prefill_ms']:.1f} ms/round, mean "
         f"decode {out['decode_ms_per_token']:.2f} ms/token, peak memory "
@@ -717,7 +862,7 @@ def phase_round(torch, device, cfg, params, smi, max_new=32, seed=0):
     wall, busy, nk, names = _profiled(
         torch, lambda: eng.generate(prompts, max_new_tokens=4))
     _report_profile([("round b=8 S=512 +4 tokens", 1, wall, busy, nk,
-                      names)], smi, "round")
+                      names)], smi, f"round {cfg.name}")
     del eng
     torch.cuda.empty_cache()
     return launches, out
@@ -733,11 +878,9 @@ def phase_serve_round(torch, device, cfg, smi):
     # 32-round mini-batch
     stats = serve_round(cfg=cfg, duration_s=20.0, device=device)
     got = read_launches()
-    L, r = cfg.n_layers, int(stats["rounds"])
+    r = int(stats["rounds"])
     # the entry point's warm-up round decodes 2 tokens, each round 4
-    want = {"paged_decode_attention": 0, "paged_prefill_attention": 0,
-            "flash_attention": L * (r + 1),
-            "decode_attention": L * (4 * r + 2)}
+    want = _want(cfg, "round", n_rounds=r + 1, n_tokens=4 * r + 2)
     if stats["served"] < 1 or stats["sac_updates"] < 1 or got != want:
         fail(f"serve_round: {stats}, launches {got} != {want}")
     log(f"serve_round: {stats['served']:.0f} requests in {r} rounds, "
@@ -784,11 +927,12 @@ def _compare(torch, cfg, params, label, prompts, pads, card, cpu):
     return n_tok
 
 
-def phase_parity(torch, device, cfg, n_req=8, max_new=16, seed=0):
+def phase_parity(torch, device, cfg, layouts=("paged", "dense"), n_req=8,
+                 max_new=16, seed=0):
     """Same weights, same requests: on the card (kernels) and on the CPU
-    (plain versions), the paged and the dense continuous engines and the
-    round engine must emit identical greedy tokens; a divergence counts
-    as a tie only below a logit margin of 1e-5."""
+    (plain versions), the continuous engine under each of ``layouts``
+    and the round engine must emit identical greedy tokens; a divergence
+    counts as a tie only below a logit margin of 1e-5."""
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import (SEQ_BUCKETS,
                                             ContinuousBatchingEngine,
@@ -799,7 +943,7 @@ def phase_parity(torch, device, cfg, n_req=8, max_new=16, seed=0):
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
                for n in np.linspace(3, 100, n_req).round().astype(int)]
     own = [_bucket(len(p), buckets=SEQ_BUCKETS) for p in prompts]
-    for layout in ("paged", "dense"):
+    for layout in layouts:
         runs = {}
         for dev in (device, torch.device("cpu")):
             eng = ContinuousBatchingEngine(cfg, max_slots=4, max_seq=192,
@@ -809,57 +953,92 @@ def phase_parity(torch, device, cfg, n_req=8, max_new=16, seed=0):
                               eng.run(prompts, max_new_tokens=max_new)]
         n_tok = _compare(torch, cfg, params, layout, prompts, own,
                          runs[device.type], runs["cpu"])
-        log(f"parity {layout}: {n_req} requests, {n_tok} greedy tokens "
-            "identical on card and CPU")
+        log(f"parity {cfg.name} {layout}: {n_req} requests, {n_tok} greedy "
+            "tokens identical on card and CPU")
     runs = {dev.type: InferenceEngine(cfg, device=dev, params=params)
             .generate(prompts, max_new_tokens=max_new).tokens
             for dev in (device, torch.device("cpu"))}
     S = _bucket(max(len(p) for p in prompts), buckets=SEQ_BUCKETS)
     n_tok = _compare(torch, cfg, params, "round", prompts, [S] * n_req,
                      runs[device.type], runs["cpu"])
-    log(f"parity round: one round of {n_req} prompts, {n_tok} greedy "
-        "tokens identical on card and CPU")
+    log(f"parity {cfg.name} round: one round of {n_req} prompts, {n_tok} "
+        "greedy tokens identical on card and CPU")
     log(f"parity: {cfg.name} reduced (L={cfg.n_layers}, d={cfg.d_model}, "
-        f"H={cfg.n_heads}, KV={cfg.n_kv_heads}) passed on all three paths")
+        f"kinds {sorted(set(cfg.layer_kinds()))}) passed on "
+        f"{len(layouts) + 1} paths")
 
 
 # ---------------------------------------------------------------- main
-def run(torch, device, full, reduced, smi):
+def run(torch, device, smi):
     """Every phase after the build: kernels vs plain, timing, the three
-    serving paths at the width of ``full``, card-vs-CPU parity at the
-    width of ``reduced``. Returns the result line's kernel rows."""
+    serving paths of full-width qwen3-0.6b, then the dense continuous
+    engine and round mode of each full-width recurrent family (one model
+    on the card at a time), and card-vs-CPU parity at reduced width.
+    Returns the result line's kernel rows, with the launches of every
+    main path's run summed."""
+    from repro_torch.config import get_config, get_reduced_config
     from repro_torch.models.transformer import init_params
 
     errs = phase_kernels(torch, device)
     times = phase_timing(torch, device, smi)
+    launches = {name: 0 for name in REPLACES}
+
+    def add(got):
+        for name, n in got.items():
+            launches[name] += n
+
+    full = get_config(FULL)
     params = init_params(full, seed=0, device=device)
     # the two layouts' drains in turns (paged, dense, dense, paged): host
     # time on a shared machine drifts, so only alternated runs compare
     runs = {"paged": [], "dense": []}
-    by_layout = {}
     for i, layout in enumerate(("paged", "dense", "dense", "paged")):
         got, res = phase_e2e(torch, device, full, params, smi, layout,
                              profile=i < 2)
-        by_layout.setdefault(layout, got)
+        if i < 2:
+            add(got)
         runs[layout].append(res)
-    paged, dense = by_layout["paged"], by_layout["dense"]
     for key, what in (("tokens_per_s", "generated tokens/s"),
                       ("p50", "decode iteration p50 ms"),
                       ("p99", "decode iteration p99 ms")):
         log(f"e2e paged vs dense, {what}: {[r[key] for r in runs['paged']]}"
             f" vs {[r[key] for r in runs['dense']]} [{smi}]")
-    phase_serve(torch, device, full)
-    rnd, _ = phase_round(torch, device, full, params, smi)
+    phase_serve(torch, device, full, "paged")
+    add(phase_round(torch, device, full, params, smi)[0])
     del params
     torch.cuda.empty_cache()
     phase_serve_round(torch, device, full, smi)
-    phase_parity(torch, device, reduced)
-    launches = {name: paged[name] + dense[name] + rnd[name]
-                for name in REPLACES}
+    phase_parity(torch, device, get_reduced_config(FULL))
+    for arch in RECURRENT:
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0, device=device)
+        torch.cuda.synchronize()
+        log(f"{arch}: {sum(t.numel() for t in _leaves(params)) / 1e9:.2f} G "
+            f"params initialised on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+        add(phase_e2e(torch, device, cfg, params, smi, "dense")[0])
+        add(phase_round(torch, device, cfg, params, smi)[0])
+        del params
+        torch.cuda.empty_cache()
+        phase_parity(torch, device, get_reduced_config(arch), ("dense",))
+    phase_serve(torch, device, get_config(RECURRENT[-1]), "dense")
+    idle = [name for name, n in launches.items() if n == 0]
+    if idle:
+        fail(f"kernels never launched on a main path: {idle}")
     src = "src/repro_torch/kernels/csrc/{}.cu"
     return [{"name": n, "route": "cuda", "source": src.format(n),
              "replaces": REPLACES[n], "launches": launches[n],
              "max_abs_err": errs[n], **times[n]} for n in REPLACES]
+
+
+def _leaves(tree):
+    """The tensors of a nested dict/list of params."""
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def main() -> int:
@@ -874,14 +1053,12 @@ def main() -> int:
               "root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch.config import get_config, get_reduced_config
 
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     smi = phase_env(torch)
     phase_build()
-    kernels = run(torch, device, get_config(FULL), get_reduced_config(FULL),
-                  smi)
+    kernels = run(torch, device, smi)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

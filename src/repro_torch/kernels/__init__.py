@@ -3,6 +3,7 @@ that launches it on CUDA tensors and a plain PyTorch version that CPU
 tensors take. Kernels build with ``nvcc`` at first use (``_build``).
 
 The wrappers live in their modules: ``decode_attention`` (dense and
-paged decode), ``flash_attention`` and ``prefill_attention`` (paged
-chunks). Import them from there: the dense kernels' functions share
+paged decode), ``flash_attention``, ``prefill_attention`` (paged
+chunks), ``rglru_scan`` and ``rwkv6_scan`` (the recurrent families'
+sequence forms). Import them from there: the dense kernels' functions share
 their modules' names."""

@@ -35,9 +35,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: each kernel's C entry point ``<name>_f32``: the types of its leading
-#: arguments (device pointers, then ints, then the float scale); every
-#: entry point then takes the device index and the stream, and returns the
-#: launch's ``cudaError_t``
+#: arguments (device pointers, then ints, then the attention kernels'
+#: float scale); every entry point then takes the device index and the
+#: stream, and returns the launch's ``cudaError_t``
 KERNELS: Dict[str, tuple] = {
     # q, out, k_pool, v_pool, tables, seq_lens; B H KV hd N bs nb
     "paged_decode_attention": (_P,) * 6 + (_I,) * 7 + (_F,),
@@ -47,6 +47,10 @@ KERNELS: Dict[str, tuple] = {
     "flash_attention": (_P,) * 4 + (_I,) * 8 + (_F,),
     # q, out, k, v, valid; B C H KV hd
     "decode_attention": (_P,) * 5 + (_I,) * 5 + (_F,),
+    # a, x, h0, hs, h_final; B S W
+    "rglru_scan": (_P,) * 5 + (_I,) * 3,
+    # r, k, v, w, u, state, out, s_final; B S H hd
+    "rwkv6_scan": (_P,) * 8 + (_I,) * 4,
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -130,8 +134,9 @@ def build_log(name: str) -> str:
 
 def load(name: str) -> Callable[..., int]:
     """The C entry point ``<name>_f32`` of kernel ``name``, built first
-    if needed, with the argument types ``KERNELS[name]`` lists followed
-    by the device index and the stream. It returns the launch's
+    if needed, with the argument types ``KERNELS[name]`` lists (the
+    attention kernels end with the float scale) followed by the device
+    index and the stream. It returns the launch's
     ``cudaError_t``."""
     with _LOCK:
         fn = _FNS.get(name)
@@ -204,3 +209,23 @@ def check_dense_args(name: str, q, k, v, valid=None) -> None:
     if valid is not None and tuple(valid.shape) != (B, T):
         raise ValueError(f"{name}: valid {tuple(valid.shape)} for k/v "
                          f"{tuple(k.shape)}")
+
+
+def check_scan_args(name: str, tensors: Dict[str, torch.Tensor],
+                    shapes: Dict[str, tuple]) -> None:
+    """Validate what a recurrent scan kernel takes: every tensor float32,
+    contiguous, on the first one's CUDA device and of the shape
+    ``shapes`` gives it. Raises ``ValueError`` otherwise."""
+    dev = next(iter(tensors.values())).device
+    for tname, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name}: {tname} on {t.device}, expected {dev}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: {tname} must be float32 (got "
+                             f"{t.dtype}); other types are still to port "
+                             "(ROADMAP.md)")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {tname} must be contiguous")
+        if tuple(t.shape) != tuple(shapes[tname]):
+            raise ValueError(f"{name}: {tname} {tuple(t.shape)}, expected "
+                             f"{tuple(shapes[tname])}")

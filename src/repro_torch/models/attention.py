@@ -50,8 +50,8 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Dict:
                          scale=1.0 / (cfg.n_heads * hd) ** 0.5),
     }
     if cfg.qk_norm:
-        p["q_norm"] = norm_init(hd, dtype, device)
-        p["k_norm"] = norm_init(hd, dtype, device)
+        p["q_norm"] = norm_init(hd, "rmsnorm", dtype, device)
+        p["k_norm"] = norm_init(hd, "rmsnorm", dtype, device)
     return p
 
 
@@ -64,8 +64,8 @@ def _project_qkv(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
     v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
-        q = apply_norm(p["q_norm"], q)
-        k = apply_norm(p["k_norm"], k)
+        q = apply_norm(p["q_norm"], q, "rmsnorm")
+        k = apply_norm(p["k_norm"], k, "rmsnorm")
     q = apply_rope(q, positions, cfg.rope, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope, cfg.rope_theta)
     return q, k, v

@@ -9,7 +9,9 @@ follows:
   axis, and an unrolled ``"tail"`` tuple follows
   (``transformer.py:68-100``). Layer order is: for each unit, for each
   pattern position; then the tail. :func:`unstack_layers` undoes this,
-  for params and for decode caches alike.
+  for params and for decode caches alike, and carries every kind's
+  nested dicts leaf for leaf (attention, RG-LRU ``rec``, RWKV
+  ``time_mix``/``channel_mix``; recurrent states in caches).
 * **Weight orientation.** Dense weights are stored ``(d_in, d_out)`` and
   applied as ``x @ W`` on both sides, so nothing is transposed.
 * **Tied head.** The tied LM head is the ``(V, d)`` embedding table

@@ -31,29 +31,54 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
 
 
 # ---------------------------------------------------------------- norms
-def norm_init(d: int, dtype, device) -> Dict:
-    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+def norm_init(d: int, kind: str, dtype, device) -> Dict:
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
 
 
-def apply_norm(p: Dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm with eps inside the sqrt and f32 statistics (the only norm
-    ported so far; layernorm comes with the families that use it)."""
+def apply_norm(p: Dict, x: torch.Tensor, kind: str,
+               eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm or LayerNorm over the last axis, eps inside the sqrt, f32
+    statistics. LayerNorm takes the population variance (``jnp.var``)."""
     xf = x.float()
-    rms = torch.sqrt(xf.square().mean(-1, keepdim=True) + eps)
-    return (xf / rms * p["scale"].float()).to(x.dtype)
+    if kind == "rmsnorm":
+        rms = torch.sqrt(xf.square().mean(-1, keepdim=True) + eps)
+        out = xf / rms * p["scale"].float()
+    elif kind == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        out = (xf - mu) / torch.sqrt(var + eps)
+        out = out * p["scale"].float() + p["bias"].float()
+    else:
+        raise ValueError(f"unknown norm {kind!r}")
+    return out.to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation (the exact erf
+    form differs by about 1e-3, enough to change greedy tokens)."""
+    return F.gelu(x, approximate="tanh")
 
 
 # ---------------------------------------------------------------- MLP
-def mlp_init(gen: torch.Generator, d: int, f: int, dtype, device) -> Dict:
-    return {"w_up": dense_init(gen, d, f, dtype, device),
-            "w_down": dense_init(gen, f, d, dtype, device),
-            "w_gate": dense_init(gen, d, f, dtype, device)}
+def mlp_init(gen: torch.Generator, d: int, f: int, gated: bool, dtype,
+             device) -> Dict:
+    p = {"w_up": dense_init(gen, d, f, dtype, device),
+         "w_down": dense_init(gen, f, d, dtype, device)}
+    if gated:
+        p["w_gate"] = dense_init(gen, d, f, dtype, device)
+    return p
 
 
-def apply_mlp(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU (the reference's ``activation="silu"`` MLP; the GELU
-    variants are not ported yet)."""
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+def apply_mlp(p: Dict, x: torch.Tensor, activation: str) -> torch.Tensor:
+    """``"silu"``: SwiGLU; ``"geglu"``: gated tanh-GELU; ``"gelu"``: a
+    plain tanh-GELU MLP (the reference's ``apply_mlp``)."""
+    act = F.silu if activation == "silu" else gelu
+    up = x @ p["w_up"]
+    up = act(x @ p["w_gate"]) * up if "w_gate" in p else act(up)
+    return up @ p["w_down"]
 
 
 # ---------------------------------------------------------------- embed

@@ -1,8 +1,8 @@
 """Rotary position embedding.
 
-``rope`` — standard half-rotation RoPE (llama / starcoder2 / yi / qwen3),
-the only variant ported so far; ``rope2d``, ``mrope`` and ``none`` raise
-(ROADMAP.md, Queue A item 9).
+``rope`` — standard half-rotation RoPE (llama / starcoder2 / yi / qwen3);
+``none`` — no rotation (the attention-free rwkv configs). ``rope2d`` and
+``mrope`` raise (ROADMAP.md, Queue A item 9).
 """
 from __future__ import annotations
 
@@ -29,6 +29,8 @@ def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, variant: str,
                theta: float = 10_000.0) -> torch.Tensor:
     """x: (B, S, H, hd); positions: (B, S) absolute token positions."""
+    if variant == "none":
+        return x
     if variant != "rope":
         raise NotImplementedError(
             f"rope variant {variant!r} is not ported yet (ROADMAP.md, "

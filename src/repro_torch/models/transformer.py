@@ -1,15 +1,17 @@
 """Decoder trunk: the port of ``repro.models.transformer`` for the global
-``attn`` and windowed ``local_attn`` layer kinds.
+``attn``, windowed ``local_attn``, ``rglru`` (RecurrentGemma) and
+``rwkv`` (RWKV-6) layer kinds.
 
 Params are a nested dict: ``embed`` (V, d), ``final_norm``, optional
 ``lm_head`` (d, V), and ``layers``, a list with one dict per layer in
 execution order (the reference stacks units for ``lax.scan``; here the
 trunk is a plain loop over ``cfg.layer_kinds()``). A decode cache is a
-list with one ``{"k", "v"}`` dict per layer: a dense ``(B, C, KV, hd)``
-slab (C = ``cache_len``, or the window for a windowed layer's ring
-buffer) or a paged ``(n_blocks, bs, KV, hd)`` block pool. Windowed
-layers keep dense ring buffers; under the paged layout they are not
-ported yet (ROADMAP.md), nor are the other layer kinds.
+list with one dict per layer: ``{"k", "v"}`` as a dense ``(B, C, KV,
+hd)`` slab (C = ``cache_len``, or the window for a windowed layer's ring
+buffer) or a paged ``(n_blocks, bs, KV, hd)`` block pool; a recurrent
+layer's per-slot state (``models.rglru``, ``models.rwkv``). Windowed and
+recurrent layers stay dense; under the paged layout they are not ported
+yet (ROADMAP.md).
 
 Forward modes (the reference's names):
   * ``prefill(params, batch)``              — logits + dense prefill cache
@@ -27,38 +29,54 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rg
+from repro_torch.models import rwkv as rk
 from repro_torch.models.layers import (apply_embed, apply_mlp, apply_norm,
                                        dense_init, embed_init, mlp_init,
                                        norm_init, unembed)
 
+#: the layer kinds ported so far, and the recurrent ones among them
+KINDS = ("attn", "local_attn", "rglru", "rwkv")
+RECURRENT = ("rglru", "rwkv")
+
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not cover yet:
-    layer kinds other than ``attn`` and ``local_attn``, MoE,
-    encoder-decoder and frontend models, and norms, MLPs or rotary
-    variants other than RMSNorm, SwiGLU and ``rope``."""
+    layer kinds other than ``attn``, ``local_attn``, ``rglru`` and
+    ``rwkv``, MoE, encoder-decoder and frontend models, and rotary
+    variants other than ``rope`` and ``none``."""
     kinds = set(cfg.layer_kinds())
-    if not kinds <= {"attn", "local_attn"}:
+    if not kinds <= set(KINDS):
         raise NotImplementedError(
-            f"{cfg.name}: layer kinds {sorted(kinds)}; only 'attn' and "
-            "'local_attn' are ported so far (ROADMAP.md, Queue A)")
+            f"{cfg.name}: layer kinds {sorted(kinds)}; only {list(KINDS)} "
+            "are ported so far (ROADMAP.md, Queue A item 9)")
     if cfg.n_experts or cfg.enc_dec or cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: MoE, encoder-decoder and frontend models are not "
             "ported yet (ROADMAP.md, Queue A item 9)")
-    if (cfg.norm, cfg.activation, cfg.rope) != ("rmsnorm", "silu", "rope"):
+    if (cfg.norm not in ("rmsnorm", "layernorm")
+            or cfg.activation not in ("silu", "geglu", "gelu")
+            or cfg.rope not in ("rope", "none")):
         raise NotImplementedError(
             f"{cfg.name}: norm {cfg.norm!r}, activation {cfg.activation!r}, "
-            f"rope {cfg.rope!r}; only rmsnorm, silu (SwiGLU) and rope are "
-            "ported so far (ROADMAP.md, Queue A items 2 and 9)")
+            f"rope {cfg.rope!r}; rope2d and mrope are not ported yet "
+            "(ROADMAP.md, Queue A item 9)")
 
 
 def check_paged_supported(cfg: ModelConfig) -> None:
     """``check_supported`` plus the paged layout's limit: every layer's
-    KV must live in the block pool, so windowed layers (dense ring
-    buffers beside the pool in the reference) raise."""
+    state must live in the block pool, so recurrent layers and windowed
+    layers (per-slot dense state and ring buffers beside the pool in the
+    reference) raise."""
     check_supported(cfg)
-    windowed = [k for k in cfg.layer_kinds() if _window_for(cfg, k)]
+    kinds = cfg.layer_kinds()
+    recurrent = sorted({k for k in kinds if k in RECURRENT})
+    if recurrent:
+        raise NotImplementedError(
+            f"{cfg.name}: recurrent layers {recurrent} under the paged "
+            "layout keep per-slot dense state beside the pool, not ported "
+            "yet (ROADMAP.md, Queue A item 2); serve kv_layout='dense'")
+    windowed = [k for k in kinds if _window_for(cfg, k)]
     if windowed:
         raise NotImplementedError(
             f"{cfg.name}: sliding-window layers under the paged layout keep "
@@ -75,14 +93,23 @@ def _window_for(cfg: ModelConfig, kind: str) -> Optional[int]:
 # =====================================================================
 # parameter construction
 # =====================================================================
-def _layer_init(gen: torch.Generator, cfg: ModelConfig, dtype,
+def _layer_init(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype,
                 device) -> Dict:
-    return {
-        "attn_norm": norm_init(cfg.d_model, dtype, device),
-        "attn": attn.attn_init(gen, cfg, dtype, device),
-        "ffn_norm": norm_init(cfg.d_model, dtype, device),
-        "ffn": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device),
-    }
+    """One layer's params by kind, as the reference's ``_layer_init``: an
+    RWKV layer is its whole block; an RG-LRU layer carries its own norm
+    inside ``rec`` (no ``attn_norm``); an attention layer has
+    ``attn_norm`` and ``attn``. All but RWKV end in the norm and MLP."""
+    if kind == "rwkv":
+        return rk.rwkv_init(gen, cfg, dtype, device)
+    if kind == "rglru":
+        p = {"rec": rg.rglru_init(gen, cfg, dtype, device)}
+    else:
+        p = {"attn_norm": norm_init(cfg.d_model, cfg.norm, dtype, device),
+             "attn": attn.attn_init(gen, cfg, dtype, device)}
+    p["ffn_norm"] = norm_init(cfg.d_model, cfg.norm, dtype, device)
+    p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff,
+                        cfg.activation in ("silu", "geglu"), dtype, device)
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
@@ -97,28 +124,48 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     gen.manual_seed(seed)
     p: Dict = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device),
-        "final_norm": norm_init(cfg.d_model, dtype, device),
+        "final_norm": norm_init(cfg.d_model, cfg.norm, dtype, device),
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype,
                                   device, scale=0.02)
-    p["layers"] = [_layer_init(gen, cfg, dtype, device)
-                   for _ in range(cfg.n_layers)]
+    p["layers"] = [_layer_init(gen, cfg, kind, dtype, device)
+                   for kind in cfg.layer_kinds()]
     return p
 
 
 # =====================================================================
 # layers and trunks
 # =====================================================================
-def _layer_full(p: Dict, x: torch.Tensor, cfg: ModelConfig, window,
+def _ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return x + apply_mlp(p["ffn"], apply_norm(p["ffn_norm"], x, cfg.norm),
+                         cfg.activation)
+
+
+def _recurrent(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
+               state: Dict, decode: bool) -> Tuple[torch.Tensor, Dict]:
+    """A recurrent layer from ``state``: RWKV's whole residual block, or
+    the RG-LRU block plus the norm and MLP. Returns (x, new state)."""
+    if kind == "rwkv":
+        return rk.rwkv_block(p, x, cfg, state, decode)
+    h = apply_norm(p["rec"]["norm"], x, cfg.norm)
+    fn = rg.rglru_decode if decode else rg.rglru_seq
+    out, new_state = fn(p["rec"], h, cfg, state)
+    return _ffn(p, x + out, cfg), new_state
+
+
+def _layer_full(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 positions: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence layer; returns (x, the layer's prefill cache)."""
-    h = apply_norm(p["attn_norm"], x)
+    """Full-sequence layer; returns (x, the layer's prefill cache: K/V,
+    or the recurrent state after the sequence)."""
+    if kind in RECURRENT:
+        state = _layer_cache(cfg, kind, x.shape[0], 0, x.dtype, x.device)
+        return _recurrent(p, x, cfg, kind, state, decode=False)
+    window = _window_for(cfg, kind)
+    h = apply_norm(p["attn_norm"], x, cfg.norm)
     out, k, v = attn.attention_full(p["attn"], h, cfg, positions,
                                     window=window)
-    x = x + out
-    x = x + apply_mlp(p["ffn"], apply_norm(p["ffn_norm"], x))
-    return x, _prefill_kv(k, v, cfg, window)
+    return _ffn(p, x + out, cfg), _prefill_kv(k, v, cfg, window)
 
 
 def _prefill_kv(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
@@ -140,64 +187,48 @@ def _prefill_kv(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
     return ring
 
 
-def _layer_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig, window,
-                  cache: Dict, ctx: Dict) -> torch.Tensor:
-    h = apply_norm(p["attn_norm"], x)
+def _layer_step(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                cache: Dict, ctx: Dict, decode: bool) -> torch.Tensor:
+    """A decode step (``decode``, one token) or a prefill chunk against
+    the layer's cache. K/V are written into the cache in place; a
+    recurrent layer runs from its state and replaces the state's tensors
+    in ``cache``."""
+    if kind in RECURRENT:
+        x, new_state = _recurrent(p, x, cfg, kind, cache, decode)
+        cache.update(new_state)
+        return x
+    window = _window_for(cfg, kind)
+    h = apply_norm(p["attn_norm"], x, cfg.norm)
     tables = ctx.get("block_tables")
     if tables is not None and window is None:
-        out = attn.attention_decode_paged(p["attn"], h, cache, tables,
-                                          ctx["pos"], cfg)
+        fn = attn.attention_decode_paged if decode \
+            else attn.attention_chunk_paged
+        out = fn(p["attn"], h, cache, tables, ctx["pos"], cfg)
     else:
-        out = attn.attention_decode(p["attn"], h, cache, ctx["pos"], cfg,
-                                    window=window)
-    x = x + out
-    return x + apply_mlp(p["ffn"], apply_norm(p["ffn_norm"], x))
-
-
-def _layer_chunk(p: Dict, x: torch.Tensor, cfg: ModelConfig, window,
-                 cache: Dict, ctx: Dict) -> torch.Tensor:
-    h = apply_norm(p["attn_norm"], x)
-    tables = ctx.get("block_tables")
-    if tables is not None and window is None:
-        out = attn.attention_chunk_paged(p["attn"], h, cache, tables,
-                                         ctx["pos"], cfg)
-    else:
-        out = attn.attention_prefill_chunk(p["attn"], h, cache, ctx["pos"],
-                                           cfg, window=window)
-    x = x + out
-    return x + apply_mlp(p["ffn"], apply_norm(p["ffn_norm"], x))
-
-
-def _windows(cfg: ModelConfig) -> List[Optional[int]]:
-    return [_window_for(cfg, k) for k in cfg.layer_kinds()]
+        fn = attn.attention_decode if decode else attn.attention_prefill_chunk
+        out = fn(p["attn"], h, cache, ctx["pos"], cfg, window=window)
+    return _ffn(p, x + out, cfg)
 
 
 def _trunk_full(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor) -> Tuple[torch.Tensor, List[Dict]]:
     cache = []
-    for p_l, window in zip(params["layers"], _windows(cfg)):
-        x, c = _layer_full(p_l, x, cfg, window, positions)
+    for p_l, kind in zip(params["layers"], cfg.layer_kinds()):
+        x, c = _layer_full(p_l, x, cfg, kind, positions)
         cache.append(c)
     return x, cache
 
 
-def _trunk_decode(params: Dict, x: torch.Tensor, cfg: ModelConfig,
-                  cache: List[Dict], ctx: Dict) -> torch.Tensor:
-    for p_l, window, c_l in zip(params["layers"], _windows(cfg), cache):
-        x = _layer_decode(p_l, x, cfg, window, c_l, ctx)
-    return x
-
-
-def _trunk_chunk(params: Dict, x: torch.Tensor, cfg: ModelConfig,
-                 cache: List[Dict], ctx: Dict) -> torch.Tensor:
-    for p_l, window, c_l in zip(params["layers"], _windows(cfg), cache):
-        x = _layer_chunk(p_l, x, cfg, window, c_l, ctx)
+def _trunk_step(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                cache: List[Dict], ctx: Dict, decode: bool) -> torch.Tensor:
+    for p_l, kind, c_l in zip(params["layers"], cfg.layer_kinds(), cache):
+        x = _layer_step(p_l, x, cfg, kind, c_l, ctx, decode)
     return x
 
 
 def _lm_logits(params: Dict, x: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
-    x = apply_norm(params["final_norm"], x)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return unembed(x, head, cfg.tie_embeddings, cfg.logit_softcap)
 
@@ -205,14 +236,27 @@ def _lm_logits(params: Dict, x: torch.Tensor,
 # =====================================================================
 # cache construction
 # =====================================================================
+def _layer_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
+                 dtype, device) -> Dict:
+    """One layer's dense decode cache: a recurrent state, a ring of
+    ``min(cache_len, window)`` slots, or a linear ``cache_len`` slab."""
+    if kind == "rwkv":
+        return rk.rwkv_state_init(cfg, batch, dtype, device)
+    if kind == "rglru":
+        return rg.rglru_state_init(cfg, batch, dtype, device)
+    window = _window_for(cfg, kind)
+    return attn.init_kv_cache(cfg, batch, cache_len if window is None
+                              else min(cache_len, window), dtype, device)
+
+
 def make_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
                paged: Optional[Tuple[int, int]] = None,
                device="cuda") -> List[Dict]:
     """Decode cache for ``batch`` slots of ``cache_len`` tokens: per layer
     a dense ``(batch, cache_len, KV, hd)`` slab (a windowed layer's ring
-    buffer holds ``min(cache_len, window)`` slots), or with
-    ``paged=(n_blocks, block_size)`` one block pool ``(n_blocks,
-    block_size, KV, hd)`` shared by all slots."""
+    buffer holds ``min(cache_len, window)`` slots; a recurrent layer its
+    per-slot state), or with ``paged=(n_blocks, block_size)`` one block
+    pool ``(n_blocks, block_size, KV, hd)`` shared by all slots."""
     if paged is not None:
         check_paged_supported(cfg)
         n_blocks, block_size = paged
@@ -220,19 +264,19 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
                                          device)
                 for _ in range(cfg.n_layers)]
     check_supported(cfg)
-    return [attn.init_kv_cache(cfg, batch, cache_len if w is None
-                               else min(cache_len, w), dtype, device)
-            for w in _windows(cfg)]
+    return [_layer_cache(cfg, kind, batch, cache_len, dtype, device)
+            for kind in cfg.layer_kinds()]
 
 
 def pad_cache(cfg: ModelConfig, cache: List[Dict],
               extra: int) -> List[Dict]:
     """Extend linear (non-windowed) dense caches by ``extra`` zero slots
     so a prefill cache of S entries absorbs decode writes at
-    S..S+extra-1. Ring buffers are fixed-size and pass through."""
+    S..S+extra-1. Ring buffers and recurrent states are fixed-size and
+    pass through."""
     out = []
-    for c, window in zip(cache, _windows(cfg)):
-        if window is not None:
+    for c, kind in zip(cache, cfg.layer_kinds()):
+        if kind in RECURRENT or _window_for(cfg, kind) is not None:
             out.append(c)
             continue
         out.append({key: torch.cat([t, t.new_zeros(
@@ -260,7 +304,8 @@ class Model:
         """``batch = {"tokens": (B,S)}`` at positions 0..S-1 (plain token
         prompts; frontends are not ported). Returns (last-position logits
         (B,1,V), the dense prefill cache: S rows per linear layer, a
-        ``window``-slot ring per windowed layer)."""
+        ``window``-slot ring per windowed layer, the state after S tokens
+        per recurrent layer)."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = apply_embed(params["embed"], tokens)
@@ -278,11 +323,12 @@ class Model:
         chunk's K/V is written through the table while its queries
         attend earlier blocks in place. Dense: the queries attend the
         cache and their own causal prefix, then the chunk's K/V is
-        written. Returns (last-position logits (B,1,V), cache), the cache
+        written; recurrent layers run their sequence form from the
+        carried state. Returns (last-position logits (B,1,V), cache), the cache
         updated in place. A prompt processed in chunks is math-identical
         to one processed in a single chunk."""
         x = apply_embed(params["embed"], batch["tokens"])
-        x = _trunk_chunk(params, x, self.cfg, cache, batch)
+        x = _trunk_step(params, x, self.cfg, cache, batch, decode=False)
         return _lm_logits(params, x[:, -1:, :], self.cfg), cache
 
     @torch.no_grad()
@@ -292,13 +338,14 @@ class Model:
         ``"block_tables": (B,nb)`` for a paged cache; returns (logits
         (B,1,V), cache), the cache updated in place."""
         x = apply_embed(params["embed"], batch["tokens"])
-        x = _trunk_decode(params, x, self.cfg, cache, batch)
+        x = _trunk_step(params, x, self.cfg, cache, batch, decode=True)
         return _lm_logits(params, x, self.cfg), cache
 
     def init_cache(self, batch: int, cache_len: int, dtype=torch.float32,
                    device="cuda") -> List[Dict]:
-        """Dense decode cache: per layer ``(batch, cache_len, KV, hd)``, or
-        a ``window``-slot ring buffer for a windowed layer."""
+        """Dense decode cache: per layer ``(batch, cache_len, KV, hd)``, a
+        ``window``-slot ring buffer for a windowed layer, or a recurrent
+        layer's zero state."""
         return make_cache(self.cfg, batch, cache_len, dtype, device=device)
 
     def init_paged_cache(self, batch: int, cache_len: int, n_blocks: int,

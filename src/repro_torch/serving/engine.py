@@ -18,11 +18,15 @@ and the paged KV layout.
 On the card the attention of every layer runs the hand-written kernels
 (``repro_torch.kernels``); on the CPU their plain versions.
 
+Both engines serve the attention and the recurrent families (RG-LRU,
+RWKV-6); a recurrent layer's per-slot state sits beside the K/V rows of
+the dense layout and is grafted with them.
+
 What is still to port raises (see ROADMAP.md): seeded sampling, the
 prefix cache, speculative decoding, the host KV tier, tensor
-parallelism, windowed layers under the paged layout and layer kinds
-other than attention. Preemption, cancellation and the lifecycle hooks
-come later too.
+parallelism, windowed and recurrent layers under the paged layout, and
+MoE, encoder-decoder and frontend models. Preemption, cancellation and
+the lifecycle hooks come later too.
 """
 from __future__ import annotations
 
@@ -337,9 +341,10 @@ class ContinuousBatchingEngine:
     crosses a block boundary, and eviction returns them.
 
     ``kv_layout="dense"``: one ``(n_slots, cache_len)`` cache row per slot
-    (a ``window``-slot ring for windowed layers). Chunks prefill into a
-    one-slot staging cache that is grafted into the slot's row when the
-    prompt is done; decode runs ``decode_attention`` over the rows.
+    (a ``window``-slot ring for windowed layers, a state row for recurrent
+    ones). Chunks prefill into a one-slot staging cache that is grafted
+    into the slot's row when the prompt is done; decode runs
+    ``decode_attention`` over the rows.
 
     The engine runs on ``device`` (default ``"cuda"``, which raises
     without a GPU; pass ``device="cpu"`` for the plain versions). Weights
@@ -593,12 +598,15 @@ class ContinuousBatchingEngine:
 
     def _graft(self, one_cache: List[Dict], slot: int) -> None:
         """Copy a prefilled one-slot dense cache into row ``slot`` of every
-        layer's cache, in place. The staging cache has the slot row's
-        shape (both are ``cache_len`` long, rings ``window``), so the
-        whole row is replaced: prefill wrote [0, S), the rest is zeros."""
+        leaf of every layer's cache, in place (the reference's
+        ``graft_layer`` maps over every leaf): K/V rows, and a recurrent
+        layer's state (``h`` and ``conv``; ``att_state``, ``att_shift``
+        and ``ffn_shift``). The staging cache has the slot row's shape
+        (``cache_len`` long, rings ``window``), so the whole row is
+        replaced: prefill wrote [0, S), the rest is zeros."""
         for full, one in zip(self.cache, one_cache):
-            for key in ("k", "v"):
-                full[key][slot].copy_(one[key][0])
+            for key, t in full.items():
+                t[slot].copy_(one[key][0])
 
     # ---- iteration -------------------------------------------------------
     def _release(self, i: int) -> None:

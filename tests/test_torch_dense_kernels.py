@@ -173,15 +173,16 @@ def test_dense_launch_args_are_validated():
 def test_every_kernel_has_a_source_and_its_own_entry_point_types():
     """Each kernel builds from its own csrc source into its own library
     and declares its C entry point's argument types: device pointers,
-    then ints, then the float scale."""
-    assert set(_build.KERNELS) == {"paged_decode_attention",
-                                   "paged_prefill_attention",
-                                   "flash_attention", "decode_attention"}
+    then ints, then (the attention kernels) the float scale."""
+    attention = {"paged_decode_attention", "paged_prefill_attention",
+                 "flash_attention", "decode_attention"}
+    assert set(_build.KERNELS) == attention | {"rglru_scan", "rwkv6_scan"}
     for name, types in _build.KERNELS.items():
         assert (_build.CSRC / f"{name}.cu").is_file()
         assert _build.library_path(name).name.startswith(f"lib{name}-")
         kinds = [t.__name__ for t in types]
-        assert kinds[-1] == "c_float"
+        if name in attention:
+            assert kinds.pop() == "c_float"
         n_ptr = kinds.index("c_int")
         assert set(kinds[:n_ptr]) == {"c_void_p"}
-        assert set(kinds[n_ptr:-1]) == {"c_int"}
+        assert set(kinds[n_ptr:]) == {"c_int"}

@@ -209,17 +209,24 @@ def test_embedding_rejects_out_of_range_ids():
 
 
 def test_unported_variants_raise():
-    """Rotary variants and layer kinds still to port raise, and so do
-    windowed layers under the paged layout (their dense rings are ported,
-    the ring-beside-pool layout is not)."""
+    """Rotary variants and model families still to port (MoE) raise, and
+    so do windowed and recurrent layers under the paged layout (their
+    dense rings and per-slot states are ported, the state-beside-pool
+    layout is not)."""
     x = torch.zeros(1, 2, 1, 4)
     pos = torch.zeros(1, 2, dtype=torch.int32)
     for variant in ("rope2d", "mrope"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             apply_rope(x, pos, variant)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        init_params(_torch_cfg(dataclasses.replace(TINY, name="tiny-moe",
+                                                   n_experts=4)),
+                    device="cpu")
     for name in ("rglru", "rwkv"):
+        cfg = _torch_cfg(KIND_CFGS[name])
+        init_params(cfg, device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            init_params(_torch_cfg(KIND_CFGS[name]), device="cpu")
+            make_cache(cfg, 1, 8, torch.float32, paged=(4, 8), device="cpu")
     for name in ("windowed", "swa"):
         cfg = _torch_cfg(KIND_CFGS[name])
         init_params(cfg, device="cpu")
