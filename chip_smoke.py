@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-GPU: builds the six hand-written kernels (four attention kernels, the
-RG-LRU and the RWKV-6 scans) from the sources in this checkout, holds
-each against its plain PyTorch version at the main paths' shapes on
-poisoned inputs, times them, serves full-width qwen3-0.6b through each
-main path (the paged continuous engine, round mode with the SAC
-scheduler, the dense continuous engine) and full-width recurrentgemma-2b
-and rwkv6-3b through the dense continuous engine and round mode, with
-exact kernel launch counts, and checks the card's greedy tokens against
-the CPU's on every path at reduced width.
+GPU: builds the seven hand-written kernels (four attention kernels, the
+RG-LRU and the RWKV-6 scans, the grouped expert GEMM) from the sources in
+this checkout, holds each against its plain PyTorch version at the main
+paths' shapes on poisoned inputs, times them, serves full-width
+qwen3-0.6b through each main path (the paged continuous engine, round
+mode with the SAC scheduler, the dense continuous engine), full-width
+recurrentgemma-2b and rwkv6-3b through the dense continuous engine and
+round mode, and arctic-480b at full width cut to one layer through the
+paged continuous engine and round mode, with exact kernel launch counts,
+and checks the card's greedy tokens against the CPU's on every path at
+reduced width (the MoE family also with capacity drops).
 
     python3 chip_smoke.py
 
@@ -20,6 +22,7 @@ nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -41,6 +44,11 @@ TOL = 1e-4
 #: families served after it (dense continuous engine and round mode)
 FULL = "qwen3-0.6b"
 RECURRENT = ("recurrentgemma-2b", "rwkv6-3b")
+#: the MoE family: arctic-480b served at full width cut to MOE_LAYERS
+#: layer (one layer is 14.12 G parameters, 52.6 GiB in fp32; two would
+#: not fit the card's 80 GB), both checked at reduced width
+MOE = ("arctic-480b", "llama4-maverick-400b-a17b")
+MOE_LAYERS = 1
 #: kernel name -> the TPU kernel it replaces (file:line of its function)
 REPLACES = {
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:164",
@@ -49,6 +57,7 @@ REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:67",
     "rglru_scan": "src/repro/kernels/rglru_scan.py:50",
     "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:59",
+    "moe_matmul": "src/repro/kernels/moe_matmul.py:36",
 }
 
 
@@ -104,6 +113,7 @@ def _wrappers():
     """name -> (kernel wrapper, plain version)."""
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import moe_matmul as mm
     from repro_torch.kernels import prefill_attention as pre
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import rwkv6_scan as rk
@@ -116,7 +126,8 @@ def _wrappers():
             "decode_attention": (dec.decode_attention,
                                  dec.decode_attention_plain),
             "rglru_scan": (rg.rglru_scan, rg.rglru_scan_plain),
-            "rwkv6_scan": (rk.rwkv6_scan, rk.rwkv6_scan_plain)}
+            "rwkv6_scan": (rk.rwkv6_scan, rk.rwkv6_scan_plain),
+            "moe_matmul": (mm.moe_matmul, mm.moe_matmul_plain)}
 
 
 def reset_launches() -> None:
@@ -310,6 +321,44 @@ def rwkv_case(torch, device, B, S, H, hd, seed=6):
     return {n: _nan_headed(torch, a.astype(np.float32), device)
             for n, a in arrs.items()}
 
+
+#: (E, C, d, f): moe_matmul at the shapes of tests/test_kernels.py (C, d
+#: and f off the kernel's 8/16-row, 64-deep and 512-column tiles)
+MOE_REF_CASES = ((2, 32, 64, 48), (4, 40, 48, 56), (8, 16, 128, 128))
+#: (E, C, d, f) at full-width arctic-480b (128 experts, d 7168, expert
+#: width 4864): the capacity of a decode iteration over 8 slots (top-2,
+#: 8.0 slots of 8), of a 512-token prefill chunk (16) and of a round's
+#: one-shot prefill at b=8, S=512 (80), for w_gate/w_up; w_down swaps d
+#: and f
+MOE_ARCTIC = (128, 7168, 4864)
+MOE_ARCTIC_CASES = ((128, 8, 7168, 4864), (128, 16, 7168, 4864),
+                    (128, 8, 4864, 7168))
+MOE_TIMING_CASES = ((128, 8, 7168, 4864), (128, 16, 7168, 4864),
+                    (128, 80, 7168, 4864))
+
+
+def _nan_headed_randn(torch, shape, scale, device, gen, extra_rows=64):
+    """N(0, scale^2) drawn on the card (a 17.9 GB weight is not built on
+    the host) at the head of a buffer followed by ``extra_rows`` rows'
+    worth (of axis 1) of NaN, as ``_nan_headed``."""
+    n = int(np.prod(shape))
+    buf = torch.full((n + extra_rows * (n // shape[1]),), float("nan"),
+                     device=device)
+    buf[:n].normal_(generator=gen).mul_(scale)
+    return buf[:n].view(shape)
+
+
+def moe_case(torch, device, E, C, D, F, seed=8):
+    """x normal and w normal * 0.1 (tests/test_kernels.py) at the small
+    shapes; at arctic's the model's scales, x normal (a normed
+    activation) and w * D^-0.5 (moe_init), so outputs are O(1) as in the
+    model. Both at the head of NaN-tailed buffers."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + E * C + D)
+    w_scale = 0.1 if (E, C, D, F) in MOE_REF_CASES else D ** -0.5
+    return {"x": _nan_headed_randn(torch, (E, C, D), 1.0, device, gen),
+            "w": _nan_headed_randn(torch, (E, D, F), w_scale, device, gen)}
+
 #: (T, pos): one row at the last slot, chunks starting mid-block, a full
 #: 512-token first chunk and one that ends at the full 640 capacity
 PREFILL_CASES = ((1, 639), (16, 8), (128, 200), (512, 0), (512, 128))
@@ -374,6 +423,12 @@ def phase_kernels(torch, device):
     for B, S, H, hd in RWKV_CASES:
         run("rwkv6_scan", f"(B,S,H,hd)=({B},{S},{H},{hd}), NaN-tailed "
             "inputs", rwkv_case(torch, device, B, S, H, hd))
+    for E, C, D, F in MOE_REF_CASES + MOE_ARCTIC_CASES:
+        c = moe_case(torch, device, E, C, D, F)
+        run("moe_matmul", f"x ({E},{C},{D}) @ w ({E},{D},{F}), NaN-tailed "
+            "inputs", c)
+        del c
+        torch.cuda.empty_cache()
     return errs
 
 
@@ -546,6 +601,21 @@ def _rwkv_job(torch, device, B, S, H, hd):
         f"(B,S,H,hd)=({B},{S},{H},{hd})"
 
 
+def _moe_job(torch, device, E, C, D, F):
+    """The library call is ``torch.bmm`` (fp32, TF32 off); the bound counts
+    x and w read once, the output written once, and 2 flops per (e, c,
+    d, f). One copy of each input: w alone (17.9 GB at arctic's widths)
+    is far past the 50 MB L2."""
+    c = moe_case(torch, device, E, C, D, F, seed=60)
+
+    def lib(i):
+        return torch.bmm(c["x"], c["w"])
+
+    n_bytes = 4 * (E * C * D + E * D * F + E * C * F)
+    return [c], [c], lib, _bound(n_bytes, 2 * E * C * D * F), \
+        f"x ({E},{C},{D}) @ w ({E},{D},{F})"
+
+
 def phase_timing(torch, device, smi):
     """CUDA-event times of kernel, plain version and the library call, in
     the order plain, kernel, kernel, plain (library at both ends). The
@@ -570,6 +640,8 @@ def phase_timing(torch, device, smi):
              for a in RGLRU_CASES[:2]]
     jobs += [("rwkv6_scan", lambda a=a: _rwkv_job(torch, device, *a))
              for a in RWKV_CASES[:2]]
+    jobs += [("moe_matmul", lambda a=a: _moe_job(torch, device, *a))
+             for a in MOE_TIMING_CASES]
     out = {}
     for name, make in jobs:
         kern, plain = w[name]
@@ -585,10 +657,14 @@ def phase_timing(torch, device, smi):
         lib_note = "none (no single PyTorch call)"
         if lib:
             t["lib"].append(_time_ms(torch, lib, n))
-            lib_err = float((lib(0).transpose(1, 2)
-                             - plain(**p_args[0])).abs().max())
-            lib_note = (f"{np.mean(t['lib']):.4f} (sdpa vs plain max err "
-                        f"{lib_err:.2e})")
+            got = lib(0)
+            if name != "moe_matmul":  # SDPA's (B, H, T, hd)
+                got = got.transpose(1, 2)
+            lib_err = float((got - plain(**p_args[0])).abs().max())
+            lib_note = (f"{np.mean(t['lib']):.4f} "
+                        f"({'bmm' if name == 'moe_matmul' else 'sdpa'} vs "
+                        f"plain max err {lib_err:.2e})")
+            del got
         row = {"ms": float(np.mean(t["kern"])),
                "plain_ms": float(np.mean(t["plain"])),
                "library_ms": float(np.mean(t["lib"])) if lib else None,
@@ -619,14 +695,21 @@ def _watch_logits(torch, model, bad, attrs):
 
 def _want(cfg, path, n_iters=0, n_chunks=0, n_rounds=0, n_tokens=0):
     """The exact kernel launches of one serving path: per attention layer
-    (``attn``/``local_attn``) one decode kernel per decode iteration or
-    round token and, paged, one chunk kernel per prefill chunk (dense
-    chunks attend in plain PyTorch), or one flash launch per round; per
-    recurrent layer one scan per prefill chunk or round (decode steps are
-    the one-step formula)."""
+    (``attn``/``attn_dense``/``local_attn``) one decode kernel per decode
+    iteration or round token and, paged, one chunk kernel per prefill
+    chunk (dense chunks attend in plain PyTorch), or one flash launch per
+    round; per recurrent layer one scan per prefill chunk or round (decode
+    steps are the one-step formula); per MoE layer three grouped GEMMs
+    (gate, up, down) per forward: every decode iteration, chunk, round and
+    round token."""
     kinds = cfg.layer_kinds()
-    A = sum(k in ("attn", "local_attn") for k in kinds)
+    A = sum(k in ("attn", "attn_dense", "local_attn") for k in kinds)
+    M = sum(k != "attn_dense" for k in kinds) if cfg.n_experts else 0
     want = {name: 0 for name in REPLACES}
+    if path in ("paged", "dense"):
+        want["moe_matmul"] = 3 * M * (n_iters + n_chunks)
+    else:
+        want["moe_matmul"] = 3 * M * (n_rounds + n_tokens)
     if path == "paged":
         want["paged_decode_attention"] = A * n_iters
         want["paged_prefill_attention"] = A * n_chunks
@@ -757,6 +840,11 @@ def _report_profile(report, smi, label):
             f"{wall * 1e3 / steps:.3f} ms/step [{smi}]")
         for name, ms in top:
             log(f"  {ms / steps:8.3f} ms/step {ms / busy:6.1%}  {name[:90]}")
+        moe_ms = sum(ms for name, ms in names.items()
+                     if "moe_matmul_kernel" in name)
+        if moe_ms:
+            log(f"  moe_matmul: {moe_ms / steps:.3f} ms/step, "
+                f"{moe_ms / busy:.1%} of device busy")
 
 
 def phase_profile(torch, eng, rng, decode_p50_ms, smi, label):
@@ -906,9 +994,57 @@ def _padded(prompt, S):
     return np.concatenate([np.zeros(S - len(prompt), np.int32), prompt])
 
 
-def _compare(torch, cfg, params, label, prompts, pads, card, cpu):
-    """Identical greedy streams, or a first divergence at a tie (logit
-    margin below 1e-5 on the CPU model). Returns tokens compared."""
+class _RouterWatch:
+    """While active, wraps ``repro_torch.models.moe.moe_apply`` (which the
+    trunk calls through its module) to record each MoE call's
+    ``drop_frac`` and the smallest gap between neighbouring ranked router
+    probs among each row's top k + 1: the routing decisions a rounding
+    difference between card and CPU could flip. Kept as device tensors
+    and read once."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe
+
+        self.torch, self.moe = torch, moe
+        self.drops, self.gaps = [], []
+
+    def __enter__(self):
+        torch, orig = self.torch, self.moe.moe_apply
+        self.orig = orig
+
+        def watched(p, x, cfg):
+            y, aux = orig(p, x, cfg)
+            probs = torch.softmax(
+                (x.reshape(-1, x.shape[-1]) @ p["router"]).float(), dim=-1)
+            top = torch.topk(probs, min(cfg.top_k + 1, cfg.n_experts),
+                             dim=-1).values
+            if top.shape[1] > 1:
+                self.gaps.append((top[:, :-1] - top[:, 1:]).min())
+            self.drops.append(aux["drop_frac"])
+            return y, aux
+        self.moe.moe_apply = watched
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_apply = self.orig
+
+    def min_gap(self) -> float:
+        return float(self.torch.stack(self.gaps).min()) if self.gaps \
+            else float("inf")
+
+    def max_drop(self) -> float:
+        return float(self.torch.stack(self.drops).max()) if self.drops \
+            else 0.0
+
+
+def _compare(torch, cfg, params, label, prompts, pads, card, cpu,
+             router_gap=float("inf")):
+    """Identical greedy streams, or a first divergence at a tie: a logit
+    margin below 1e-5 on the CPU model (one prefill of the sequence), or,
+    in an MoE model, a routing near-tie: two neighbouring ranked router
+    probs (top k + 1) within 1e-5 somewhere in the CPU run (``router_gap``;
+    under capacity drops the one-shot prefill's N is not the engine's, so
+    this is the check that applies). Returns tokens compared."""
     n_tok = 0
     for p, S, g, c in zip(prompts, pads, card, cpu):
         g, c = np.asarray(g), np.asarray(c)
@@ -920,19 +1056,21 @@ def _compare(torch, cfg, params, label, prompts, pads, card, cpu):
                     np.concatenate([_padded(p, S), c[:k]]), int(c[k]),
                     int(g[k]))
         log(f"parity {label}: diverges at token {k} (cpu {c[k]}, card "
-            f"{g[k]}), logit margin {m:.3e}")
-        if not m < 1e-5:
+            f"{g[k]}), logit margin {m:.3e}, smallest router gap "
+            f"{router_gap:.3e}")
+        if not (m < 1e-5 or router_gap < 1e-5):
             fail(f"parity {label}: card and CPU tokens differ beyond a tie "
-                 f"(margin {m:.3e})")
+                 f"(margin {m:.3e}, router gap {router_gap:.3e})")
     return n_tok
 
 
 def phase_parity(torch, device, cfg, layouts=("paged", "dense"), n_req=8,
-                 max_new=16, seed=0):
+                 max_new=16, seed=0, need_drops=False):
     """Same weights, same requests: on the card (kernels) and on the CPU
     (plain versions), the continuous engine under each of ``layouts``
     and the round engine must emit identical greedy tokens; a divergence
-    counts as a tie only below a logit margin of 1e-5."""
+    counts as a tie only below a logit margin (or, MoE, a router gap) of
+    1e-5. ``need_drops``: every path must drop MoE entries on the card."""
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import (SEQ_BUCKETS,
                                             ContinuousBatchingEngine,
@@ -943,37 +1081,84 @@ def phase_parity(torch, device, cfg, layouts=("paged", "dense"), n_req=8,
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
                for n in np.linspace(3, 100, n_req).round().astype(int)]
     own = [_bucket(len(p), buckets=SEQ_BUCKETS) for p in prompts]
-    for layout in layouts:
-        runs = {}
-        for dev in (device, torch.device("cpu")):
-            eng = ContinuousBatchingEngine(cfg, max_slots=4, max_seq=192,
-                                           kv_layout=layout, token_budget=64,
-                                           device=dev, params=params)
-            runs[dev.type] = [r.tokens for r in
-                              eng.run(prompts, max_new_tokens=max_new)]
-        n_tok = _compare(torch, cfg, params, layout, prompts, own,
-                         runs[device.type], runs["cpu"])
-        log(f"parity {cfg.name} {layout}: {n_req} requests, {n_tok} greedy "
-            "tokens identical on card and CPU")
-    runs = {dev.type: InferenceEngine(cfg, device=dev, params=params)
-            .generate(prompts, max_new_tokens=max_new).tokens
-            for dev in (device, torch.device("cpu"))}
     S = _bucket(max(len(p) for p in prompts), buckets=SEQ_BUCKETS)
-    n_tok = _compare(torch, cfg, params, "round", prompts, [S] * n_req,
-                     runs[device.type], runs["cpu"])
-    log(f"parity {cfg.name} round: one round of {n_req} prompts, {n_tok} "
-        "greedy tokens identical on card and CPU")
+
+    def serve(path, dev):
+        if path == "round":
+            return InferenceEngine(cfg, device=dev, params=params).generate(
+                prompts, max_new_tokens=max_new).tokens
+        eng = ContinuousBatchingEngine(cfg, max_slots=4, max_seq=192,
+                                       kv_layout=path, token_budget=64,
+                                       device=dev, params=params)
+        return [r.tokens for r in eng.run(prompts, max_new_tokens=max_new)]
+
+    for path in (*layouts, "round"):
+        runs, watch = {}, {}
+        for dev in (device, torch.device("cpu")):
+            with _RouterWatch(torch) as watch[dev.type]:
+                runs[dev.type] = serve(path, dev)
+        gap = watch["cpu"].min_gap()
+        n_tok = _compare(torch, cfg, params, path, prompts,
+                         [S] * n_req if path == "round" else own,
+                         runs[device.type], runs["cpu"], gap)
+        what = (f"one round of {n_req} prompts" if path == "round"
+                else f"{n_req} requests")
+        moe = ""
+        if cfg.n_experts:
+            drop = watch[device.type].max_drop()
+            moe = (f"; capacity factor {cfg.capacity_factor}, largest "
+                   f"drop_frac on the card {drop:.4f} (CPU "
+                   f"{watch['cpu'].max_drop():.4f}), smallest router gap "
+                   f"{gap:.3e}")
+            if need_drops and not drop > 0:
+                fail(f"parity {cfg.name} {path}: no MoE entry dropped on "
+                     "the card at capacity factor "
+                     f"{cfg.capacity_factor}")
+        log(f"parity {cfg.name} {path}: {what}, {n_tok} greedy tokens "
+            f"identical on card and CPU{moe}")
     log(f"parity: {cfg.name} reduced (L={cfg.n_layers}, d={cfg.d_model}, "
         f"kinds {sorted(set(cfg.layer_kinds()))}) passed on "
         f"{len(layouts) + 1} paths")
 
 
 # ---------------------------------------------------------------- main
+def phase_moe(torch, device, smi):
+    """arctic-480b at its published widths cut to ``MOE_LAYERS`` layer,
+    initialised on the card (never on the host) once every earlier model
+    is freed: the paged continuous engine's drain (profiled) and round
+    mode's six rounds, with exact launch counts. Returns the launches."""
+    from repro_torch.config import get_config
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(get_config(MOE[0]), n_layers=MOE_LAYERS)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=device)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"{cfg.name} cut to {cfg.n_layers} layer at full width (d "
+        f"{cfg.d_model}, {cfg.n_experts} experts of {cfg.d_ff}, top-"
+        f"{cfg.top_k}, dense residual {cfg.dense_ff}, capacity factor "
+        f"{cfg.capacity_factor}): {n / 1e9:.2f} G params, "
+        f"{n * 4 / 2**30:.1f} GiB, initialised on the card in "
+        f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    launches = {name: 0 for name in REPLACES}
+    for got in (phase_e2e(torch, device, cfg, params, smi, "paged")[0],
+                phase_round(torch, device, cfg, params, smi)[0]):
+        for name, k in got.items():
+            launches[name] += k
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def run(torch, device, smi):
     """Every phase after the build: kernels vs plain, timing, the three
     serving paths of full-width qwen3-0.6b, then the dense continuous
-    engine and round mode of each full-width recurrent family (one model
-    on the card at a time), and card-vs-CPU parity at reduced width.
+    engine and round mode of each full-width recurrent family and the
+    paged engine and round mode of arctic-480b cut to one layer (one
+    model on the card at a time), and card-vs-CPU parity at reduced
+    width.
     Returns the result line's kernel rows, with the launches of every
     main path's run summed."""
     from repro_torch.config import get_config, get_reduced_config
@@ -1023,6 +1208,13 @@ def run(torch, device, smi):
         torch.cuda.empty_cache()
         phase_parity(torch, device, get_reduced_config(arch), ("dense",))
     phase_serve(torch, device, get_config(RECURRENT[-1]), "dense")
+    add(phase_moe(torch, device, smi))
+    for arch in MOE:
+        phase_parity(torch, device, get_reduced_config(arch))
+    # the published capacity factor is 1.25; at 1.0 prefill chunks and
+    # rounds drop entries on the card
+    phase_parity(torch, device, dataclasses.replace(
+        get_reduced_config(MOE[0]), capacity_factor=1.0), need_drops=True)
     idle = [name for name, n in launches.items() if n == 0]
     if idle:
         fail(f"kernels never launched on a main path: {idle}")

@@ -51,6 +51,8 @@ KERNELS: Dict[str, tuple] = {
     "rglru_scan": (_P,) * 5 + (_I,) * 3,
     # r, k, v, w, u, state, out, s_final; B S H hd
     "rwkv6_scan": (_P,) * 8 + (_I,) * 4,
+    # x, w, out; E C D F
+    "moe_matmul": (_P,) * 3 + (_I,) * 4,
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -11,7 +11,11 @@ follows:
   pattern position; then the tail. :func:`unstack_layers` undoes this,
   for params and for decode caches alike, and carries every kind's
   nested dicts leaf for leaf (attention, RG-LRU ``rec``, RWKV
-  ``time_mix``/``channel_mix``; recurrent states in caches).
+  ``time_mix``/``channel_mix``; recurrent states in caches). It splits
+  off the unit axis only: an MoE layer's ``ffn`` (``router (d, E)``,
+  ``w_gate``/``w_up (E, d, f)``, ``w_down (E, f, d)``, arctic's
+  ``dense_mlp``) arrives with 4-D expert leaves ``(n_units, E, d, f)``
+  and leaves as ``(E, d, f)``.
 * **Weight orientation.** Dense weights are stored ``(d_in, d_out)`` and
   applied as ``x @ W`` on both sides, so nothing is transposed.
 * **Tied head.** The tied LM head is the ``(V, d)`` embedding table

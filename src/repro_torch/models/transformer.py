@@ -1,6 +1,8 @@
 """Decoder trunk: the port of ``repro.models.transformer`` for the global
 ``attn``, windowed ``local_attn``, ``rglru`` (RecurrentGemma) and
-``rwkv`` (RWKV-6) layer kinds.
+``rwkv`` (RWKV-6) layer kinds, and the MoE family: with ``n_experts`` set,
+every layer but an ``attn_dense`` one (global attention with a dense FFN,
+llama4's interleave) has a routed-expert FFN (``models.moe``).
 
 Params are a nested dict: ``embed`` (V, d), ``final_norm``, optional
 ``lm_head`` (d, V), and ``layers``, a list with one dict per layer in
@@ -29,6 +31,7 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe
 from repro_torch.models import rglru as rg
 from repro_torch.models import rwkv as rk
 from repro_torch.models.layers import (apply_embed, apply_mlp, apply_norm,
@@ -36,23 +39,22 @@ from repro_torch.models.layers import (apply_embed, apply_mlp, apply_norm,
                                        norm_init, unembed)
 
 #: the layer kinds ported so far, and the recurrent ones among them
-KINDS = ("attn", "local_attn", "rglru", "rwkv")
+KINDS = ("attn", "attn_dense", "local_attn", "rglru", "rwkv")
 RECURRENT = ("rglru", "rwkv")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not cover yet:
-    layer kinds other than ``attn``, ``local_attn``, ``rglru`` and
-    ``rwkv``, MoE, encoder-decoder and frontend models, and rotary
-    variants other than ``rope`` and ``none``."""
+    layer kinds other than ``KINDS``, encoder-decoder and frontend models,
+    and rotary variants other than ``rope`` and ``none``."""
     kinds = set(cfg.layer_kinds())
     if not kinds <= set(KINDS):
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {sorted(kinds)}; only {list(KINDS)} "
             "are ported so far (ROADMAP.md, Queue A item 9)")
-    if cfg.n_experts or cfg.enc_dec or cfg.frontend is not None:
+    if cfg.enc_dec or cfg.frontend is not None:
         raise NotImplementedError(
-            f"{cfg.name}: MoE, encoder-decoder and frontend models are not "
+            f"{cfg.name}: encoder-decoder and frontend models are not "
             "ported yet (ROADMAP.md, Queue A item 9)")
     if (cfg.norm not in ("rmsnorm", "layernorm")
             or cfg.activation not in ("silu", "geglu", "gelu")
@@ -93,12 +95,20 @@ def _window_for(cfg: ModelConfig, kind: str) -> Optional[int]:
 # =====================================================================
 # parameter construction
 # =====================================================================
+def _is_moe(cfg: ModelConfig, kind: str) -> bool:
+    """Whether a layer of ``kind`` has a routed-expert FFN (reference
+    ``transformer.py:54``, ``:112``)."""
+    return bool(cfg.n_experts) and kind != "attn_dense"
+
+
 def _layer_init(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype,
                 device) -> Dict:
     """One layer's params by kind, as the reference's ``_layer_init``: an
     RWKV layer is its whole block; an RG-LRU layer carries its own norm
     inside ``rec`` (no ``attn_norm``); an attention layer has
-    ``attn_norm`` and ``attn``. All but RWKV end in the norm and MLP."""
+    ``attn_norm`` and ``attn``. All but RWKV end in the norm and the FFN:
+    the experts (``models.moe``) in an MoE layer, else an MLP of width
+    ``d_ff``, or ``dense_ff or d_ff`` for ``attn_dense``."""
     if kind == "rwkv":
         return rk.rwkv_init(gen, cfg, dtype, device)
     if kind == "rglru":
@@ -107,7 +117,11 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype,
         p = {"attn_norm": norm_init(cfg.d_model, cfg.norm, dtype, device),
              "attn": attn.attn_init(gen, cfg, dtype, device)}
     p["ffn_norm"] = norm_init(cfg.d_model, cfg.norm, dtype, device)
-    p["ffn"] = mlp_init(gen, cfg.d_model, cfg.d_ff,
+    if _is_moe(cfg, kind):
+        p["ffn"] = moe.moe_init(gen, cfg, dtype, device)
+        return p
+    width = (cfg.dense_ff or cfg.d_ff) if kind == "attn_dense" else cfg.d_ff
+    p["ffn"] = mlp_init(gen, cfg.d_model, width,
                         cfg.activation in ("silu", "geglu"), dtype, device)
     return p
 
@@ -137,9 +151,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
 # =====================================================================
 # layers and trunks
 # =====================================================================
-def _ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return x + apply_mlp(p["ffn"], apply_norm(p["ffn_norm"], x, cfg.norm),
-                         cfg.activation)
+def _ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+         kind: str) -> torch.Tensor:
+    """The residual FFN sub-block: the experts in an MoE layer (their aux
+    losses feed only the reference's training loss, so they are dropped),
+    else the MLP (the reference's ``_ffn_apply``)."""
+    h = apply_norm(p["ffn_norm"], x, cfg.norm)
+    if _is_moe(cfg, kind):
+        return x + moe.moe_apply(p["ffn"], h, cfg)[0]
+    return x + apply_mlp(p["ffn"], h, cfg.activation)
 
 
 def _recurrent(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
@@ -151,7 +171,7 @@ def _recurrent(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     h = apply_norm(p["rec"]["norm"], x, cfg.norm)
     fn = rg.rglru_decode if decode else rg.rglru_seq
     out, new_state = fn(p["rec"], h, cfg, state)
-    return _ffn(p, x + out, cfg), new_state
+    return _ffn(p, x + out, cfg, kind), new_state
 
 
 def _layer_full(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
@@ -165,7 +185,7 @@ def _layer_full(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     h = apply_norm(p["attn_norm"], x, cfg.norm)
     out, k, v = attn.attention_full(p["attn"], h, cfg, positions,
                                     window=window)
-    return _ffn(p, x + out, cfg), _prefill_kv(k, v, cfg, window)
+    return _ffn(p, x + out, cfg, kind), _prefill_kv(k, v, cfg, window)
 
 
 def _prefill_kv(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
@@ -207,7 +227,7 @@ def _layer_step(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     else:
         fn = attn.attention_decode if decode else attn.attention_prefill_chunk
         out = fn(p["attn"], h, cache, ctx["pos"], cfg, window=window)
-    return _ffn(p, x + out, cfg)
+    return _ffn(p, x + out, cfg, kind)
 
 
 def _trunk_full(params: Dict, x: torch.Tensor, cfg: ModelConfig,

@@ -18,14 +18,18 @@ and the paged KV layout.
 On the card the attention of every layer runs the hand-written kernels
 (``repro_torch.kernels``); on the CPU their plain versions.
 
-Both engines serve the attention and the recurrent families (RG-LRU,
-RWKV-6); a recurrent layer's per-slot state sits beside the K/V rows of
-the dense layout and is grafted with them.
+Both engines serve the attention, the recurrent (RG-LRU, RWKV-6) and the
+MoE families; a recurrent layer's per-slot state sits beside the K/V rows
+of the dense layout and is grafted with them. An MoE layer's capacity
+follows the rows of each forward, as in the reference: all ``n_slots``
+rows of a decode iteration (idle slots' dummy tokens included), the
+unpadded rows of a prefill chunk, and every row of a round's left-padded
+``(B, S)`` batch.
 
 What is still to port raises (see ROADMAP.md): seeded sampling, the
 prefix cache, speculative decoding, the host KV tier, tensor
 parallelism, windowed and recurrent layers under the paged layout, and
-MoE, encoder-decoder and frontend models. Preemption, cancellation and
+encoder-decoder and frontend models. Preemption, cancellation and
 the lifecycle hooks come later too.
 """
 from __future__ import annotations

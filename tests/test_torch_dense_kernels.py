@@ -176,7 +176,8 @@ def test_every_kernel_has_a_source_and_its_own_entry_point_types():
     then ints, then (the attention kernels) the float scale."""
     attention = {"paged_decode_attention", "paged_prefill_attention",
                  "flash_attention", "decode_attention"}
-    assert set(_build.KERNELS) == attention | {"rglru_scan", "rwkv6_scan"}
+    assert set(_build.KERNELS) == attention | {"rglru_scan", "rwkv6_scan",
+                                               "moe_matmul"}
     for name, types in _build.KERNELS.items():
         assert (_build.CSRC / f"{name}.cu").is_file()
         assert _build.library_path(name).name.startswith(f"lib{name}-")

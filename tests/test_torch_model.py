@@ -209,19 +209,19 @@ def test_embedding_rejects_out_of_range_ids():
 
 
 def test_unported_variants_raise():
-    """Rotary variants and model families still to port (MoE) raise, and
-    so do windowed and recurrent layers under the paged layout (their
-    dense rings and per-slot states are ported, the state-beside-pool
-    layout is not)."""
+    """Rotary variants and model families still to port (encoder-decoder)
+    raise, and so do windowed and recurrent layers under the paged layout
+    (their dense rings and per-slot states are ported, the
+    state-beside-pool layout is not)."""
     x = torch.zeros(1, 2, 1, 4)
     pos = torch.zeros(1, 2, dtype=torch.int32)
     for variant in ("rope2d", "mrope"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             apply_rope(x, pos, variant)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        init_params(_torch_cfg(dataclasses.replace(TINY, name="tiny-moe",
-                                                   n_experts=4)),
-                    device="cpu")
+        init_params(_torch_cfg(dataclasses.replace(
+            TINY, name="tiny-encdec", enc_dec=True, n_enc_layers=2)),
+            device="cpu")
     for name in ("rglru", "rwkv"):
         cfg = _torch_cfg(KIND_CFGS[name])
         init_params(cfg, device="cpu")
