@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-GPU: builds the seven hand-written kernels (four attention kernels, the
-RG-LRU and the RWKV-6 scans, the grouped expert GEMM) from the sources in
-this checkout, holds each against its plain PyTorch version at the main
-paths' shapes on poisoned inputs, times them, serves full-width
-qwen3-0.6b through each main path (the paged continuous engine, round
-mode with the SAC scheduler, the dense continuous engine), full-width
-recurrentgemma-2b and rwkv6-3b through the dense continuous engine and
-round mode, and arctic-480b at full width cut to one layer through the
-paged continuous engine and round mode, with exact kernel launch counts,
-and checks the card's greedy tokens against the CPU's on every path at
-reduced width (the MoE family also with capacity drops).
+GPU: builds the eight hand-written kernels (five attention kernels, split-K
+paged decode among them, the RG-LRU and the RWKV-6 scans, the grouped
+expert GEMM) from the sources in this checkout, holds each against its
+plain PyTorch version at the main paths' shapes on poisoned inputs (split-K
+also against the unsplit kernel), times them, serves full-width qwen3-0.6b
+through each main path (the paged continuous engine, round mode with the
+SAC scheduler, the dense continuous engine), then through the multi-model
+instance pool under the PoolScheduler (``serve_pool``: qwen3-0.6b paged,
+whose four-slot instances decode through split-K, and qwen3-0.6b with
+recurrentgemma-2b dense), full-width recurrentgemma-2b and rwkv6-3b
+through the dense continuous engine and round mode, and arctic-480b at
+full width cut to one layer through the paged continuous engine and round
+mode, with exact kernel launch counts, and checks the card's greedy tokens
+against the CPU's on every path at reduced width (the pool's too; the MoE
+family also with capacity drops).
 
     python3 chip_smoke.py
 
@@ -52,6 +56,8 @@ MOE_LAYERS = 1
 #: kernel name -> the TPU kernel it replaces (file:line of its function)
 REPLACES = {
     "paged_decode_attention": "src/repro/kernels/decode_attention.py:164",
+    "paged_decode_attention_splitk":
+        "src/repro/kernels/decode_attention.py:274",
     "paged_prefill_attention": "src/repro/kernels/prefill_attention.py:85",
     "flash_attention": "src/repro/kernels/flash_attention.py:75",
     "decode_attention": "src/repro/kernels/decode_attention.py:67",
@@ -120,6 +126,9 @@ def _wrappers():
 
     return {"paged_decode_attention": (dec.paged_decode_attention,
                                        dec.paged_decode_attention_plain),
+            "paged_decode_attention_splitk": (
+                dec.paged_decode_attention_splitk,
+                dec.paged_decode_attention_splitk_plain),
             "paged_prefill_attention": (pre.paged_prefill_attention,
                                         pre.paged_prefill_attention_plain),
             "flash_attention": (fl.flash_attention, fl.flash_attention_plain),
@@ -182,6 +191,39 @@ def paged_decode_case(torch, device, B=8, H=16, KV=8, hd=128, bs=16, nb=40,
     return dict(q=q, k_pool=kp, v_pool=vp,
                 block_tables=torch.from_numpy(tables).to(device),
                 seq_lens=torch.from_numpy(lens).to(device),
+                scale=hd ** -0.5)
+
+
+#: (B, nb): split-K at the shapes of the pool's decode (nb = 36: max_seq
+#: 576 of a 500-token shared prefix) and of a 4096-token context, for one
+#: to eight sequences; each split count of SPLITK_SPLITS is held
+SPLITK_CASES = tuple((B, nb) for nb in (36, 256) for B in (1, 2, 4, 8))
+SPLITK_SPLITS = (1, 2, 3, 4, 8, 16)
+#: split-K vs its plain version and vs the unsplit kernel (fp32; the
+#: splits change the order of the sum, nothing else)
+SPLITK_TOL = 2e-6
+
+
+def splitk_case(torch, device, B, nb, bs=16, H=16, KV=8, hd=128, full=False,
+                seed=9):
+    """q (B,1,H,hd) against poisoned pools through (B, nb) tables. Lengths
+    are ragged and include 1 and the full table (one sequence: the full
+    table), or all full with ``full``."""
+    rng = np.random.default_rng(seed + B * nb)
+    cap = nb * bs
+    if full:
+        lens = np.full(B, cap)
+    else:
+        lens = np.concatenate([[cap, 1][:B], rng.integers(2, cap, max(
+            0, B - 2))])
+    n_pool = B * nb + 1
+    tables, live = _tables(rng, lens, nb, bs, n_pool)
+    kp, vp = _poisoned_pools(torch, rng, n_pool, bs, KV, hd, live, device)
+    q = torch.from_numpy(rng.standard_normal((B, 1, H, hd)).astype(
+        np.float32)).to(device)
+    return dict(q=q, k_pool=kp, v_pool=vp,
+                block_tables=torch.from_numpy(tables).to(device),
+                seq_lens=torch.from_numpy(lens.astype(np.int32)).to(device),
                 scale=hd ** -0.5)
 
 
@@ -368,18 +410,17 @@ def _outputs(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-def _check(torch, name, got, want, what):
+def _check(torch, name, got, want, what, tol=TOL, vs="plain"):
     """Max abs error of every output of ``got`` against ``want``; fails
-    on a non-finite output or an error above TOL."""
+    on a non-finite output or an error above ``tol``."""
     err = 0.0
     for g, w in zip(_outputs(got), _outputs(want)):
         if not torch.isfinite(g).all():
             fail(f"{name} {what}: non-finite output (poison read)")
         err = max(err, float((g - w).abs().max()))
-    log(f"{name} {what}: max abs err vs plain {err:.3e} (tolerance {TOL:g})")
-    if not err <= TOL:
-        fail(f"{name} {what} disagrees with its plain version: {err:.3e} > "
-             f"{TOL:g}")
+    log(f"{name} {what}: max abs err vs {vs} {err:.3e} (tolerance {tol:g})")
+    if not err <= tol:
+        fail(f"{name} {what} disagrees with {vs}: {err:.3e} > {tol:g}")
     return err
 
 
@@ -398,6 +439,21 @@ def phase_kernels(torch, device):
     c = paged_decode_case(torch, device)
     run("paged_decode_attention", f"q {tuple(c['q'].shape)} pools "
         f"{tuple(c['k_pool'].shape)} seq_lens {c['seq_lens'].tolist()}", c)
+    split, split_plain = w["paged_decode_attention_splitk"]
+    for B, nb in SPLITK_CASES:
+        c = splitk_case(torch, device, B, nb)
+        whole = w["paged_decode_attention"][0](**c)
+        for n in SPLITK_SPLITS:
+            what = (f"q ({B},1,16,128) tables ({B},{nb}) n_splits {n} "
+                    f"seq_lens {c['seq_lens'].tolist()}")
+            got = split(**c, n_splits=n)
+            errs["paged_decode_attention_splitk"] = max(
+                errs["paged_decode_attention_splitk"],
+                _check(torch, "paged_decode_attention_splitk", got,
+                       split_plain(**c, n_splits=n), what, SPLITK_TOL),
+                _check(torch, "paged_decode_attention_splitk", got, whole,
+                       what, SPLITK_TOL, "the unsplit kernel"))
+        del c, whole
     for T, pos in PREFILL_CASES:
         run("paged_prefill_attention", f"q (1,{T},16,128) pos {pos}",
             paged_prefill_case(torch, device, T, pos))
@@ -518,6 +574,31 @@ def _paged_job(torch, device, make, kw):
         f"q {tuple(c0['q'].shape)}"
 
 
+def _splitk_job(torch, device, B, nb, n_sm, n_splits=None):
+    """Split-K at the split count the dispatch takes for (B, nb) on this
+    card (or ``n_splits``), every sequence at the full table (nb * 16
+    tokens). Beside it the
+    unsplit kernel on the same inputs; the library call is SDPA over the
+    gathered view (``_paged_job``); the bound adds to ``_paged_job``'s the
+    partials acc (B,H,S,hd), m and l (B,H,S) written once and read once."""
+    from repro_torch.kernels.decode_attention import (
+        decode_splits, paged_decode_attention, split_plan)
+
+    copies, _, lib, _, what = _paged_job(
+        torch, device, splitk_case, {"B": B, "nb": nb, "full": True})
+    c0 = copies[0]
+    H, hd, KV = c0["q"].shape[2], c0["q"].shape[3], c0["k_pool"].shape[2]
+    n = n_splits or decode_splits(B, KV, nb, n_sm)
+    S, _ = split_plan(nb, n)
+    k_args = [dict(c, n_splits=n) for c in copies]
+    attended = int(c0["seq_lens"].sum())
+    n_bytes = (2 * c0["q"].numel() * 4 + attended * KV * hd * 8
+               + 4 * B * nb + 4 * B + 2 * 4 * B * H * S * (hd + 2))
+    whole = {"unsplit": lambda i: paged_decode_attention(**copies[i])}
+    return k_args, k_args, lib, _bound(n_bytes, 4 * H * hd * attended), \
+        f"{what} tables ({B},{nb}) lens {nb * 16} n_splits {S}", whole
+
+
 def _flash_job(torch, device, B, S, T, causal, window, **heads):
     """The library call is SDPA with the same bool mask; the bound counts
     q, k, v read once, the output written once, and 4 * hd flops per
@@ -621,8 +702,16 @@ def phase_timing(torch, device, smi):
     the order plain, kernel, kernel, plain (library at both ends). The
     first shape of each kernel is its row in the result line."""
     w = _wrappers()
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     jobs = [("paged_decode_attention", lambda: _paged_job(
         torch, device, paged_decode_case, {}))]
+    jobs += [("paged_decode_attention_splitk", lambda B=B, nb=nb:
+              _splitk_job(torch, device, B, nb, n_sm))
+             for nb in (36, 256) for B in (4, 2, 1)]
+    # the 8-slot drains' shape, which the dispatch leaves unsplit: what
+    # two splits would give there
+    jobs.append(("paged_decode_attention_splitk", lambda: _splitk_job(
+        torch, device, 8, 40, n_sm, n_splits=2)))
     jobs += [("paged_prefill_attention", lambda T=T, pos=pos: _paged_job(
         torch, device, paged_prefill_case, {"T": T, "pos": pos}))
         for T, pos in ((512, 0), (128, 200), (16, 8))]
@@ -645,14 +734,19 @@ def phase_timing(torch, device, smi):
     out = {}
     for name, make in jobs:
         kern, plain = w[name]
-        k_args, p_args, lib, (bound, by), what = make()
+        k_args, p_args, lib, (bound, by), what, *extra = make()
+        others = extra[0] if extra else {}
         n = len(k_args)
-        t = {"lib": [], "plain": [], "kern": []}
+        t = {"lib": [], "plain": [], "kern": [], **{o: [] for o in others}}
         if lib:
             t["lib"].append(_time_ms(torch, lib, n))
         t["plain"].append(_time_ms(torch, lambda i: plain(**p_args[i]), n))
+        for o, fn in others.items():
+            t[o].append(_time_ms(torch, fn, n))
         t["kern"].append(_time_ms(torch, lambda i: kern(**k_args[i]), n))
         t["kern"].append(_time_ms(torch, lambda i: kern(**k_args[i]), n))
+        for o, fn in others.items():
+            t[o].append(_time_ms(torch, fn, n))
         t["plain"].append(_time_ms(torch, lambda i: plain(**p_args[i]), n))
         lib_note = "none (no single PyTorch call)"
         if lib:
@@ -669,9 +763,23 @@ def phase_timing(torch, device, smi):
                "plain_ms": float(np.mean(t["plain"])),
                "library_ms": float(np.mean(t["lib"])) if lib else None,
                "bound_ms": bound, "bound_by": by}
+        row.update({f"{o}_ms": float(np.mean(t[o])) for o in others})
+        other_note = "".join(f", {o}_ms {np.mean(t[o]):.4f} (runs {t[o]})"
+                             for o in others)
+        if others:
+            # device time alone (the profiler's kernel durations): where a
+            # call's host overhead exceeds its device time, the event
+            # times above measure the host
+            for o, fn in (("kernel", lambda i: kern(**k_args[i])),
+                          *others.items()):
+                _, busy, _, _ = _profiled(
+                    torch, lambda fn=fn: [fn(i % n) for i in range(20)])
+                row[f"{o}_device_ms"] = busy / 20
+            other_note += "".join(f", {o}_device_ms {row[o + '_device_ms']:.4f}"
+                                  for o in ("kernel", *others))
         log(f"timing {name} {what}: kernel_ms {row['ms']:.4f} (runs "
-            f"{t['kern']}), plain_ms {row['plain_ms']:.4f}, library_ms "
-            f"{lib_note}, bound_ms {bound:.4f} by {by}, "
+            f"{t['kern']}){other_note}, plain_ms {row['plain_ms']:.4f}, "
+            f"library_ms {lib_note}, bound_ms {bound:.4f} by {by}, "
             f"{bound / row['ms']:.1%} of bound [{smi}]")
         out.setdefault(name, row)
         del k_args, p_args, lib
@@ -693,15 +801,28 @@ def _watch_logits(torch, model, bad, attrs):
         setattr(model, attr, checked)
 
 
-def _want(cfg, path, n_iters=0, n_chunks=0, n_rounds=0, n_tokens=0):
+def _paged_decode_kernel(cfg, n_slots, nb):
+    """The paged decode kernel the model's dispatch takes for an engine of
+    ``n_slots`` slots and ``nb``-column tables on this card."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_splits
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return "paged_decode_attention_splitk" if decode_splits(
+        n_slots, cfg.n_kv_heads, nb, n_sm) > 1 else "paged_decode_attention"
+
+
+def _want(cfg, path, n_iters=0, n_chunks=0, n_rounds=0, n_tokens=0,
+          n_slots=8, nb=40):
     """The exact kernel launches of one serving path: per attention layer
     (``attn``/``attn_dense``/``local_attn``) one decode kernel per decode
-    iteration or round token and, paged, one chunk kernel per prefill
-    chunk (dense chunks attend in plain PyTorch), or one flash launch per
-    round; per recurrent layer one scan per prefill chunk or round (decode
-    steps are the one-step formula); per MoE layer three grouped GEMMs
-    (gate, up, down) per forward: every decode iteration, chunk, round and
-    round token."""
+    iteration or round token (paged: the unsplit or the split-K kernel,
+    as the dispatch picks for ``n_slots`` slots and ``nb``-column tables)
+    and, paged, one chunk kernel per prefill chunk (dense chunks attend in
+    plain PyTorch), or one flash launch per round; per recurrent layer one
+    scan per prefill chunk or round (decode steps are the one-step
+    formula); per MoE layer three grouped GEMMs (gate, up, down) per
+    forward: every decode iteration, chunk, round and round token."""
     kinds = cfg.layer_kinds()
     A = sum(k in ("attn", "attn_dense", "local_attn") for k in kinds)
     M = sum(k != "attn_dense" for k in kinds) if cfg.n_experts else 0
@@ -711,7 +832,7 @@ def _want(cfg, path, n_iters=0, n_chunks=0, n_rounds=0, n_tokens=0):
     else:
         want["moe_matmul"] = 3 * M * (n_rounds + n_tokens)
     if path == "paged":
-        want["paged_decode_attention"] = A * n_iters
+        want[_paged_decode_kernel(cfg, n_slots, nb)] = A * n_iters
         want["paged_prefill_attention"] = A * n_chunks
         return want
     if path == "dense":
@@ -882,8 +1003,9 @@ def phase_serve(torch, device, cfg, kv_layout):
     stats = serve_continuous(cfg=cfg, kv_layout=kv_layout, duration_s=5.0,
                              device=device)
     got = read_launches()
+    # serve_continuous: 4 slots of max_seq 128 (8 blocks of 16)
     want = _want(cfg, kv_layout, n_iters=int(stats["n_iters"]),
-                 n_chunks=int(stats["n_prefill_chunks"]))
+                 n_chunks=int(stats["n_prefill_chunks"]), n_slots=4, nb=8)
     if stats["served"] < 1 or got != want:
         fail(f"serve_continuous {cfg.name} {kv_layout}: served "
              f"{stats['served']}, launches {got} != {want}")
@@ -1121,6 +1243,235 @@ def phase_parity(torch, device, cfg, layouts=("paged", "dense"), n_req=8,
         f"{len(layouts) + 1} paths")
 
 
+# ---------------------------------------------------------------- pool
+#: the paged pool's workload: qwen3-0.6b at full width behind the
+#: instance pool, prompts of a 500-token shared system prompt plus an
+#: 8-token tail (max_seq 576, 36-column tables), 32 new tokens each
+#: at 0.5 requests/s: a pool step costs about 65 ms of host time per busy
+#: instance (H100 80GB HBM3, 700 W), so 1.5 requests/s overloaded it
+#: (PERF.md)
+POOL_PAGED = dict(shared_prefix_tokens=500, max_instances=4, max_slots=4,
+                  max_new_tokens=32, rps=0.5, slo_ms=5000.0,
+                  kv_block_budget=576, duration_s=20.0)
+#: the dense pool: the reference CLI's own pair of heterogeneous models,
+#: at 6 requests/s in all (the reference's 12 overloaded it at full width)
+POOL_DENSE = ("qwen3-0.6b", "recurrentgemma-2b")
+
+
+class _PoolWatch:
+    """While active, wraps ``ContinuousBatchingEngine.step`` (so every
+    engine a pool builds) to tally each engine's decode iterations and
+    prefill chunks by (config, layout, slots, table width), the inputs of
+    the launch formula; and, once the pool's warm-up has reset its
+    metrics, ``ModelInstancePool.step`` to time the steps in which every
+    busy instance only decodes, profiling one of them once ten have been
+    timed."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.tally = {}     # (name, layout, slots, nb) -> [iters, chunks]
+        self.cfgs = {}
+        self.walls = {}     # busy instances -> [wall s]
+        self.profile = None
+        self.armed = False
+
+    def __enter__(self):
+        from repro_torch.serving.engine import ContinuousBatchingEngine
+        from repro_torch.serving.runtime import ModelInstancePool
+
+        torch, watch = self.torch, self
+        self.patched = ((ContinuousBatchingEngine, "step"),
+                        (ModelInstancePool, "step"),
+                        (ModelInstancePool, "reset_metrics"))
+        self.orig = [getattr(c, a) for c, a in self.patched]
+        eng_step, pool_step, reset = self.orig
+
+        def armed(pool):
+            reset(pool)
+            watch.armed = True
+
+        def counted(eng):
+            it, ch = eng.n_iters, eng.n_prefill_chunks
+            out = eng_step(eng)
+            nb = eng.block_tables.shape[1] if eng.kv_layout == "paged" else 0
+            key = (eng.cfg.name, eng.kv_layout, eng.n_slots, nb)
+            watch.cfgs[eng.cfg.name] = eng.cfg
+            t = watch.tally.setdefault(key, [0, 0])
+            t[0] += eng.n_iters - it
+            t[1] += eng.n_prefill_chunks - ch
+            return out
+
+        def timed(pool):
+            busy = [i for i in pool.live()
+                    if i.engine.active_slots or i.engine.waiting]
+            if not watch.armed or not busy or any(pool.queues.values()) or any(
+                    i.engine.waiting or i.engine.prefill_backlog_tokens
+                    for i in busy):
+                return pool_step(pool)
+            walls = watch.walls.setdefault(len(busy), [])
+            if watch.profile is None and len(walls) >= 10:
+                out = []
+                prof = _profiled(torch, lambda: out.append(pool_step(pool)))
+                watch.profile = (len(busy), sum(i.n_resident for i in busy),
+                                 *prof)
+                return out[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pool_step(pool)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            return out
+
+        for (cls, attr), fn in zip(self.patched, (counted, timed, armed)):
+            setattr(cls, attr, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (cls, attr), fn in zip(self.patched, self.orig):
+            setattr(cls, attr, fn)
+
+    def want(self):
+        """The launch formula over the tallied engines (``_want`` per
+        engine shape, the paged decode kernel as the dispatch picks it
+        for the engine's slots and table width)."""
+        want = {name: 0 for name in REPLACES}
+        for (name, layout, slots, nb), (iters, chunks) in self.tally.items():
+            got = _want(self.cfgs[name], layout, n_iters=iters,
+                        n_chunks=chunks, n_slots=slots, nb=nb)
+            for k, n in got.items():
+                want[k] += n
+        return want
+
+
+def _pool_run(torch, device, smi, label, **kw):
+    """serve_pool under a _PoolWatch; checks the launch formula exactly
+    and that every model served. Returns (launches, watch, report)."""
+    from repro_torch.launch.engine_serve import serve_pool
+
+    reset_launches()
+    t0 = time.perf_counter()
+    with _PoolWatch(torch) as watch:
+        report = serve_pool(device=device, **kw)
+    wall = time.perf_counter() - t0
+    got, want = read_launches(), watch.want()
+    log(f"pool {label}: engines {watch.tally} ((config, layout, slots, "
+        f"table columns) -> [decode iterations, prefill chunks])")
+    if got != want:
+        fail(f"pool {label}: launches {got} != formula {want}")
+    log(f"pool {label}: launches {got} == formula {want}")
+    for m, row in report.items():
+        if row["served"] < 1:
+            fail(f"pool {label}: {m} served nothing: {row}")
+        log(f"pool {label} {m}: served {row['served']:.0f}, rejected "
+            f"{row['rejected']:.0f}, SLO attainment "
+            f"{row['slo_attainment']:.3f} (SLO {kw['slo_ms']:.0f} ms), mean "
+            f"latency {row['mean_latency_ms']:.1f} ms, utility "
+            f"{row['mean_utility']:.3f}, m_c {row['m_c']:.0f}, "
+            f"{row['generated_tokens'] / kw['duration_s']:.1f} generated "
+            f"tokens/s over the {kw['duration_s']:.0f} s window [{smi}]")
+    log(f"pool {label}: {wall:.1f} s with build, warm-up and teardown")
+    return got, watch, report
+
+
+def phase_pool(torch, device, smi):
+    """The multi-model instance pool at full width through its entry
+    point, serve_pool, with the PoolScheduler deciding (b, m_c): (a) the
+    paged pool of qwen3-0.6b, whose instances decode 4 slots of 36-column
+    tables through split-K, with the launch formula checked exactly and
+    one decode-only pool step profiled for its idle share; (b) the dense
+    pool of qwen3-0.6b and recurrentgemma-2b. Returns the summed
+    launches."""
+    from repro_torch.config import get_config
+
+    full = get_config(FULL)
+    launches = {name: 0 for name in REPLACES}
+    got, watch, _ = _pool_run(torch, device, smi, "paged", models=[FULL],
+                              cfgs={FULL: full}, kv_layout="paged",
+                              **POOL_PAGED)
+    # max_seq 576: 36 table columns of 16
+    split = _paged_decode_kernel(full, POOL_PAGED["max_slots"], 36)
+    if split != "paged_decode_attention_splitk" or not got[split]:
+        fail(f"pool paged: the instances' decode did not take split-K "
+             f"({split}, {got[split]} launches)")
+    log(f"pool paged: paged decode launches: split-K "
+        f"{got['paged_decode_attention_splitk']}, unsplit "
+        f"{got['paged_decode_attention']}")
+    for name, n in got.items():
+        launches[name] += n
+    if watch.profile is None:
+        fail("pool paged: no decode-only pool step was profiled")
+    n_busy, resident, wall, busy, nk, names = watch.profile
+    walls = watch.walls[n_busy]
+    p50 = float(np.percentile(walls, 50)) * 1e3
+    _report_profile([(f"decode-only pool step ({n_busy} busy instances, "
+                      f"{resident} resident sequences)", 1, wall, busy, nk,
+                      names)], smi, "pool paged")
+    split_ms = sum(ms for n, ms in names.items() if "splitk" in n)
+    log(f"pool paged: decode-only step device busy {busy:.3f} ms of the "
+        f"unprofiled p50 {p50:.3f} ms over {len(walls)} such steps: idle "
+        f"share {1 - busy / p50:.1%}; split-K (both kernels) {split_ms:.3f} "
+        f"ms [{smi}]")
+    torch.cuda.empty_cache()
+    got, _, _ = _pool_run(torch, device, smi, "dense",
+                          models=list(POOL_DENSE),
+                          cfgs={m: get_config(m) for m in POOL_DENSE},
+                          kv_layout="dense", duration_s=20.0, rps=6.0,
+                          slo_ms=2000.0, max_new_tokens=4)
+    for name, n in got.items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_pool_parity(torch, device, cfg, n_req=8, max_new=16, seed=0):
+    """The pool on the card against the pool on the CPU at reduced width:
+    the same weights (drawn on the CPU), two instances, the same submit
+    schedule at one frozen pool clock and SLOs far past it, no scheduler.
+    Both layouts; the instance of every request and its greedy tokens
+    must match (a divergence counts as a tie only below a logit margin of
+    1e-5), and the paged pool's decode must go through split-K."""
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import SEQ_BUCKETS, _bucket
+    from repro_torch.serving.runtime import ModelInstancePool
+
+    params = init_params(cfg, seed=seed, device="cpu")
+    rng = np.random.default_rng(seed + 2)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in np.linspace(3, 100, n_req).round().astype(int)]
+    own = [_bucket(len(p), buckets=SEQ_BUCKETS) for p in prompts]
+
+    def serve(layout, dev):
+        pool = ModelInstancePool({cfg.name: cfg}, max_instances=2,
+                                 max_slots=4, max_seq=192, seed=seed,
+                                 kv_layout=layout, device=dev)
+        pool.now = lambda: 0.0
+        pool.load_params(cfg.name, params)
+        pool.scale_to(cfg.name, 2)
+        for p in prompts:
+            pool.submit(cfg.name, p, slo_ms=1e9, max_new_tokens=max_new,
+                        submit_s=0.0)
+        by_id = {r.request_id: r for r in pool.run_until_drained()}
+        return ([by_id[i].tokens for i in range(n_req)],
+                list(pool.admission_log))
+
+    for layout in ("paged", "dense"):
+        reset_launches()
+        card, card_log = serve(layout, device)
+        n_split = read_launches()["paged_decode_attention_splitk"]
+        cpu, cpu_log = serve(layout, torch.device("cpu"))
+        if card_log != cpu_log or len({i for _, i in cpu_log}) != 2:
+            fail(f"pool parity {layout}: instance assignment differs: card "
+                 f"{card_log}, cpu {cpu_log}")
+        n_tok = _compare(torch, cfg, params, f"pool {layout}", prompts, own,
+                         card, cpu)
+        if layout == "paged" and not n_split:
+            fail("pool parity paged: no decode step went through split-K")
+        log(f"pool parity {cfg.name} {layout}: {n_req} requests over 2 "
+            f"instances, {n_tok} greedy tokens and every assignment "
+            f"identical on card and CPU (split-K launches on the card: "
+            f"{n_split})")
+
+
 # ---------------------------------------------------------------- main
 def phase_moe(torch, device, smi):
     """arctic-480b at its published widths cut to ``MOE_LAYERS`` layer,
@@ -1194,6 +1545,8 @@ def run(torch, device, smi):
     torch.cuda.empty_cache()
     phase_serve_round(torch, device, full, smi)
     phase_parity(torch, device, get_reduced_config(FULL))
+    add(phase_pool(torch, device, smi))
+    phase_pool_parity(torch, device, get_reduced_config(FULL))
     for arch in RECURRENT:
         cfg = get_config(arch)
         t0 = time.perf_counter()

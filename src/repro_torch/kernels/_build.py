@@ -41,6 +41,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS: Dict[str, tuple] = {
     # q, out, k_pool, v_pool, tables, seq_lens; B H KV hd N bs nb
     "paged_decode_attention": (_P,) * 6 + (_I,) * 7 + (_F,),
+    # q, out, acc, m, l, k_pool, v_pool, tables, seq_lens;
+    # B H KV hd N bs nb n_splits bps
+    "paged_decode_attention_splitk": (_P,) * 9 + (_I,) * 9 + (_F,),
     # q, out, k_pool, v_pool, tables, pos; B T H KV hd N bs nb
     "paged_prefill_attention": (_P,) * 6 + (_I,) * 8 + (_F,),
     # q, out, k, v; B S T H KV hd causal window
@@ -60,6 +63,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: loaded C entry points, one per kernel for the process's lifetime
 _FNS: Dict[str, Callable[..., int]] = {}
+#: libraries built or loaded so far in this process (the engines mark a
+#: step during which this grew, as the reference marks a compiling step)
+n_loads = 0
 _LOCK = threading.Lock()
 
 
@@ -140,9 +146,11 @@ def load(name: str) -> Callable[..., int]:
     attention kernels end with the float scale) followed by the device
     index and the stream. It returns the launch's
     ``cudaError_t``."""
+    global n_loads
     with _LOCK:
         fn = _FNS.get(name)
         if fn is None:
+            n_loads += 1
             lib = ctypes.CDLL(str(build([name])[name]))
             fn = getattr(lib, f"{name}_f32")
             fn.argtypes = list(KERNELS[name]) + [_I, _P]

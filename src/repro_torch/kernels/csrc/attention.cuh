@@ -1,6 +1,6 @@
 // Online-softmax body shared by every attention kernel of the port (fp32,
-// sm_90a): paged decode, paged chunk prefill, full-sequence flash
-// attention and dense-cache decode.
+// sm_90a): paged decode (whole and split-K), paged chunk prefill,
+// full-sequence flash attention and dense-cache decode.
 //
 // One thread block attends R = n_rows * G query rows of ONE sequence and
 // ONE KV head: the n_rows query rows times the G = H / KV query heads of
@@ -101,19 +101,20 @@ struct ValidSrc {
   __device__ bool ok(int, int t) const { return load(t); }
 };
 
-// q_base/o_base point at row i = 0, head kvh * G of this block; rows are
+// The sweep: stages the R rows of q, then folds every tile of
+// [t_begin, t_end) into the running (m, l, acc) in shared memory and
+// returns their layout; an empty range leaves m = NEG, l = 0, acc = 0.
+// q_base points at row i = 0, head kvh * G of this block; rows are
 // row_stride floats apart and the G heads of a row are contiguous.
 // k_base/v_base point at head kvh of the sequence's K/V; slot t of the
 // tile starting at t0 lies at tile_offset(t0) + (t - t0) * slot_stride.
 template <class Src>
-__device__ inline void attend(const float* __restrict__ q_base,
-                              float* __restrict__ o_base, size_t row_stride,
-                              int n_rows, int G, int hd,
-                              const float* __restrict__ k_base,
-                              const float* __restrict__ v_base,
-                              size_t slot_stride, const Src& src,
-                              int t_begin, int t_end, int tile, float scale,
-                              float* smem) {
+__device__ inline Smem sweep(const float* __restrict__ q_base,
+                             size_t row_stride, int n_rows, int G, int hd,
+                             const float* __restrict__ k_base,
+                             const float* __restrict__ v_base,
+                             size_t slot_stride, const Src& src, int t_begin,
+                             int t_end, int tile, float scale, float* smem) {
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int R = n_rows * G;
@@ -197,12 +198,53 @@ __device__ inline void attend(const float* __restrict__ q_base,
     }
     __syncthreads();
   }
+  return sm;
+}
 
-  for (int e = tid; e < R * hd; e += nt) {
+// Attention of the R rows over [t_begin, t_end), normalised: o_base
+// mirrors q_base (see sweep).
+template <class Src>
+__device__ inline void attend(const float* __restrict__ q_base,
+                              float* __restrict__ o_base, size_t row_stride,
+                              int n_rows, int G, int hd,
+                              const float* __restrict__ k_base,
+                              const float* __restrict__ v_base,
+                              size_t slot_stride, const Src& src,
+                              int t_begin, int t_end, int tile, float scale,
+                              float* smem) {
+  const Smem sm = sweep(q_base, row_stride, n_rows, G, hd, k_base, v_base,
+                        slot_stride, src, t_begin, t_end, tile, scale, smem);
+  const int R = n_rows * G;
+  for (int e = threadIdx.x; e < R * hd; e += blockDim.x) {
     const int r = e / hd, d = e % hd;
     const int i = r / G, g = r % G;
     o_base[(size_t)i * row_stride + (size_t)g * hd + d] =
         sm.acc[e] / fmaxf(sm.l[r], 1e-30f);
+  }
+}
+
+// One split of a split-K sweep for one query row (n_rows = 1) and the G
+// heads of the group: the UNNORMALISED accumulator and the running max m
+// and denominator l over [t_begin, t_end), for a combine pass to merge.
+// Head g's partial lies at acc_base + g * head_stride * hd (hd floats)
+// and at m_base/l_base + g * head_stride.
+template <class Src>
+__device__ inline void attend_partial(
+    const float* __restrict__ q_base, size_t row_stride, int G, int hd,
+    const float* __restrict__ k_base, const float* __restrict__ v_base,
+    size_t slot_stride, const Src& src, int t_begin, int t_end, int tile,
+    float scale, float* smem, float* __restrict__ acc_base,
+    float* __restrict__ m_base, float* __restrict__ l_base,
+    size_t head_stride) {
+  const Smem sm = sweep(q_base, row_stride, 1, G, hd, k_base, v_base,
+                        slot_stride, src, t_begin, t_end, tile, scale, smem);
+  for (int e = threadIdx.x; e < G * hd; e += blockDim.x) {
+    const int g = e / hd, d = e % hd;
+    acc_base[(size_t)g * head_stride * hd + d] = sm.acc[e];
+  }
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    m_base[(size_t)g * head_stride] = sm.m[g];
+    l_base[(size_t)g * head_stride] = sm.l[g];
   }
 }
 

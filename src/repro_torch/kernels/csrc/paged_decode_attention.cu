@@ -9,6 +9,10 @@
 // block_tables[b, j] itself, only for live j < ceil(seq_lens[b] / bs).
 // Bound on an H100: the bytes of live K/V (decode does 4 * hd flops per
 // 8 * hd bytes of K/V per head pair, far below the fp32 ridge).
+// The model's paged decode takes this kernel when B * KV fills more than a
+// quarter of the SMs (decode_splits in kernels/decode_attention.py returns
+// 1: qwen3-0.6b's 8 KV heads at 8 slots), and the split-K kernel
+// (paged_decode_attention_splitk.cu) below that (the pool's 4 slots).
 #include "attention.cuh"
 
 namespace {

@@ -9,27 +9,66 @@ wall-clock and utilities are computed from them (Eq. 3).
   ``InferenceEngine`` runs each round to completion (paper §IV-D);
 * ``continuous`` — arrivals are submitted into the
   ``ContinuousBatchingEngine`` as they land and join the running batch
-  at iteration boundaries (dense or paged KV layout).
+  at iteration boundaries (dense or paged KV layout);
+* ``serve_pool`` (``--models a,b``) — N concurrent engine instances
+  across heterogeneous models behind the ``ModelInstancePool``, with the
+  ``PoolScheduler`` driving the real (b, m_c) action per model
+  (continuous only).
 
-The multi-model pool and HTTP serving are still to port (ROADMAP.md).
+HTTP serving is still to port (ROADMAP.md).
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve --engine
       PYTHONPATH=src python -m repro_torch.launch.serve --engine \
           --exec-mode continuous --kv-layout dense
+      PYTHONPATH=src python -m repro_torch.launch.serve --engine \
+          --models qwen3-0.6b,recurrentgemma-2b --exec-mode continuous
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
 from repro_torch.config import get_reduced_config
 from repro_torch.config.base import ModelConfig, ServingConfig
+from repro_torch.core.interference import NNInterferencePredictor
 from repro_torch.core.sac import SACAgent, SACConfig
 from repro_torch.core.utility import utility
-from repro_torch.serving.engine import (ContinuousBatchingEngine,
-                                        InferenceEngine)
+from repro_torch.serving.bcedge import PoolScheduler
+from repro_torch.serving.engine import (SEQ_BUCKETS,
+                                        ContinuousBatchingEngine,
+                                        InferenceEngine, _bucket)
+from repro_torch.serving.runtime import ModelInstancePool
+
+#: unique-tail length _shared_prefix_prompts appends to every prefix
+#: (fixed: left-padding makes prefix sharing length-sensitive)
+_PREFIX_TAIL = 8
+
+
+def _serve_max_seq(shared_prefix_tokens: int, default: int = 128) -> int:
+    """Cache length sized to the generated workload: a templated prompt
+    (prefix + fixed tail) must fit its bucket and leave decode room; the
+    historical default for untemplated traffic."""
+    if not shared_prefix_tokens:
+        return default
+    bucket = _bucket(shared_prefix_tokens + _PREFIX_TAIL,
+                     buckets=SEQ_BUCKETS)
+    return max(default, bucket + 64)
+
+
+def _shared_prefix_prompts(rng, vocab: int, shared_prefix_tokens: int,
+                           population: int = 4):
+    """Prompt factory for templated workloads: one of ``population``
+    fixed shared prefixes plus a random unique tail of a FIXED length."""
+    prefixes = [rng.integers(1, vocab, shared_prefix_tokens).astype(
+        np.int32) for _ in range(population)]
+
+    def draw():
+        tail = rng.integers(1, vocab, _PREFIX_TAIL).astype(np.int32)
+        return np.concatenate(
+            [prefixes[int(rng.integers(population))], tail])
+    return draw
 
 
 def _report(served: int, violations: int, rounds: int, lat_sum: float,
@@ -174,11 +213,121 @@ def serve_continuous(arch: str = "qwen3-0.6b", duration_s: float = 20.0,
             "violations": float(violations)}
 
 
+def serve_pool(models: Sequence[str] = ("qwen3-0.6b", "recurrentgemma-2b"),
+               duration_s: float = 20.0, rps: float = 12.0,
+               slo_ms: float = 2000.0, max_instances: int = 4,
+               max_slots: int = 4, max_new_tokens: int = 4,
+               control_ms: float = 500.0, seed: int = 0,
+               kv_layout: str = "dense",
+               kv_block_budget: Optional[int] = None,
+               token_budget: Optional[int] = None,
+               shared_prefix_tokens: int = 0,
+               cfgs: Optional[Dict[str, ModelConfig]] = None,
+               device="cuda") -> Dict[str, Dict[str, float]]:
+    """Multi-model pool serve: Poisson arrivals per model are routed by
+    deadline into a ``ModelInstancePool`` of live engine instances while
+    the ``PoolScheduler`` re-decides (b, m_c) per model once per Eq.-1
+    slot (clamped to [control_ms, 2000] ms). ``kv_layout="paged"`` serves
+    every instance from the block-pool KV layout under a shared
+    ``kv_block_budget``; ``token_budget`` adds the per-iteration token cap
+    as a third scheduler axis. ``shared_prefix_tokens`` templates the
+    prompts (a shared prefix plus an 8-token tail) and sizes the cache to
+    them. ``cfgs`` (model -> config) overrides the reduced registry
+    configs (for example with the full-width ones). The reference's
+    preemption, host KV tier, prefix cache and speculation arguments are
+    not ported (ROADMAP.md). Runs on ``device`` (default ``"cuda"``, which raises without a GPU).
+    Returns the pool's per-model report."""
+    cfgs = dict(cfgs) if cfgs is not None else {
+        m: get_reduced_config(m) for m in models}
+    for m, cfg in cfgs.items():
+        print(f"loading {cfg.name} (d={cfg.d_model}, L={cfg.n_layers}) "
+              f"on {device}...")
+    pool = ModelInstancePool(cfgs, max_instances=max_instances,
+                             max_slots=max_slots,
+                             max_seq=_serve_max_seq(shared_prefix_tokens),
+                             seed=seed, strict_admission=True,
+                             predictor=NNInterferencePredictor(
+                                 seed=seed, device=device),
+                             kv_layout=kv_layout,
+                             kv_block_budget=kv_block_budget,
+                             device=device)
+    per_model_mc = max(1, max_instances // max(1, len(cfgs)))
+    scfg = ServingConfig(
+        batch_sizes=tuple(b for b in (1, 2, 4, 8) if b <= max_slots),
+        concurrency_levels=tuple(range(1, per_model_mc + 1)),
+        token_budgets=(0,) if not token_budget
+        else (0, 2 * token_budget, token_budget))
+    sched = PoolScheduler(pool, scfg, slo_ms={m: slo_ms for m in cfgs},
+                          decode_steps_mean=max_new_tokens, seed=seed)
+    sched.control()  # initial allocation (spawns the first instances)
+
+    # first-use costs (kernel libraries, library handles) before traffic,
+    # then zero the metrics
+    for m in cfgs:
+        if pool.m_c(m) == 0:
+            pool.scale_to(m, 1)
+    pool.warmup(seed=seed)
+
+    rng = np.random.default_rng(seed)
+    draw_prompt = {m: _shared_prefix_prompts(rng, cfg.vocab_size,
+                                             shared_prefix_tokens)
+                   for m, cfg in cfgs.items()} if shared_prefix_tokens \
+        else None
+    per_rps = rps / max(1, len(cfgs))
+    next_arrival = {m: rng.exponential(1.0 / per_rps) for m in cfgs}
+    next_control = control_ms / 1000.0
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < duration_s:
+        now = time.perf_counter() - t0
+        for m, cfg in cfgs.items():
+            while next_arrival[m] <= now:
+                prompt = draw_prompt[m]() if draw_prompt is not None \
+                    else rng.integers(1, cfg.vocab_size,
+                                      rng.integers(4, 24)).astype(np.int32)
+                pool.submit(m, prompt, slo_ms=slo_ms,
+                            max_new_tokens=max_new_tokens)
+                next_arrival[m] += rng.exponential(1.0 / per_rps)
+        if now >= next_control:
+            applied = sched.control()
+            slot = max(pool.slot_ms(m) for m in cfgs)
+            next_control = now + float(
+                np.clip(slot, control_ms, 2000.0)) / 1000.0
+            print(f"[pool t={now:5.1f}s] (b, m_c)={applied} "
+                  f"live={pool.total_live()}")
+        if not any(i.n_resident for i in pool.live()) \
+                and not any(pool.queues.values()):
+            time.sleep(0.002)
+            continue
+        sched.record(pool.step())
+
+    report = pool.report()
+    dur = time.perf_counter() - t0
+    for m, row in report.items():
+        print(f"[pool:{m}] served {row['served']:.0f} "
+              f"({row['served']/max(dur,1e-6):.1f} rps), "
+              f"SLO attainment {row['slo_attainment']:.1%}, "
+              f"mean latency {row['mean_latency_ms']:.0f}ms, "
+              f"utility {row['mean_utility']:.2f}, m_c={row['m_c']:.0f}")
+    print(f"[pool] stats: {pool.stats()}")
+    print(f"[pool] guard interventions: {sched.guard_interventions}")
+    return report
+
+
 def main(exec_mode: str = "round", arch: str = "qwen3-0.6b",
          duration_s: float = 20.0, rps: float = 12.0,
-         slo_ms: float = 1500.0, kv_layout: str = "dense",
+         slo_ms: float = 1500.0, models: Optional[Sequence[str]] = None,
+         max_instances: int = 4, kv_layout: str = "dense",
          kv_block_budget: Optional[int] = None,
          token_budget: Optional[int] = None, device="cuda") -> None:
+    if models:
+        if exec_mode != "continuous":
+            print("multi-model pool serving is continuous-only; "
+                  "running with --exec-mode continuous")
+        serve_pool(models, duration_s, rps, slo_ms,
+                   max_instances=max_instances, kv_layout=kv_layout,
+                   kv_block_budget=kv_block_budget,
+                   token_budget=token_budget, device=device)
+        return
     if exec_mode == "continuous":
         serve_continuous(arch, duration_s, rps, slo_ms, kv_layout=kv_layout,
                          kv_block_budget=kv_block_budget,

@@ -1,6 +1,7 @@
 """Serving launcher of the port: the real engine in round or continuous
-mode, on the GPU unless ``--device cpu`` (a subset of
-``repro.launch.serve``, with its defaults: round mode, dense KV).
+mode, or the multi-model instance pool (``--models``), on the GPU unless
+``--device cpu`` (a subset of ``repro.launch.serve``, with its defaults:
+round mode, dense KV).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --engine
     PYTHONPATH=src python -m repro_torch.launch.serve --engine \
@@ -8,6 +9,9 @@ mode, on the GPU unless ``--device cpu`` (a subset of
     PYTHONPATH=src python -m repro_torch.launch.serve --engine \
         --exec-mode continuous --kv-layout paged --token-budget 64 \
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine \
+        --models qwen3-0.6b --exec-mode continuous --kv-layout paged \
+        --kv-block-budget 256
 """
 from __future__ import annotations
 
@@ -26,6 +30,14 @@ def main(argv=None) -> None:
                          "continuous = iteration-level batching")
     ap.add_argument("--arch", default="qwen3-0.6b",
                     help="architecture id, served at its reduced width")
+    ap.add_argument("--models", default=None,
+                    help="comma-separated model ids: serve them "
+                         "concurrently through the multi-model instance "
+                         "pool with the PoolScheduler driving (b, m_c) "
+                         "per model (continuous only)")
+    ap.add_argument("--max-instances", type=int, default=4,
+                    help="pool-wide cap on live engine instances (the "
+                         "m_c budget shared by all --models)")
     ap.add_argument("--rps", type=float, default=12.0,
                     help="Poisson arrival rate, requests per second")
     ap.add_argument("--kv-layout", default="dense",
@@ -49,7 +61,9 @@ def main(argv=None) -> None:
 
     from repro_torch.launch import engine_serve
 
+    models = [m for m in (args.models or "").split(",") if m] or None
     engine_serve.main(exec_mode=args.exec_mode, arch=args.arch, rps=args.rps,
+                      models=models, max_instances=args.max_instances,
                       kv_layout=args.kv_layout,
                       kv_block_budget=args.kv_block_budget,
                       token_budget=args.token_budget, device=args.device)

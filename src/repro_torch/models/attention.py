@@ -12,6 +12,9 @@ tables; block 0 is the null block inactive batch rows write into.
 Attention goes through the kernel wrappers (``flash_attention`` for
 prefill, ``decode_attention`` and the paged kernels for decode and
 chunks): on the card the CUDA kernels, on the CPU their plain versions.
+Paged decode on the card takes the split-K kernel when ``decode_splits``
+asks for more than one split (a small B * KV), the whole sweep otherwise;
+both compute the same function.
 Chunked prefill over a dense cache has no kernel in the reference and is
 plain PyTorch here too.
 
@@ -23,13 +26,15 @@ clamp it onto earlier rows.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.kernels.decode_attention import (decode_attention,
-                                                  paged_decode_attention)
+from repro_torch.kernels.decode_attention import (
+    decode_attention, decode_splits, paged_decode_attention,
+    paged_decode_attention_splitk)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.prefill_attention import paged_prefill_attention
 from repro_torch.models.layers import apply_norm, dense_init, norm_init
@@ -275,9 +280,29 @@ def attention_decode_paged(p: Dict, x: torch.Tensor, cache: Dict,
     _write_paged(cache["k"], k_new, tables, pos)
     _write_paged(cache["v"], v_new, tables, pos)
     scale = 1.0 / float(cfg.head_dim) ** 0.5
-    out = paged_decode_attention(q, cache["k"], cache["v"], tables, pos + 1,
-                                 scale)
+    n_splits = 1
+    if q.device.type == "cuda":
+        n_splits = decode_splits(B, cache["k"].shape[2], tables.shape[1],
+                                 _n_sm(q.device))
+    if n_splits > 1:
+        out = paged_decode_attention_splitk(q, cache["k"], cache["v"],
+                                            tables, pos + 1, scale,
+                                            n_splits=n_splits)
+    else:
+        out = paged_decode_attention(q, cache["k"], cache["v"], tables,
+                                     pos + 1, scale)
     return out.reshape(B, 1, -1) @ p["wo"]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _n_sm(device: torch.device) -> int:
+    """The SM count of a CUDA device, read once per device."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
 
 
 def attention_chunk_paged(p: Dict, x: torch.Tensor, cache: Dict,

@@ -21,8 +21,9 @@ follows:
 * **Tied head.** The tied LM head is the ``(V, d)`` embedding table
   itself (``transformer.py:418-421``); an untied ``lm_head`` is (d, V).
 
-The SAC scheduler's nets (:func:`sac_nets_from_jax`) are ``{"layers":
-[{"w": (in, out), "b": (out,)}, ...]}`` on both sides, also untransposed.
+The SAC scheduler's nets (:func:`sac_nets_from_jax`) and the interference
+predictor's (:func:`interference_from_jax`) are ``{"layers": [{"w": (in,
+out), "b": (out,)}, ...]}`` on both sides, also untransposed.
 """
 from __future__ import annotations
 
@@ -79,21 +80,32 @@ def params_from_jax(params_np: Dict, cfg: ModelConfig,
     return p
 
 
+def _f32(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def mlp_from_jax(net_np: Dict) -> Dict:
+    """The state dict of a ``repro_torch.core.networks.MLP`` (CPU tensors)
+    from one reference net ``{"layers": [{"w", "b"}, ...]}`` with numpy
+    leaves."""
+    sd = {}
+    for i, layer in enumerate(net_np["layers"]):
+        sd[f"w.{i}"] = _f32(layer["w"])
+        sd[f"b.{i}"] = _f32(layer["b"])
+    return sd
+
+
 def sac_nets_from_jax(nets_np: Dict) -> Dict:
     """``SACAgent.load_nets`` input from the reference agent's nets with
     numpy leaves: ``{"policy", "q1", "q2", "q1_target", "q2_target"}``
     each ``{"layers": [{"w", "b"}, ...]}``, and the scalar
-    ``"log_alpha"``. Each net becomes the state dict of a
-    ``repro_torch.core.networks.MLP`` (CPU tensors)."""
-    def tensor(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
-
-    out: Dict = {}
-    for name in NETS:
-        sd = {}
-        for i, layer in enumerate(nets_np[name]["layers"]):
-            sd[f"w.{i}"] = tensor(layer["w"])
-            sd[f"b.{i}"] = tensor(layer["b"])
-        out[name] = sd
-    out["log_alpha"] = tensor(nets_np["log_alpha"])
+    ``"log_alpha"``. Each net becomes an MLP state dict."""
+    out: Dict = {name: mlp_from_jax(nets_np[name]) for name in NETS}
+    out["log_alpha"] = _f32(nets_np["log_alpha"])
     return out
+
+
+def interference_from_jax(net_np: Dict) -> Dict:
+    """``NNInterferencePredictor.load_net`` input from the reference
+    predictor's net (``state.net``) with numpy leaves."""
+    return mlp_from_jax(net_np)

@@ -1,0 +1,240 @@
+"""The BCEdge scheduler over the real instance pool: the port of
+``repro.serving.bcedge``'s ``PoolScheduler`` (paper Fig. 2: agent + SLO
+guard, docs/RUNTIME.md).
+
+One discrete SAC agent per model picks (b, m_c, token budget): b caps
+the active slots per instance, m_c is applied through ``pool.scale_to``
+so the action really spawns or drains engine instances, and the token
+budget caps each iteration's prefill + decode tokens. Before an action
+is applied, the SLO guard checks it against the models the pool
+calibrates from its own measured iterations (contention, token cost, KV
+occupancy) and degrades an infeasible one to the nearest feasible.
+
+The reference's action also carries a speculation depth and a TP degree;
+the port's pool serves neither yet, so a ``ServingConfig`` that offers
+more than ``spec_depths=(0,)`` and ``tp_degrees=(1,)`` is refused
+(ROADMAP.md). The simulator's ``BCEdgeScheduler`` and ``run_episode``
+come with the simulator (Queue A item 8).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+
+from repro_torch.config.base import ServingConfig
+from repro_torch.serving import latency_model as lm
+
+#: state vector fed to the per-model pool agents (docs/RUNTIME.md):
+#: [log1p(queue), oldest slack s, own m_c share, total live share,
+#:  log1p(predicted iter ms), log1p(Eq.-1 slot ms),
+#:  KV budget headroom frac (1.0 for dense/unlimited pools),
+#:  log1p(prefill backlog tokens), log1p(preemptions since last decision),
+#:  prefix-cache hit rate, speculative acceptance rate, shared-device-set
+#:  utilization, host-tier occupancy frac]. The last five are features of
+#: parts the port does not have yet (preemption, the prefix cache,
+#: speculation, a device budget, the host tier) and read 0, as the
+#: reference's do for a pool without them.
+POOL_STATE_DIM = 13
+
+
+class PoolScheduler:
+    """(b, m_c) scheduler over a REAL ``ModelInstancePool``: b caps the
+    active slots per instance, m_c is applied through ``pool.scale_to``.
+    One agent per model (the port's ``SACAgent`` on the pool's device
+    unless ``agents`` are given); the SLO guard degrades infeasible
+    actions using the contention model the pool calibrates from its own
+    measured iteration latencies."""
+
+    def __init__(self, pool, cfg: ServingConfig,
+                 slo_ms: Optional[Dict[str, float]] = None,
+                 decode_steps_mean: float = 8.0, guard: bool = True,
+                 learn: bool = True, seed: int = 0, agents=None):
+        if tuple(cfg.spec_depths) != (0,) or tuple(cfg.tp_degrees) != (1,):
+            raise NotImplementedError(
+                "speculation depths and TP degrees as scheduler axes are "
+                "not ported yet: the port's pool serves neither "
+                "(ROADMAP.md, Queue A items 5 and 10)")
+        self.pool = pool
+        self.cfg = cfg
+        self.slo_ms = dict(slo_ms or {})
+        self.decode_steps_mean = max(1.0, decode_steps_mean)
+        self.guard = guard
+        self.learn = learn
+        self.guard_interventions = 0
+        if agents is None:
+            from repro_torch.core.sac import SACAgent, SACConfig
+            agents = {m: SACAgent(POOL_STATE_DIM, cfg.n_actions,
+                                  SACConfig(batch_size=32, lr=1e-3),
+                                  seed=seed + i, device=pool.device)
+                      for i, m in enumerate(pool.configs)}
+        self.agents = agents
+        self._last: Dict[str, tuple] = {}      # model -> (state, action)
+        self._since: Dict[str, list] = {m: [] for m in pool.configs}
+        #: results already harvested from pool history by ``tick()``
+        self._tick_seen: Dict[str, int] = {m: 0 for m in pool.configs}
+
+    # ---- feedback --------------------------------------------------------
+    def record(self, results) -> None:
+        """Feed finished PoolResults back (call after every pool.step)."""
+        for r in results:
+            self._since[r.model].append(r)
+
+    def _reward(self, model: str) -> float:
+        """Mean per-request Eq.-3 utility since the last decision, with
+        the simulator's Eq.-4 violation penalty."""
+        rs = self._since[model]
+        self._since[model] = []
+        if not rs:
+            return 0.0
+        served = [r.utility for r in rs if not r.rejected]
+        u = float(np.mean(served)) if served else 0.0
+        return u - 3.5 * sum(r.violated for r in rs) / len(rs)
+
+    # ---- state / guard ---------------------------------------------------
+    def _state(self, model: str) -> np.ndarray:
+        p = self.pool
+        t1, c = p.contention()
+        pred = lm.predicted_iter_ms(t1, c, max(1, p.total_live()))
+        slack = min(p.oldest_slack_ms(model), 10_000.0)
+        occ = p.kv_occupancy()
+        headroom = 1.0
+        if occ["budget_tokens"] > 0.0:
+            # the budget is consumed by live token residency AND by
+            # committed spawn grants: report the tighter of the two
+            committed = occ["committed_blocks"] * p.block_size
+            headroom = max(0.0, 1.0 - max(occ["used_tokens"], committed)
+                           / occ["budget_tokens"])
+        return np.array([
+            np.log1p(p.queue_len(model)),
+            slack / 1000.0,
+            p.m_c(model) / max(1, p.max_instances),
+            p.total_live() / max(1, p.max_instances),
+            np.log1p(max(pred, 0.0)),
+            np.log1p(max(p.slot_ms(model), 0.0)),
+            headroom,
+            np.log1p(max(0, p.prefill_backlog_tokens(model))),
+            0.0,  # preemptions since the last decision
+            0.0,  # prefix-cache hit rate
+            0.0,  # speculative acceptance rate
+            0.0,  # shared-device-set utilization
+            0.0,  # host-tier occupancy
+        ], np.float32)
+
+    def _kv_feasible(self, model: str, b: int, m_c: int) -> bool:
+        """Eq.-4 (memory) feasibility against the pool's real shared KV
+        block budget: b slots x m_c instances at the MEASURED tokens per
+        sequence, plus what the other tenants occupy, must fit. Dense
+        pools, unlimited budgets and uncalibrated occupancy are feasible.
+        The allocation side (committed grants) is enforced by
+        ``pool.scale_to`` clamping on free blocks."""
+        occ = self.pool.kv_occupancy()
+        budget = occ["budget_tokens"]
+        tps = occ["tokens_per_seq"]
+        if budget <= 0.0 or tps <= 0.0:
+            return True
+        used_others = occ["used_tokens"] - self.pool.kv_used_tokens(model)
+        need = lm.predicted_kv_tokens(tps, b * m_c)
+        shared = min(max(occ.get("shared_frac", 0.0), 0.0), 0.95)
+        need *= 1.0 - shared
+        return need + used_others <= budget
+
+    def _iter_budget_ms(self, model: str) -> float:
+        """Per-iteration share of the most urgent request's slack."""
+        slack = self.pool.oldest_slack_ms(model)
+        if slack == float("inf"):
+            slack = self.slo_ms.get(model, 1000.0)
+        return max(slack, 2.0) / self.decode_steps_mean
+
+    def _feasible(self, model: str, b: int, m_c: int,
+                  token_budget: int = 0) -> bool:
+        """Eq.-1 feasibility per iteration at the PROPOSED overlap: the
+        calibrated contention model's pool-iteration latency at the other
+        models' busy instances plus ``m_c`` must fit the most urgent
+        request's per-iteration budget, and so must an iteration of
+        ``token_budget`` tokens under the token-cost fit (when nonzero).
+        b enters through the KV guard (``_kv_feasible``)."""
+        if not self._kv_feasible(model, b, m_c):
+            return False
+        budget = self._iter_budget_ms(model)
+        t1, c = self.pool.contention()
+        if t1 > 0.0:
+            busy_others = self.pool.busy_count() - sum(
+                1 for i in self.pool.live(model) if i.n_resident > 0)
+            if lm.predicted_iter_ms(t1, c, max(1, busy_others + m_c)) \
+                    > budget:
+                return False
+        if token_budget > 0:
+            base, per_tok = self.pool.token_cost()
+            if per_tok > 0.0 and lm.predicted_token_iter_ms(
+                    base, per_tok, token_budget) > budget:
+                return False
+        return True
+
+    def _apply(self, model: str, a: int) -> int:
+        cfg = self.cfg
+        b, m_c, tb = cfg.action_to_triple(a)
+        # under backlog the guard steps aside (only throughput clears an
+        # old queue)
+        slo = self.slo_ms.get(model, 1000.0)
+        backlog = self.pool.oldest_slack_ms(model) < 0.5 * slo
+        if self.guard and not backlog and \
+                not self._feasible(model, b, m_c, tb):
+            self.guard_interventions += 1
+            bs_levels = list(cfg.batch_sizes)
+            ms = list(cfg.concurrency_levels)
+            # token budgets ordered most -> least iteration work (0 =
+            # uncapped first); degrading walks toward tighter caps
+            tbs = sorted(cfg.token_budgets,
+                         key=lambda t: float("inf") if t == 0 else t,
+                         reverse=True)
+            bi, mi, ti = bs_levels.index(b), ms.index(m_c), tbs.index(tb)
+            # degrade the token budget first (a tighter cap bounds the
+            # iteration), then concurrency (it contends and multiplies
+            # KV residency), then batch
+            while ti < len(tbs) - 1 or mi > 0 or bi > 0:
+                if ti < len(tbs) - 1:
+                    ti += 1
+                elif mi > 0:
+                    mi -= 1
+                else:
+                    bi -= 1
+                if self._feasible(model, bs_levels[bi], ms[mi], tbs[ti]):
+                    break
+            b, m_c, tb = bs_levels[bi], ms[mi], tbs[ti]
+        self.pool.set_slot_cap(model, b)
+        self.pool.scale_to(model, m_c)
+        self.pool.set_token_budget(model, tb or None)
+        return cfg.triple_to_action(b, m_c, tb)
+
+    # ---- decision epoch --------------------------------------------------
+    def control(self) -> Dict[str, tuple]:
+        """One decision per model: close the previous (s, a, r, s')
+        transition, pick a new (b, m_c), and apply it to the pool. Call
+        once per Eq.-1 slot."""
+        applied = {}
+        for model, agent in self.agents.items():
+            s = self._state(model)
+            if self.learn and model in self._last:
+                s0, a0 = self._last[model]
+                agent.observe(s0, a0, self._reward(model), s, False)
+                agent.update()
+            a = self._apply(model, agent.act(s))
+            self._last[model] = (s, a)
+            applied[model] = self.cfg.action_to_pair(a)
+        return applied
+
+    def tick(self, pool=None) -> Dict[str, tuple]:
+        """Push-mode decision epoch: harvest the results completed since
+        the last call from the pool's history, then run ``control()``."""
+        if pool is not None and pool is not self.pool:
+            raise ValueError("tick() got a different pool than the one "
+                             "this scheduler controls")
+        for model in self.pool.configs:
+            hist = self.pool.results(model)
+            seen = self._tick_seen.get(model, 0)
+            if seen > len(hist):  # pool.reset_metrics() cleared history
+                seen = 0
+            self.record(hist[seen:])
+            self._tick_seen[model] = len(hist)
+        return self.control()

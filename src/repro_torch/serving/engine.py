@@ -26,23 +26,31 @@ rows of a decode iteration (idle slots' dummy tokens included), the
 unpadded rows of a prefill chunk, and every row of a round's left-padded
 ``(B, S)`` batch.
 
+For the instance pool (``serving/runtime.py``) the continuous engine
+shares one model and params dict between instances (``share_from``),
+reports per-token and phase events (``on_token``, ``on_state``), counts
+each step's tokens and whether it loaded a kernel library
+(``last_step_tokens``, ``last_step_compiled``), and prices admission
+(``request_blocks``, ``admissible``, ``kv_block_mapping``).
+
 What is still to port raises (see ROADMAP.md): seeded sampling, the
 prefix cache, speculative decoding, the host KV tier, tensor
 parallelism, windowed and recurrent layers under the paged layout, and
-encoder-decoder and frontend models. Preemption, cancellation and
-the lifecycle hooks come later too.
+encoder-decoder and frontend models. Preemption and cancellation come
+later too.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.device import resolve_device, to_device
+from repro_torch.kernels import _build
 from repro_torch.models import build_model
 from repro_torch.models.bridge import params_from_jax
 from repro_torch.models.transformer import (check_paged_supported,
@@ -354,7 +362,10 @@ class ContinuousBatchingEngine:
     without a GPU; pass ``device="cpu"`` for the plain versions). Weights
     are drawn from ``seed`` unless ``params`` (the port's layout) are
     given or :meth:`load_jax_params` carries the reference's across.
-    Everything is float32.
+    ``share_from`` (an engine of the same config on the same device)
+    shares that engine's model and params dict instead, as the pool's
+    instances of one model do; the KV cache, block table and slots stay
+    this engine's own. Everything is float32.
     """
 
     def __init__(self, cfg: ModelConfig, max_slots: int = 4,
@@ -364,7 +375,8 @@ class ContinuousBatchingEngine:
                  token_budget: Optional[int] = None,
                  prefix_cache: bool = False, spec_k: int = 0,
                  mesh=None, device="cuda",
-                 params: Optional[Dict] = None):
+                 params: Optional[Dict] = None,
+                 share_from: Optional["ContinuousBatchingEngine"] = None):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         for flag, what in ((prefix_cache, "prefix_cache"),
@@ -389,9 +401,20 @@ class ContinuousBatchingEngine:
         #: per-iteration cap on prefill-chunk + resident-decode tokens
         #: (None = uncapped). Mutable between steps.
         self.token_budget = token_budget
-        self.model = build_model(cfg)
-        self.params = self.model.init(seed, device=self.device) \
-            if params is None else to_device(params, self.device)
+        if share_from is not None and share_from.cfg == cfg:
+            if share_from.device != self.device:
+                raise ValueError(
+                    f"share_from donor lives on {share_from.device}, this "
+                    f"engine on {self.device}")
+            # co-resident instances of one model share weights (the
+            # reference's share_from, engine.py:909); the KV cache below
+            # stays per-instance
+            self.model = share_from.model
+            self.params = share_from.params
+        else:
+            self.model = build_model(cfg)
+            self.params = self.model.init(seed, device=self.device) \
+                if params is None else to_device(params, self.device)
         if kv_layout == "paged":
             self.block_size = block_size
             self.blocks_per_slot = -(-self.cache_len // block_size)
@@ -422,18 +445,61 @@ class ContinuousBatchingEngine:
         self.n_evicted = 0
         self.n_prefill_chunk_tokens = 0
         self.prefill_shapes: Set[Tuple[int, int]] = set()
+        #: lifecycle hooks, fired synchronously inside engine calls (keep
+        #: them cheap; they must not reenter the engine):
+        #: ``on_token(request_id, token, index)`` per emitted token, index
+        #: its position in the completion; ``on_state(request_id, state)``
+        #: with "prefill" at slot assignment and "decode" when the prompt
+        #: is done
+        self.on_token: Optional[Callable] = None
+        self.on_state: Optional[Callable] = None
+        #: tokens the last step() processed (prefill chunks + resident
+        #: decode) and whether it built or loaded a kernel library (the
+        #: first use of a kernel); the pool's calibration skips such steps
+        self.last_step_tokens = 0
+        self.last_step_compiled = False
         self._next_id = 0
         self._t0 = time.perf_counter()
 
     def load_jax_params(self, params_np: Dict) -> None:
         """Replace the weights with the reference's (its param pytree with
-        numpy leaves; see ``repro_torch.models.bridge``)."""
-        self.params = to_device(params_from_jax(params_np, self.cfg),
-                                self.device)
+        numpy leaves; see ``repro_torch.models.bridge``). Engines that
+        share this one's params dict see the new weights too."""
+        new = to_device(params_from_jax(params_np, self.cfg), self.device)
+        self.params.clear()
+        self.params.update(new)
 
     # ---- bookkeeping -----------------------------------------------------
     def _now(self) -> float:
         return time.perf_counter() - self._t0
+
+    def request_blocks(self, prompt_len: int, max_new: int) -> int:
+        """Worst-case blocks a request of this shape reserves at admission
+        (paged layout): its prompt bucket plus the decode tokens that fit
+        the cache."""
+        S = _bucket(prompt_len, buckets=SEQ_BUCKETS)
+        return self.allocator.blocks_for(
+            S + min(max_new, self.cache_len - S))
+
+    def admissible(self, prompt_len: int, max_new: int,
+                   pending_blocks: int = 0) -> bool:
+        """Could a request of this shape be admitted right now? Dense: a
+        free slot. Paged: a free slot and enough unreserved blocks, less
+        ``pending_blocks`` a caller has promised to requests it routed
+        here but the engine has not reserved yet."""
+        if not self.free_slots:
+            return False
+        if self.kv_layout != "paged":
+            return True
+        return self.allocator.n_available - pending_blocks \
+            >= self.request_blocks(prompt_len, max_new)
+
+    def kv_block_mapping(self) -> Tuple[int, int]:
+        """(logical block mappings, distinct physical blocks) over the
+        active slots. Without a prefix cache every block has one owner,
+        so the two are equal."""
+        mapped = [b for s in self.slots if s.active for b in s.blocks]
+        return len(mapped), len(set(mapped))
 
     @property
     def free_slots(self) -> List[int]:
@@ -486,7 +552,7 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"prompt bucket {S} does not fit cache_len {self.cache_len}")
         if self.kv_layout == "paged":
-            need = self.allocator.blocks_for(S + min(max_new_tokens, room))
+            need = self.request_blocks(len(prompt), max_new_tokens)
             if need > self.allocator.n_blocks:
                 raise ValueError(
                     f"request needs {need} blocks, pool has only "
@@ -542,6 +608,8 @@ class ContinuousBatchingEngine:
             self.pos[slot] = 0
             self.n_admitted += 1
             n += 1
+            if self.on_state is not None:
+                self.on_state(w.request_id, "prefill")
         return n
 
     # ---- chunked prefill (docs/ARCHITECTURE.md §5) -----------------------
@@ -599,6 +667,8 @@ class ContinuousBatchingEngine:
             s.staging = None
         self.pos[slot] = s.prefill_pos
         self.pending_tok[slot] = int(sample_tokens(logits[0, -1, :]))
+        if self.on_state is not None:
+            self.on_state(s.request_id, "decode")
 
     def _graft(self, one_cache: List[Dict], slot: int) -> None:
         """Copy a prefilled one-slot dense cache into row ``slot`` of every
@@ -633,14 +703,21 @@ class ContinuousBatchingEngine:
         slots decode a dummy token at position 0 (into the null block, or
         their own row, which admission's graft overwrites), keeping the
         decode shape fixed at (n_slots, 1)."""
+        loads = _build.n_loads
+        finished = self._step()
+        self.last_step_compiled = _build.n_loads != loads
+        return finished
+
+    def _step(self) -> List[ContinuousResult]:
         self.admit()
         n_dec = len(self.decoding_slots)
         budget = self.token_budget if self.token_budget is not None \
             else 1 << 62
-        self._prefill_step(max(0, budget - n_dec))
+        self.last_step_tokens = self._prefill_step(max(0, budget - n_dec))
         active = self.decoding_slots
         if not active:
             return []
+        self.last_step_tokens += len(active)
         now = self._now()
         for i in active:
             s = self.slots[i]
@@ -648,6 +725,8 @@ class ContinuousBatchingEngine:
             s.remaining -= 1
             if s.first_token_s < 0:
                 s.first_token_s = now
+            if self.on_token is not None:
+                self.on_token(s.request_id, s.tokens[-1], len(s.tokens) - 1)
         batch = {"tokens": self._int_tensor(self.pending_tok[:, None]),
                  "pos": self._int_tensor(self.pos)}
         if self.kv_layout == "paged":

@@ -174,8 +174,9 @@ def test_every_kernel_has_a_source_and_its_own_entry_point_types():
     """Each kernel builds from its own csrc source into its own library
     and declares its C entry point's argument types: device pointers,
     then ints, then (the attention kernels) the float scale."""
-    attention = {"paged_decode_attention", "paged_prefill_attention",
-                 "flash_attention", "decode_attention"}
+    attention = {"paged_decode_attention", "paged_decode_attention_splitk",
+                 "paged_prefill_attention", "flash_attention",
+                 "decode_attention"}
     assert set(_build.KERNELS) == attention | {"rglru_scan", "rwkv6_scan",
                                                "moe_matmul"}
     for name, types in _build.KERNELS.items():
