@@ -708,10 +708,14 @@ def phase_timing(torch, device, smi):
     jobs += [("paged_decode_attention_splitk", lambda B=B, nb=nb:
               _splitk_job(torch, device, B, nb, n_sm))
              for nb in (36, 256) for B in (4, 2, 1)]
-    # the 8-slot drains' shape, which the dispatch leaves unsplit: what
-    # two splits would give there
-    jobs.append(("paged_decode_attention_splitk", lambda: _splitk_job(
-        torch, device, 8, 40, n_sm, n_splits=2)))
+    # past the dispatch's threshold (B.KV > n_sm // 4, left unsplit): what
+    # splitting would give at B.KV = 40, 48, 64 (the 8-slot drains) and 128
+    # on 640-token tables, and at the drains' B = 8 on the pool's 36
+    # columns, at the rule's split count (at least 2)
+    jobs += [("paged_decode_attention_splitk", lambda B=B, nb=nb:
+              _splitk_job(torch, device, B, nb, n_sm, n_splits=max(
+                  2, min(16, n_sm // (B * 8), nb // 2))))
+             for B, nb in ((5, 40), (6, 40), (8, 40), (16, 40), (8, 36))]
     jobs += [("paged_prefill_attention", lambda T=T, pos=pos: _paged_job(
         torch, device, paged_prefill_case, {"T": T, "pos": pos}))
         for T, pos in ((512, 0), (128, 200), (16, 8))]
@@ -1246,131 +1250,138 @@ def phase_parity(torch, device, cfg, layouts=("paged", "dense"), n_req=8,
 # ---------------------------------------------------------------- pool
 #: the paged pool's workload: qwen3-0.6b at full width behind the
 #: instance pool, prompts of a 500-token shared system prompt plus an
-#: 8-token tail (max_seq 576, 36-column tables), 32 new tokens each
-#: at 0.5 requests/s: a pool step costs about 65 ms of host time per busy
-#: instance (H100 80GB HBM3, 700 W), so 1.5 requests/s overloaded it
-#: (PERF.md)
+#: 8-token tail (max_seq 576, 36-column tables), 32 new tokens each at
+#: 1.5 requests/s, the rate set before the pool first ran on the card. It
+#: overloads the pool (PERF.md): this phase drives the path and checks its
+#: launches; `python -m repro_torch.launch.pool_sweep` measures the pool
 POOL_PAGED = dict(shared_prefix_tokens=500, max_instances=4, max_slots=4,
-                  max_new_tokens=32, rps=0.5, slo_ms=5000.0,
+                  max_new_tokens=32, rps=1.5, slo_ms=5000.0,
                   kv_block_budget=576, duration_s=20.0)
-#: the dense pool: the reference CLI's own pair of heterogeneous models,
-#: at 6 requests/s in all (the reference's 12 overloaded it at full width)
+#: the dense pool: the reference CLI's own pair of heterogeneous models at
+#: its 12 requests/s in all
 POOL_DENSE = ("qwen3-0.6b", "recurrentgemma-2b")
 
 
-class _PoolWatch:
-    """While active, wraps ``ContinuousBatchingEngine.step`` (so every
-    engine a pool builds) to tally each engine's decode iterations and
-    prefill chunks by (config, layout, slots, table width), the inputs of
-    the launch formula; and, once the pool's warm-up has reset its
-    metrics, ``ModelInstancePool.step`` to time the steps in which every
-    busy instance only decodes, profiling one of them once ten have been
-    timed."""
+class _PoolProbe:
+    """While active, wraps ``ModelInstancePool.step`` to profile one step
+    in which every busy instance only decodes, once the pool holds ten
+    contention samples (its own pure-decode step times) at that many busy
+    instances. ``pool`` is the pool serve_pool built (its ``pool_out``)."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, profile):
         self.torch = torch
-        self.tally = {}     # (name, layout, slots, nb) -> [iters, chunks]
-        self.cfgs = {}
-        self.walls = {}     # busy instances -> [wall s]
+        self.want_profile = profile
+        self.kept = []
         self.profile = None
-        self.armed = False
+        self.profiled = None    # the profiled step's contention sample
+
+    @property
+    def pool(self):
+        return self.kept[0]
 
     def __enter__(self):
-        from repro_torch.serving.engine import ContinuousBatchingEngine
         from repro_torch.serving.runtime import ModelInstancePool
 
-        torch, watch = self.torch, self
-        self.patched = ((ContinuousBatchingEngine, "step"),
-                        (ModelInstancePool, "step"),
-                        (ModelInstancePool, "reset_metrics"))
-        self.orig = [getattr(c, a) for c, a in self.patched]
-        eng_step, pool_step, reset = self.orig
+        torch, probe = self.torch, self
+        self.orig = step = ModelInstancePool.step
+        if not self.want_profile:
+            return self
 
-        def armed(pool):
-            reset(pool)
-            watch.armed = True
-
-        def counted(eng):
-            it, ch = eng.n_iters, eng.n_prefill_chunks
-            out = eng_step(eng)
-            nb = eng.block_tables.shape[1] if eng.kv_layout == "paged" else 0
-            key = (eng.cfg.name, eng.kv_layout, eng.n_slots, nb)
-            watch.cfgs[eng.cfg.name] = eng.cfg
-            t = watch.tally.setdefault(key, [0, 0])
-            t[0] += eng.n_iters - it
-            t[1] += eng.n_prefill_chunks - ch
-            return out
-
-        def timed(pool):
+        def profiled_once(pool):
+            if probe.profile is not None:
+                return step(pool)
             busy = [i for i in pool.live()
                     if i.engine.active_slots or i.engine.waiting]
-            if not watch.armed or not busy or any(pool.queues.values()) or any(
+            if not busy or any(pool.queues.values()) or any(
                     i.engine.waiting or i.engine.prefill_backlog_tokens
-                    for i in busy):
-                return pool_step(pool)
-            walls = watch.walls.setdefault(len(busy), [])
-            if watch.profile is None and len(walls) >= 10:
-                out = []
-                prof = _profiled(torch, lambda: out.append(pool_step(pool)))
-                watch.profile = (len(busy), sum(i.n_resident for i in busy),
-                                 *prof)
-                return out[0]
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = pool_step(pool)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            return out
+                    for i in busy) or sum(
+                    o == len(busy) for o, _ in pool.contention_samples) < 10:
+                return step(pool)
+            last = pool.contention_samples[-1]
+            out = []
+            prof = _profiled(torch, lambda: out.append(step(pool)))
+            probe.profile = (len(busy), sum(i.n_resident for i in busy),
+                             *prof)
+            if pool.contention_samples[-1] is not last:
+                probe.profiled = pool.contention_samples[-1]
+            return out[0]
 
-        for (cls, attr), fn in zip(self.patched, (counted, timed, armed)):
-            setattr(cls, attr, fn)
+        ModelInstancePool.step = profiled_once
         return self
 
     def __exit__(self, *exc):
-        for (cls, attr), fn in zip(self.patched, self.orig):
-            setattr(cls, attr, fn)
+        from repro_torch.serving.runtime import ModelInstancePool
 
-    def want(self):
-        """The launch formula over the tallied engines (``_want`` per
-        engine shape, the paged decode kernel as the dispatch picks it
-        for the engine's slots and table width)."""
+        ModelInstancePool.step = self.orig
+
+    def engines(self):
+        """(config, layout, slots, table columns) -> [decode iterations,
+        prefill chunks], over every engine the pool built: the live
+        instances' and the retired ones' (their engines' final stats)."""
+        pool = self.pool
+        nb = {}
+        for m, lst in pool.instances.items():
+            for i in lst:
+                if pool.kv_layout == "paged":
+                    nb[m] = i.engine.block_tables.shape[1]
+        tally = {}
+        for inst in [i for lst in pool.instances.values() for i in lst] \
+                + pool.retired:
+            st = inst.engine.stats() if inst.engine is not None \
+                else inst.engine_stats
+            if pool.kv_layout == "paged" and inst.model not in nb:
+                fail(f"pool: no live {inst.model} engine gives the table "
+                     f"width")
+            key = (inst.model, pool.kv_layout, int(st["n_slots"]),
+                   nb.get(inst.model, 0))
+            t = tally.setdefault(key, [0, 0])
+            t[0] += int(st["n_iters"])
+            t[1] += int(st["n_prefill_chunks"])
+        return tally
+
+    def want(self, tally):
+        """The launch formula over the pool's engines (``_want`` per
+        engine shape, the paged decode kernel as the dispatch picks it for
+        the engine's slots and table width)."""
         want = {name: 0 for name in REPLACES}
-        for (name, layout, slots, nb), (iters, chunks) in self.tally.items():
-            got = _want(self.cfgs[name], layout, n_iters=iters,
+        for (m, layout, slots, nb), (iters, chunks) in tally.items():
+            got = _want(self.pool.configs[m], layout, n_iters=iters,
                         n_chunks=chunks, n_slots=slots, nb=nb)
             for k, n in got.items():
                 want[k] += n
         return want
 
 
-def _pool_run(torch, device, smi, label, **kw):
-    """serve_pool under a _PoolWatch; checks the launch formula exactly
-    and that every model served. Returns (launches, watch, report)."""
+def _pool_run(torch, device, smi, label, profile=False, **kw):
+    """serve_pool under a _PoolProbe; checks the launch formula exactly
+    and that every model served. Returns (launches, probe, report)."""
     from repro_torch.launch.engine_serve import serve_pool
 
     reset_launches()
     t0 = time.perf_counter()
-    with _PoolWatch(torch) as watch:
-        report = serve_pool(device=device, **kw)
+    with _PoolProbe(torch, profile) as probe:
+        report = serve_pool(device=device, pool_out=probe.kept, **kw)
     wall = time.perf_counter() - t0
-    got, want = read_launches(), watch.want()
-    log(f"pool {label}: engines {watch.tally} ((config, layout, slots, "
-        f"table columns) -> [decode iterations, prefill chunks])")
+    tally = probe.engines()
+    got, want = read_launches(), probe.want(tally)
+    log(f"pool {label}: engines {tally} ((config, layout, slots, table "
+        f"columns) -> [decode iterations, prefill chunks])")
     if got != want:
         fail(f"pool {label}: launches {got} != formula {want}")
     log(f"pool {label}: launches {got} == formula {want}")
     for m, row in report.items():
         if row["served"] < 1:
             fail(f"pool {label}: {m} served nothing: {row}")
-        log(f"pool {label} {m}: served {row['served']:.0f}, rejected "
-            f"{row['rejected']:.0f}, SLO attainment "
-            f"{row['slo_attainment']:.3f} (SLO {kw['slo_ms']:.0f} ms), mean "
-            f"latency {row['mean_latency_ms']:.1f} ms, utility "
+        log(f"pool {label} {m} at {kw['rps']} requests/s: served "
+            f"{row['served']:.0f}, rejected {row['rejected']:.0f}, SLO "
+            f"attainment {row['slo_attainment']:.3f} (SLO "
+            f"{kw['slo_ms']:.0f} ms), mean latency "
+            f"{row['mean_latency_ms']:.1f} ms, utility "
             f"{row['mean_utility']:.3f}, m_c {row['m_c']:.0f}, "
             f"{row['generated_tokens'] / kw['duration_s']:.1f} generated "
             f"tokens/s over the {kw['duration_s']:.0f} s window [{smi}]")
     log(f"pool {label}: {wall:.1f} s with build, warm-up and teardown")
-    return got, watch, report
+    return got, probe, report
 
 
 def phase_pool(torch, device, smi):
@@ -1385,9 +1396,9 @@ def phase_pool(torch, device, smi):
 
     full = get_config(FULL)
     launches = {name: 0 for name in REPLACES}
-    got, watch, _ = _pool_run(torch, device, smi, "paged", models=[FULL],
-                              cfgs={FULL: full}, kv_layout="paged",
-                              **POOL_PAGED)
+    got, probe, _ = _pool_run(torch, device, smi, "paged", profile=True,
+                              models=[FULL], cfgs={FULL: full},
+                              kv_layout="paged", **POOL_PAGED)
     # max_seq 576: 36 table columns of 16
     split = _paged_decode_kernel(full, POOL_PAGED["max_slots"], 36)
     if split != "paged_decode_attention_splitk" or not got[split]:
@@ -1398,24 +1409,25 @@ def phase_pool(torch, device, smi):
         f"{got['paged_decode_attention']}")
     for name, n in got.items():
         launches[name] += n
-    if watch.profile is None:
+    if probe.profile is None:
         fail("pool paged: no decode-only pool step was profiled")
-    n_busy, resident, wall, busy, nk, names = watch.profile
-    walls = watch.walls[n_busy]
-    p50 = float(np.percentile(walls, 50)) * 1e3
+    n_busy, resident, wall, busy, nk, names = probe.profile
+    walls = [smp[1] for smp in probe.pool.contention_samples
+             if smp[0] == n_busy and smp is not probe.profiled]
+    p50 = float(np.percentile(walls, 50))
     _report_profile([(f"decode-only pool step ({n_busy} busy instances, "
                       f"{resident} resident sequences)", 1, wall, busy, nk,
                       names)], smi, "pool paged")
     split_ms = sum(ms for n, ms in names.items() if "splitk" in n)
     log(f"pool paged: decode-only step device busy {busy:.3f} ms of the "
-        f"unprofiled p50 {p50:.3f} ms over {len(walls)} such steps: idle "
-        f"share {1 - busy / p50:.1%}; split-K (both kernels) {split_ms:.3f} "
-        f"ms [{smi}]")
+        f"pool's unprofiled p50 {p50:.3f} ms over {len(walls)} such steps: "
+        f"idle share {1 - busy / p50:.1%}; split-K (both kernels) "
+        f"{split_ms:.3f} ms [{smi}]")
     torch.cuda.empty_cache()
     got, _, _ = _pool_run(torch, device, smi, "dense",
                           models=list(POOL_DENSE),
                           cfgs={m: get_config(m) for m in POOL_DENSE},
-                          kv_layout="dense", duration_s=20.0, rps=6.0,
+                          kv_layout="dense", duration_s=20.0, rps=12.0,
                           slo_ms=2000.0, max_new_tokens=4)
     for name, n in got.items():
         launches[name] += n

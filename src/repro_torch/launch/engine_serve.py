@@ -223,7 +223,9 @@ def serve_pool(models: Sequence[str] = ("qwen3-0.6b", "recurrentgemma-2b"),
                token_budget: Optional[int] = None,
                shared_prefix_tokens: int = 0,
                cfgs: Optional[Dict[str, ModelConfig]] = None,
-               device="cuda") -> Dict[str, Dict[str, float]]:
+               device="cuda",
+               pool_out: Optional[list] = None
+               ) -> Dict[str, Dict[str, float]]:
     """Multi-model pool serve: Poisson arrivals per model are routed by
     deadline into a ``ModelInstancePool`` of live engine instances while
     the ``PoolScheduler`` re-decides (b, m_c) per model once per Eq.-1
@@ -235,8 +237,10 @@ def serve_pool(models: Sequence[str] = ("qwen3-0.6b", "recurrentgemma-2b"),
     them. ``cfgs`` (model -> config) overrides the reduced registry
     configs (for example with the full-width ones). The reference's
     preemption, host KV tier, prefix cache and speculation arguments are
-    not ported (ROADMAP.md). Runs on ``device`` (default ``"cuda"``, which raises without a GPU).
-    Returns the pool's per-model report."""
+    not ported (ROADMAP.md). Runs on ``device`` (default ``"cuda"``, which
+    raises without a GPU). ``pool_out``, a list, receives the pool, for
+    callers that read its per-request results. Returns the pool's
+    per-model report."""
     cfgs = dict(cfgs) if cfgs is not None else {
         m: get_reduced_config(m) for m in models}
     for m, cfg in cfgs.items():
@@ -251,6 +255,8 @@ def serve_pool(models: Sequence[str] = ("qwen3-0.6b", "recurrentgemma-2b"),
                              kv_layout=kv_layout,
                              kv_block_budget=kv_block_budget,
                              device=device)
+    if pool_out is not None:
+        pool_out.append(pool)
     per_model_mc = max(1, max_instances // max(1, len(cfgs)))
     scfg = ServingConfig(
         batch_sizes=tuple(b for b in (1, 2, 4, 8) if b <= max_slots),

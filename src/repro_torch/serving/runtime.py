@@ -147,6 +147,9 @@ class ModelInstance:
         self.kv_blocks = kv_blocks  # share of the pool's block budget
         self.state = STARTING
         self.requests: Dict[int, PoolRequest] = {}  # engine rid -> request
+        #: the engine's ``stats()`` when the instance retired (the engine
+        #: itself is dropped then); None while it lives
+        self.engine_stats: Optional[Dict[str, float]] = None
 
     @property
     def n_resident(self) -> int:
@@ -480,6 +483,7 @@ class ModelInstancePool:
             for inst in lst:
                 if inst.state == DRAINING and inst.n_resident == 0:
                     inst.state = RETIRED
+                    inst.engine_stats = inst.engine.stats()
                     inst.engine = None
                     if self.kv_blocks_free is not None:
                         self.kv_blocks_free += inst.kv_blocks

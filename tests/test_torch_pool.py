@@ -156,6 +156,24 @@ def test_drain_before_retire_finishes_resident_work():
     assert [r.request_id for r in pool.run_until_drained()] == [late]
 
 
+def test_retired_instance_keeps_its_engine_stats():
+    """The engine is dropped at retirement; its counters stay on the
+    instance (what a launch count over every engine the pool built reads)."""
+    pool = _pool()
+    inst = pool.spawn("tiny-a")
+    assert inst.engine_stats is None
+    rng = np.random.default_rng(5)
+    pool.submit("tiny-a", _prompt(rng), slo_ms=60_000.0, max_new_tokens=5)
+    pool.run_until_drained()
+    want = inst.engine.stats()
+    pool.drain("tiny-a")
+    pool.step()
+    assert inst.state == RETIRED and inst.engine is None
+    assert pool.retired == [inst]
+    assert inst.engine_stats == want
+    assert want["n_iters"] >= 4 and want["n_prefill_chunks"] >= 1
+
+
 # ------------------------------------------------------------ concurrency
 def test_two_model_concurrent_smoke():
     pool = ModelInstancePool({"tiny-a": TINY_A, "tiny-b": TINY_B},
