@@ -3,10 +3,12 @@
 GPU: builds the eight hand-written kernels (five attention kernels, split-K
 paged decode among them, the RG-LRU and the RWKV-6 scans, the grouped
 expert GEMM) from the sources in this checkout, holds each against its
-plain PyTorch version at the main paths' shapes on poisoned inputs (split-K
-also against the unsplit kernel), times them, serves full-width qwen3-0.6b
-through each main path (the paged continuous engine, round mode with the
-SAC scheduler, the dense continuous engine), then through the multi-model
+plain PyTorch version at the main paths' shapes on poisoned inputs (the
+paged kernels at GQA groups of 2, 5 and 7; split-K also against one
+split), times them (paged decode over the B x KV grid behind its
+dispatch), serves full-width qwen3-0.6b through each main path (the paged
+continuous engine, ``serve_continuous`` at 4 and 32 slots, round mode with
+the SAC scheduler, the dense continuous engine), then through the multi-model
 instance pool under the PoolScheduler (``serve_pool``: qwen3-0.6b paged,
 whose four-slot instances decode through split-K, and qwen3-0.6b with
 recurrentgemma-2b dense), full-width recurrentgemma-2b and rwkv6-3b
@@ -106,12 +108,22 @@ def phase_build() -> None:
         fail(f"build: kernels {sorted(paths)}, expected {sorted(REPLACES)}")
     log(f"build: {len(paths)} kernels in {time.perf_counter() - t0:.2f} s "
         f"(one nvcc per source, in parallel)")
+    spills = []
     for name in paths:
+        entry = ""
         for line in _build.build_log(name).splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-
-
+            if "spill" in line and not line.strip().startswith(
+                    "0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                    "spill loads"):
+                spills.append(f"{name} {entry}: {line.strip()}")
+    for s in spills:
+        log(f"  spill: {s}")
+    if spills:
+        fail(f"build: {len(spills)} kernel(s) spill registers")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -196,12 +208,20 @@ def paged_decode_case(torch, device, B=8, H=16, KV=8, hd=128, bs=16, nb=40,
 
 #: (B, nb): split-K at the shapes of the pool's decode (nb = 36: max_seq
 #: 576 of a 500-token shared prefix) and of a 4096-token context, for one
-#: to eight sequences; each split count of SPLITK_SPLITS is held
-SPLITK_CASES = tuple((B, nb) for nb in (36, 256) for B in (1, 2, 4, 8))
+#: to eight sequences, then the two shapes the dispatch sends on the main
+#: paths: the 8-slot drains (B = 8 over 40 columns, split-K) and
+#: ``serve_continuous`` at 32 slots (max_seq 128: 8 columns, one split);
+#: each split count of SPLITK_SPLITS is held, and the one-split kernel
+#: against its plain version at each shape
+SPLITK_CASES = tuple((B, nb) for nb in (36, 256) for B in (1, 2, 4, 8)) \
+    + ((8, 40), (32, 8))
 SPLITK_SPLITS = (1, 2, 3, 4, 8, 16)
 #: split-K vs its plain version and vs the unsplit kernel (fp32; the
 #: splits change the order of the sum, nothing else)
 SPLITK_TOL = 2e-6
+#: the GQA groups the paged path serves at hd 128 over 8 KV heads:
+#: qwen3-0.6b (G = 2), llama4-maverick (G = 5) and arctic-480b (G = 7)
+PAGED_HEADS = ({"H": 16, "KV": 8}, {"H": 40, "KV": 8}, {"H": 56, "KV": 8})
 
 
 def splitk_case(torch, device, B, nb, bs=16, H=16, KV=8, hd=128, full=False,
@@ -436,27 +456,48 @@ def phase_kernels(torch, device):
         want = plain(**(plain_args or kern_args))
         errs[name] = max(errs[name], _check(torch, name, got, want, what))
 
-    c = paged_decode_case(torch, device)
-    run("paged_decode_attention", f"q {tuple(c['q'].shape)} pools "
-        f"{tuple(c['k_pool'].shape)} seq_lens {c['seq_lens'].tolist()}", c)
     split, split_plain = w["paged_decode_attention_splitk"]
-    for B, nb in SPLITK_CASES:
-        c = splitk_case(torch, device, B, nb)
-        whole = w["paged_decode_attention"][0](**c)
-        for n in SPLITK_SPLITS:
-            what = (f"q ({B},1,16,128) tables ({B},{nb}) n_splits {n} "
-                    f"seq_lens {c['seq_lens'].tolist()}")
-            got = split(**c, n_splits=n)
-            errs["paged_decode_attention_splitk"] = max(
-                errs["paged_decode_attention_splitk"],
-                _check(torch, "paged_decode_attention_splitk", got,
-                       split_plain(**c, n_splits=n), what, SPLITK_TOL),
-                _check(torch, "paged_decode_attention_splitk", got, whole,
-                       what, SPLITK_TOL, "the unsplit kernel"))
-        del c, whole
-    for T, pos in PREFILL_CASES:
-        run("paged_prefill_attention", f"q (1,{T},16,128) pos {pos}",
-            paged_prefill_case(torch, device, T, pos))
+    for heads in PAGED_HEADS:
+        c = paged_decode_case(torch, device, **heads)
+        run("paged_decode_attention", f"q {tuple(c['q'].shape)} pools "
+            f"{tuple(c['k_pool'].shape)} seq_lens {c['seq_lens'].tolist()}",
+            c)
+        H = heads["H"]
+        for B, nb in SPLITK_CASES:
+            c = splitk_case(torch, device, B, nb, **heads)
+            whole = w["paged_decode_attention"][0](**c)
+            errs["paged_decode_attention"] = max(
+                errs["paged_decode_attention"],
+                _check(torch, "paged_decode_attention", whole,
+                       w["paged_decode_attention"][1](**c),
+                       f"q ({B},1,{H},128) tables ({B},{nb}) seq_lens "
+                       f"{c['seq_lens'].tolist()}"))
+            for n in SPLITK_SPLITS:
+                what = (f"q ({B},1,{H},128) tables ({B},{nb}) n_splits {n} "
+                        f"seq_lens {c['seq_lens'].tolist()}")
+                got = split(**c, n_splits=n)
+                errs["paged_decode_attention_splitk"] = max(
+                    errs["paged_decode_attention_splitk"],
+                    _check(torch, "paged_decode_attention_splitk", got,
+                           split_plain(**c, n_splits=n), what, SPLITK_TOL),
+                    _check(torch, "paged_decode_attention_splitk", got,
+                           whole, what, SPLITK_TOL, "the unsplit kernel"))
+            del c, whole
+        for T, pos in PREFILL_CASES:
+            run("paged_prefill_attention", f"q (1,{T},{H},128) pos {pos}",
+                paged_prefill_case(torch, device, T, pos, **heads))
+    # MQA at hd 256 (recurrentgemma-2b's local heads): no paged path
+    # sends it, and the kernels stay right for it
+    c = paged_decode_case(torch, device, **RG_HEADS)
+    run("paged_decode_attention", "q (8,1,10,256) KV 1 (MQA)", c)
+    c = splitk_case(torch, device, 4, 36, **RG_HEADS)
+    run("paged_decode_attention_splitk", "q (4,1,10,256) KV 1 (MQA) "
+        "n_splits 4", dict(c, n_splits=4))
+    for T, pos in ((512, 0), (100, 37)):
+        run("paged_prefill_attention", f"q (1,{T},10,256) KV 1 (MQA) pos "
+            f"{pos}", paged_prefill_case(torch, device, T, pos, **RG_HEADS))
+    del c
+    torch.cuda.empty_cache()
     for B, S, T, causal, window in FLASH_CASES:
         c = flash_case(torch, device, B, S, T, causal, window)
         run("flash_attention", f"B={B} S={S} T={T} causal={causal} "
@@ -571,32 +612,34 @@ def _paged_job(torch, device, make, kw):
                + 4 * int((-(-per_seq // bs)).sum()) + 4 * B)
     flops = 4 * H * hd * int(attended.sum())
     return copies, copies, lib, _bound(n_bytes, flops), \
-        f"q {tuple(c0['q'].shape)}"
+        f"q {tuple(c0['q'].shape)} tables {tuple(c0['block_tables'].shape)}"
 
 
-def _splitk_job(torch, device, B, nb, n_sm, n_splits=None):
-    """Split-K at the split count the dispatch takes for (B, nb) on this
-    card (or ``n_splits``), every sequence at the full table (nb * 16
-    tokens). Beside it the
-    unsplit kernel on the same inputs; the library call is SDPA over the
-    gathered view (``_paged_job``); the bound adds to ``_paged_job``'s the
-    partials acc (B,H,S,hd), m and l (B,H,S) written once and read once."""
+def _splitk_job(torch, device, B, nb, n_splits):
+    """Split-K at ``n_splits``, every sequence at the full table (nb * 16
+    tokens). Beside it the one-split kernel on the same inputs; the
+    library call is SDPA over the gathered view (``_paged_job``). The
+    bound is what the function must move, as ``_paged_job`` counts it:
+    the partials acc (B,H,S,hd), m and l (B,H,S), written and read back,
+    are the kernel's own overhead (their bytes are in the label)."""
     from repro_torch.kernels.decode_attention import (
-        decode_splits, paged_decode_attention, split_plan)
+        paged_decode_attention, split_plan)
 
     copies, _, lib, _, what = _paged_job(
         torch, device, splitk_case, {"B": B, "nb": nb, "full": True})
     c0 = copies[0]
     H, hd, KV = c0["q"].shape[2], c0["q"].shape[3], c0["k_pool"].shape[2]
-    n = n_splits or decode_splits(B, KV, nb, n_sm)
-    S, _ = split_plan(nb, n)
-    k_args = [dict(c, n_splits=n) for c in copies]
+    S, _ = split_plan(nb, n_splits)
+    k_args = [dict(c, n_splits=n_splits) for c in copies]
     attended = int(c0["seq_lens"].sum())
-    n_bytes = (2 * c0["q"].numel() * 4 + attended * KV * hd * 8
-               + 4 * B * nb + 4 * B + 2 * 4 * B * H * S * (hd + 2))
+    one = (2 * c0["q"].numel() * 4 + attended * KV * hd * 8 + 4 * B * nb
+           + 4 * B)
+    flops = 4 * H * hd * attended
+    partials = 2 * 4 * B * H * S * (hd + 2)
     whole = {"unsplit": lambda i: paged_decode_attention(**copies[i])}
-    return k_args, k_args, lib, _bound(n_bytes, 4 * H * hd * attended), \
-        f"{what} tables ({B},{nb}) lens {nb * 16} n_splits {S}", whole
+    return k_args, k_args, lib, _bound(one, flops), \
+        (f"{what} B.KV {B * KV} lens {nb * 16} n_splits {S} (partials "
+         f"{partials} bytes written and read back, not in the bound)"), whole
 
 
 def _flash_job(torch, device, B, S, T, causal, window, **heads):
@@ -697,25 +740,35 @@ def _moe_job(torch, device, E, C, D, F):
         f"x ({E},{C},{D}) @ w ({E},{D},{F})"
 
 
+#: (B, nb) of the paged decode dispatch grid in ``phase_timing``: the
+#: pool's B = 4 on 36 columns first (the split-K row of the result line),
+#: then B = 1..32 on 36 and the drains' 40 columns, the 8 columns of
+#: ``serve_continuous`` at 4 and 32 slots, and 4096-token tables
+DECODE_GRID = tuple((B, nb) for nb in (36, 40)
+                    for B in (4, 1, 2, 5, 6, 8, 16, 32)) \
+    + ((4, 8), (32, 8), (4, 256), (2, 256), (1, 256))
+
+
 def phase_timing(torch, device, smi):
     """CUDA-event times of kernel, plain version and the library call, in
     the order plain, kernel, kernel, plain (library at both ends). The
     first shape of each kernel is its row in the result line."""
+    from repro_torch.kernels.decode_attention import decode_splits
+
     w = _wrappers()
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    # the one-split kernel's row: the shape the dispatch sends it,
+    # serve_continuous at 32 slots over 8-column tables, ragged
     jobs = [("paged_decode_attention", lambda: _paged_job(
-        torch, device, paged_decode_case, {}))]
+        torch, device, splitk_case, {"B": 32, "nb": 8}))]
+    # the dispatch grid: one split against split-K at the rule's split
+    # count (at least 2), device time, every sequence at the full table,
+    # B.KV = 8 .. 256 at qwen3-0.6b's 8 KV heads
+    kv = PAGED_HEADS[0]["KV"]
     jobs += [("paged_decode_attention_splitk", lambda B=B, nb=nb:
-              _splitk_job(torch, device, B, nb, n_sm))
-             for nb in (36, 256) for B in (4, 2, 1)]
-    # past the dispatch's threshold (B.KV > n_sm // 4, left unsplit): what
-    # splitting would give at B.KV = 40, 48, 64 (the 8-slot drains) and 128
-    # on 640-token tables, and at the drains' B = 8 on the pool's 36
-    # columns, at the rule's split count (at least 2)
-    jobs += [("paged_decode_attention_splitk", lambda B=B, nb=nb:
-              _splitk_job(torch, device, B, nb, n_sm, n_splits=max(
-                  2, min(16, n_sm // (B * 8), nb // 2))))
-             for B, nb in ((5, 40), (6, 40), (8, 40), (16, 40), (8, 36))]
+              _splitk_job(torch, device, B, nb,
+                          max(2, decode_splits(B, kv, nb, n_sm))))
+             for B, nb in DECODE_GRID]
     jobs += [("paged_prefill_attention", lambda T=T, pos=pos: _paged_job(
         torch, device, paged_prefill_case, {"T": T, "pos": pos}))
         for T, pos in ((512, 0), (128, 200), (16, 8))]
@@ -770,17 +823,25 @@ def phase_timing(torch, device, smi):
         row.update({f"{o}_ms": float(np.mean(t[o])) for o in others})
         other_note = "".join(f", {o}_ms {np.mean(t[o]):.4f} (runs {t[o]})"
                              for o in others)
-        if others:
-            # device time alone (the profiler's kernel durations): where a
-            # call's host overhead exceeds its device time, the event
-            # times above measure the host
-            for o, fn in (("kernel", lambda i: kern(**k_args[i])),
-                          *others.items()):
-                _, busy, _, _ = _profiled(
-                    torch, lambda fn=fn: [fn(i % n) for i in range(20)])
-                row[f"{o}_device_ms"] = busy / 20
-            other_note += "".join(f", {o}_device_ms {row[o + '_device_ms']:.4f}"
-                                  for o in ("kernel", *others))
+        # device time alone (the profiler's kernel durations): where a
+        # call's host overhead exceeds its device time, the event times
+        # above measure the host. Each kernel of a call launches once per
+        # call: its mean over the events recorded, summed over the call's
+        # kernels, so an event the profiler drops cannot lower the time
+        events = {}
+        for o, fn in (("kernel", lambda i: kern(**k_args[i])),
+                      *others.items()):
+            counts = {}
+            _, _, _, names = _profiled(
+                torch, lambda fn=fn: [fn(i % n) for i in range(20)], counts)
+            row[f"{o}_device_ms"] = sum(ms / counts[k]
+                                        for k, ms in names.items())
+            events[o] = sorted(counts.values())
+        other_note += "".join(f", {o}_device_ms {row[o + '_device_ms']:.4f} "
+                              f"(events per kernel of 20 calls {events[o]})"
+                              for o in ("kernel", *others))
+        other_note += (f" ({bound / row['kernel_device_ms']:.1%} of bound in "
+                       "device time)")
         log(f"timing {name} {what}: kernel_ms {row['ms']:.4f} (runs "
             f"{t['kern']}){other_note}, plain_ms {row['plain_ms']:.4f}, "
             f"library_ms {lib_note}, bound_ms {bound:.4f} by {by}, "
@@ -807,12 +868,13 @@ def _watch_logits(torch, model, bad, attrs):
 
 def _paged_decode_kernel(cfg, n_slots, nb):
     """The paged decode kernel the model's dispatch takes for an engine of
-    ``n_slots`` slots and ``nb``-column tables on this card."""
+    ``n_slots`` slots and ``nb``-column tables on this card (through the
+    split rule the model's paged decode calls)."""
     import torch
-    from repro_torch.kernels.decode_attention import decode_splits
+    from repro_torch.models import attention
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    return "paged_decode_attention_splitk" if decode_splits(
+    return "paged_decode_attention_splitk" if attention.decode_splits(
         n_slots, cfg.n_kv_heads, nb, n_sm) > 1 else "paged_decode_attention"
 
 
@@ -933,9 +995,10 @@ def phase_e2e(torch, device, cfg, params, smi, kv_layout, n_req=16,
     return launches, res
 
 
-def _profiled(torch, fn):
+def _profiled(torch, fn, counts=None):
     """Run ``fn`` under torch.profiler; returns (wall s, device busy ms,
-    device kernels launched, {kernel name: device ms})."""
+    device kernels launched, {kernel name: device ms}), and fills
+    ``counts`` (if given) with {kernel name: events recorded}."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -952,6 +1015,8 @@ def _profiled(torch, fn):
             n += 1
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us() / 1e3
+            if counts is not None:
+                counts[e.name] = counts.get(e.name, 0) + 1
     return wall, sum(by_name.values()), n, by_name
 
 
@@ -972,10 +1037,23 @@ def _report_profile(report, smi, label):
                 f"{moe_ms / busy:.1%} of device busy")
 
 
+#: profiler name fragments of the paged decode kernels (the split-K
+#: combine included) and of the paged prefill kernel
+DECODE_KERNELS = ("paged_decode_kernel", "splitk_combine_kernel")
+PREFILL_KERNELS = ("paged_prefill_kernel",)
+
+
+def _kernel_ms(names, fragments):
+    """Device ms of the profiled kernels whose name holds a fragment."""
+    return sum(ms for n, ms in names.items()
+               if any(f in n for f in fragments))
+
+
 def phase_profile(torch, eng, rng, decode_p50_ms, smi, label):
     """Where an iteration's time goes: one prefill-heavy step (8 prompts
-    of 30..400 tokens admitted at once under the 512-token budget) and
-    three decode-only steps, each under torch.profiler. Device busy time
+    of 30..400 tokens admitted at once under the 512-token budget), three
+    decode-only steps and, paged, the step of one 512-token chunk (a
+    500-token prompt alone), each under torch.profiler. Device busy time
     is the sum of kernel durations; the decode steps' busy share is taken
     against the unprofiled decode p50 of the drain (the profiler slows
     the host)."""
@@ -992,30 +1070,134 @@ def phase_profile(torch, eng, rng, decode_p50_ms, smi, label):
             eng.step()
     wall, busy, n, names = _profiled(torch, three)
     report.append(("decode-only step", 3, wall, busy, n, names))
+    if eng.kv_layout == "paged":
+        while eng.waiting or eng.active_slots:
+            eng.step()
+        eng.submit(rng.integers(1, eng.cfg.vocab_size, 500).astype(
+            np.int32), max_new_tokens=2)
+        chunks = eng.n_prefill_chunk_tokens
+        wall, busy, n, names = _profiled(torch, eng.step)
+        chunks = eng.n_prefill_chunk_tokens - chunks
+        report.append((f"one-chunk step ({chunks} prompt tokens)", 1, wall,
+                       busy, n, names))
     _report_profile(report, smi, label)
     busy = report[1][3] / 3
     log(f"profile {label}: decode-only device busy {busy:.3f} ms of the "
         f"unprofiled p50 {decode_p50_ms:.3f} ms per iteration: idle share "
         f"{1 - busy / decode_p50_ms:.1%}")
+    if eng.kv_layout == "paged":
+        dec = _kernel_ms(report[1][5], DECODE_KERNELS) / 3
+        pre = _kernel_ms(report[2][5], PREFILL_KERNELS)
+        log(f"profile {label}: paged decode kernels {dec:.3f} ms per "
+            f"decode-only iteration ({dec / busy:.1%} of device busy); "
+            f"paged prefill kernel {pre:.3f} ms in the one-chunk step of "
+            f"{report[2][3]:.3f} ms device busy [{smi}]")
 
 
-def phase_serve(torch, device, cfg, kv_layout):
-    """The normal entry point, serve_continuous, at full width."""
+def phase_split_rule(torch, device, cfg, params, smi, n_slots=8, turns=40,
+                     per_turn=5, seed=3):
+    """The decode iteration of ``n_slots`` resident sequences at full
+    width over 40-column tables (max_seq 640, the drains' engine) under
+    the measured split rule and with one split, in turns of ``per_turn``
+    decode-only iterations ordered A B B A A B ..., so that the host's
+    drift cancels: wall ms per iteration (host and device), the mean
+    difference of paired turns with its standard error, then the device
+    busy of three profiled iterations under each. Every slot stays
+    resident and decoding throughout; the launches are checked against
+    the kernel each rule dispatches. Returns the paired difference (ms,
+    split rule minus one split)."""
+    from repro_torch.models import attention
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+
+    measured = attention.decode_splits
+    rules = {"the split rule": measured,
+             "one split": lambda B, KV, nb, n_sm: 1}
+    names = list(rules)
+    steps = turns * per_turn + 3 * len(rules)
+    eng = ContinuousBatchingEngine(cfg, max_slots=n_slots, max_seq=640,
+                                   kv_layout="paged", token_budget=512,
+                                   device=device, params=params)
+    nb = eng.block_tables.shape[1]
+    rng = np.random.default_rng(seed)
+    # prompts of 50..250 tokens (buckets of at most 256) leave room for
+    # every step in 640 slots
+    for n in np.linspace(50, 250, n_slots).round().astype(int):
+        eng.submit(rng.integers(1, cfg.vocab_size, n).astype(np.int32),
+                   max_new_tokens=steps + 16)
+    while eng.waiting or eng.prefill_backlog_tokens:
+        eng.step()
+    A = sum(k in ("attn", "attn_dense", "local_attn")
+            for k in cfg.layer_kinds())
+    walls = {n: [] for n in names}
+    busy = {}
+    want = {n: 0 for n in REPLACES}
+    pre0 = eng.n_prefill_chunk_tokens
+    reset_launches()
+    try:
+        for t in range(turns):
+            name = names[(t + 1) // 2 % 2]
+            attention.decode_splits = rules[name]
+            want[_paged_decode_kernel(cfg, n_slots, nb)] += A * per_turn
+            for _ in range(per_turn):
+                ts = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                walls[name].append((time.perf_counter() - ts) * 1e3)
+        for name in names:
+            attention.decode_splits = rules[name]
+            want[_paged_decode_kernel(cfg, n_slots, nb)] += A * 3
+            _, b, _, by_name = _profiled(
+                torch, lambda: [eng.step() for _ in range(3)])
+            busy[name] = (b / 3, _kernel_ms(by_name, DECODE_KERNELS) / 3)
+    finally:
+        attention.decode_splits = measured
+    got = read_launches()
+    if (got != want or eng.n_prefill_chunk_tokens != pre0
+            or len(eng.active_slots) != n_slots):
+        fail(f"split rule {cfg.name} {n_slots} slots: launches {got} != "
+             f"{want}, or a step prefilled or a slot emptied "
+             f"({len(eng.active_slots)} resident)")
+    what = f"split rule {cfg.name} {n_slots} slots ({nb} columns)"
+    for name in names:
+        ms = np.asarray(walls[name])
+        log(f"{what}, {name}: decode-only iteration wall ms median "
+            f"{np.median(ms):.3f} mean {ms.mean():.3f} p90 "
+            f"{np.percentile(ms, 90):.3f} (n={len(ms)}); device busy "
+            f"{busy[name][0]:.3f} ms per iteration, paged decode kernels "
+            f"{busy[name][1]:.3f} ms [{smi}]")
+    # the k-th turn of each rule are neighbours in time (A B, B A, ...)
+    d = np.asarray(walls[names[0]]).reshape(-1, per_turn).mean(1) \
+        - np.asarray(walls[names[1]]).reshape(-1, per_turn).mean(1)
+    se = d.std(ddof=1) / np.sqrt(len(d))
+    log(f"{what}: {names[0]} ({_paged_decode_kernel(cfg, n_slots, nb)}) "
+        f"minus one split, paired turns: {d.mean():+.3f} ms per iteration "
+        f"(standard error {se:.3f}, {len(d)} pairs); launches {got} == "
+        f"{want}")
+    del eng
+    torch.cuda.empty_cache()
+    return float(d.mean()), float(se)
+
+
+def phase_serve(torch, device, cfg, kv_layout, max_slots=4):
+    """The normal entry point, serve_continuous, at full width with
+    ``max_slots`` slots. Returns the kernels' launches."""
     from repro_torch.launch.engine_serve import serve_continuous
 
     reset_launches()
     stats = serve_continuous(cfg=cfg, kv_layout=kv_layout, duration_s=5.0,
-                             device=device)
+                             max_slots=max_slots, device=device)
     got = read_launches()
-    # serve_continuous: 4 slots of max_seq 128 (8 blocks of 16)
+    # serve_continuous: max_seq 128 (8 blocks of 16)
     want = _want(cfg, kv_layout, n_iters=int(stats["n_iters"]),
-                 n_chunks=int(stats["n_prefill_chunks"]), n_slots=4, nb=8)
+                 n_chunks=int(stats["n_prefill_chunks"]), n_slots=max_slots,
+                 nb=8)
     if stats["served"] < 1 or got != want:
-        fail(f"serve_continuous {cfg.name} {kv_layout}: served "
-             f"{stats['served']}, launches {got} != {want}")
-    log(f"serve_continuous {cfg.name} {kv_layout}: {stats['served']:.0f} "
-        f"requests in 5 s, launches {got} == {want}")
+        fail(f"serve_continuous {cfg.name} {kv_layout} ({max_slots} slots): "
+             f"served {stats['served']}, launches {got} != {want}")
+    log(f"serve_continuous {cfg.name} {kv_layout} ({max_slots} slots): "
+        f"{stats['served']:.0f} requests in 5 s, launches {got} == {want}")
     torch.cuda.empty_cache()
+    return got
 
 
 #: batch sizes of the round-mode phase's rounds (the SAC action set)
@@ -1400,12 +1582,12 @@ def phase_pool(torch, device, smi):
                               models=[FULL], cfgs={FULL: full},
                               kv_layout="paged", **POOL_PAGED)
     # max_seq 576: 36 table columns of 16
-    split = _paged_decode_kernel(full, POOL_PAGED["max_slots"], 36)
-    if split != "paged_decode_attention_splitk" or not got[split]:
-        fail(f"pool paged: the instances' decode did not take split-K "
-             f"({split}, {got[split]} launches)")
-    log(f"pool paged: paged decode launches: split-K "
-        f"{got['paged_decode_attention_splitk']}, unsplit "
+    kern = _paged_decode_kernel(full, POOL_PAGED["max_slots"], 36)
+    if not got[kern]:
+        fail(f"pool paged: the instances' decode never launched the "
+             f"dispatched {kern}")
+    log(f"pool paged: paged decode launches (dispatched: {kern}): split-K "
+        f"{got['paged_decode_attention_splitk']}, one split "
         f"{got['paged_decode_attention']}")
     for name, n in got.items():
         launches[name] += n
@@ -1418,11 +1600,11 @@ def phase_pool(torch, device, smi):
     _report_profile([(f"decode-only pool step ({n_busy} busy instances, "
                       f"{resident} resident sequences)", 1, wall, busy, nk,
                       names)], smi, "pool paged")
-    split_ms = sum(ms for n, ms in names.items() if "splitk" in n)
+    dec_ms = _kernel_ms(names, DECODE_KERNELS)
     log(f"pool paged: decode-only step device busy {busy:.3f} ms of the "
         f"pool's unprofiled p50 {p50:.3f} ms over {len(walls)} such steps: "
-        f"idle share {1 - busy / p50:.1%}; split-K (both kernels) "
-        f"{split_ms:.3f} ms [{smi}]")
+        f"idle share {1 - busy / p50:.1%}; paged decode (with the split-K "
+        f"combine) {dec_ms:.3f} ms [{smi}]")
     torch.cuda.empty_cache()
     got, _, _ = _pool_run(torch, device, smi, "dense",
                           models=list(POOL_DENSE),
@@ -1441,7 +1623,8 @@ def phase_pool_parity(torch, device, cfg, n_req=8, max_new=16, seed=0):
     schedule at one frozen pool clock and SLOs far past it, no scheduler.
     Both layouts; the instance of every request and its greedy tokens
     must match (a divergence counts as a tie only below a logit margin of
-    1e-5), and the paged pool's decode must go through split-K."""
+    1e-5), and the paged pool's decode must launch the kernel the
+    dispatch picks for its 4 slots and 12 columns."""
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import SEQ_BUCKETS, _bucket
     from repro_torch.serving.runtime import ModelInstancePool
@@ -1466,22 +1649,23 @@ def phase_pool_parity(torch, device, cfg, n_req=8, max_new=16, seed=0):
         return ([by_id[i].tokens for i in range(n_req)],
                 list(pool.admission_log))
 
+    kern = _paged_decode_kernel(cfg, 4, 12)  # max_seq 192: 12 columns
     for layout in ("paged", "dense"):
         reset_launches()
         card, card_log = serve(layout, device)
-        n_split = read_launches()["paged_decode_attention_splitk"]
+        n_dec = read_launches()[kern]
         cpu, cpu_log = serve(layout, torch.device("cpu"))
         if card_log != cpu_log or len({i for _, i in cpu_log}) != 2:
             fail(f"pool parity {layout}: instance assignment differs: card "
                  f"{card_log}, cpu {cpu_log}")
         n_tok = _compare(torch, cfg, params, f"pool {layout}", prompts, own,
                          card, cpu)
-        if layout == "paged" and not n_split:
-            fail("pool parity paged: no decode step went through split-K")
+        if layout == "paged" and not n_dec:
+            fail(f"pool parity paged: no decode step launched {kern}")
         log(f"pool parity {cfg.name} {layout}: {n_req} requests over 2 "
             f"instances, {n_tok} greedy tokens and every assignment "
-            f"identical on card and CPU (split-K launches on the card: "
-            f"{n_split})")
+            f"identical on card and CPU ({kern} launches on the card: "
+            f"{n_dec})")
 
 
 # ---------------------------------------------------------------- main
@@ -1551,7 +1735,12 @@ def run(torch, device, smi):
                       ("p99", "decode iteration p99 ms")):
         log(f"e2e paged vs dense, {what}: {[r[key] for r in runs['paged']]}"
             f" vs {[r[key] for r in runs['dense']]} [{smi}]")
-    phase_serve(torch, device, full, "paged")
+    for n_slots in (8, 4):
+        phase_split_rule(torch, device, full, params, smi, n_slots)
+    add(phase_serve(torch, device, full, "paged"))
+    # 32 slots (B.KV = 256 > the SM count): decode takes the one-split
+    # kernel, the only engine here that does
+    add(phase_serve(torch, device, full, "paged", max_slots=32))
     add(phase_round(torch, device, full, params, smi)[0])
     del params
     torch.cuda.empty_cache()
@@ -1572,7 +1761,7 @@ def run(torch, device, smi):
         del params
         torch.cuda.empty_cache()
         phase_parity(torch, device, get_reduced_config(arch), ("dense",))
-    phase_serve(torch, device, get_config(RECURRENT[-1]), "dense")
+    add(phase_serve(torch, device, get_config(RECURRENT[-1]), "dense"))
     add(phase_moe(torch, device, smi))
     for arch in MOE:
         phase_parity(torch, device, get_reduced_config(arch))

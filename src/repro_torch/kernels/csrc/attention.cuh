@@ -1,6 +1,6 @@
-// Online-softmax body shared by every attention kernel of the port (fp32,
-// sm_90a): paged decode (whole and split-K), paged chunk prefill,
-// full-sequence flash attention and dense-cache decode.
+// Online-softmax body of the port's dense attention kernels (fp32,
+// sm_90a): full-sequence flash attention and dense-cache decode. The paged
+// kernels run their own bodies (paged_attention.cuh).
 //
 // One thread block attends R = n_rows * G query rows of ONE sequence and
 // ONE KV head: the n_rows query rows times the G = H / KV query heads of
@@ -11,8 +11,7 @@
 // in shared memory.
 //
 // Where a tile's rows live, which slots are read and which slots a row
-// attends come from a slot source `Src` (below: PagedSrc, DenseSrc,
-// ValidSrc). A slot the source does not load is staged as zeros and never
+// attends come from a slot source `Src` (below: DenseSrc, ValidSrc). A slot the source does not load is staged as zeros and never
 // read from device memory; a tile with no loaded slot is skipped whole.
 // Masked scores take the reference's NEG = -1e30 and weigh exactly 0; l is
 // clamped at 1e-30 on output, so a row that attends nothing at all comes
@@ -58,23 +57,6 @@ __device__ inline Smem carve(float* base, int R, int hd, int tile) {
   sm.alpha = sm.l + R;
   return sm;
 }
-
-// Slots of a block pool read through one sequence's table row: a tile is
-// one block (tile == bs, t_begin a multiple of bs), and row r attends
-// slots <= lim0 + r / G. A table entry outside [0, n_pool) reads the null
-// block 0 instead.
-struct PagedSrc {
-  const int* table;
-  int n_pool, bs, G, lim0;
-  size_t block_floats;  // bs * KV * hd
-  __device__ size_t tile_offset(int t0) const {
-    int phys = __ldg(table + t0 / bs);
-    if (phys < 0 || phys >= n_pool) phys = 0;
-    return (size_t)phys * block_floats;
-  }
-  __device__ bool load(int) const { return true; }
-  __device__ bool ok(int r, int t) const { return t <= lim0 + r / G; }
-};
 
 // Contiguous slots 0..T-1 of one sequence (full-sequence attention): row
 // r is query position q0 + r / G and attends slot t when t < T, t <= its
@@ -220,31 +202,6 @@ __device__ inline void attend(const float* __restrict__ q_base,
     const int i = r / G, g = r % G;
     o_base[(size_t)i * row_stride + (size_t)g * hd + d] =
         sm.acc[e] / fmaxf(sm.l[r], 1e-30f);
-  }
-}
-
-// One split of a split-K sweep for one query row (n_rows = 1) and the G
-// heads of the group: the UNNORMALISED accumulator and the running max m
-// and denominator l over [t_begin, t_end), for a combine pass to merge.
-// Head g's partial lies at acc_base + g * head_stride * hd (hd floats)
-// and at m_base/l_base + g * head_stride.
-template <class Src>
-__device__ inline void attend_partial(
-    const float* __restrict__ q_base, size_t row_stride, int G, int hd,
-    const float* __restrict__ k_base, const float* __restrict__ v_base,
-    size_t slot_stride, const Src& src, int t_begin, int t_end, int tile,
-    float scale, float* smem, float* __restrict__ acc_base,
-    float* __restrict__ m_base, float* __restrict__ l_base,
-    size_t head_stride) {
-  const Smem sm = sweep(q_base, row_stride, 1, G, hd, k_base, v_base,
-                        slot_stride, src, t_begin, t_end, tile, scale, smem);
-  for (int e = threadIdx.x; e < G * hd; e += blockDim.x) {
-    const int g = e / hd, d = e % hd;
-    acc_base[(size_t)g * head_stride * hd + d] = sm.acc[e];
-  }
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    m_base[(size_t)g * head_stride] = sm.m[g];
-    l_base[(size_t)g * head_stride] = sm.l[g];
   }
 }
 

@@ -7,59 +7,28 @@
 // streamed every K/V block once per query head, then merged the splits'
 // partials outside the kernel). Here two kernels run back to back on the
 // stream:
-//   1. paged_splitk_kernel, grid (KV, n_splits, B): one thread block per
-//      (KV head, split, sequence) holds all G = H / KV query heads of the
-//      group, so each live K/V block is read once. Split s sweeps the
-//      logical blocks [s * bps, (s + 1) * bps) that lie inside the table
-//      and before seq_lens[b]: the last split's range is cut at nb before
-//      any table read, and blocks past the frontier are never read. It
-//      writes the split's UNNORMALISED accumulator and its running max m
-//      and denominator l (the online-softmax body of attention.cuh,
-//      stopped before the division); an empty split writes m = NEG, l = 0
-//      and acc = 0.
+//   1. the decode body of paged_attention.cuh (the one
+//      paged_decode_attention.cu runs whole), grid (KV * chunks, n_splits,
+//      B): one block of eight warps per (KV head, split, sequence) holds
+//      the group's query heads in registers, so each live K/V slot is read
+//      once. Split s sweeps the logical blocks [s * bps, (s + 1) * bps)
+//      that lie inside the table and before seq_lens[b]: the last split's
+//      range is cut at nb before any table read, and blocks past the
+//      frontier are never read. It writes the split's UNNORMALISED
+//      accumulator and its max m and denominator l; an empty split writes
+//      m = NEG, l = 0 and acc = 0.
 //   2. splitk_combine_kernel, grid (H, B): rescales each split to the
 //      global max, w_s = exp(m_s - max_s m_s) (an empty split weighs
 //      exp(NEG - m) = 0), and writes sum_s w_s acc_s / max(sum_s w_s l_s,
 //      1e-30). A second small kernel rather than a last-block-done
 //      counter: no atomics and no counter to reset between launches.
-// Why split: the unsplit kernel (paged_decode_attention.cu) runs KV * B
-// blocks, 32 at qwen3-0.6b's 8 KV heads and 4 sequences, on 132 SMs; the
-// split multiplies that by n_splits. Bound on an H100: the bytes of live
-// K/V, plus q, the output and the partials written and read back.
-#include "attention.cuh"
+// Why split: one block per (KV head, sequence) runs KV * B blocks, 32 at
+// qwen3-0.6b's 8 KV heads and 4 sequences, on 132 SMs; the split
+// multiplies that by n_splits. Bound on an H100: the bytes of live K/V,
+// plus q, the output and the partials written and read back.
+#include "paged_attention.cuh"
 
 namespace {
-
-__global__ void paged_splitk_kernel(const float* __restrict__ q,
-                                    float* __restrict__ acc,
-                                    float* __restrict__ m,
-                                    float* __restrict__ l,
-                                    const float* __restrict__ k_pool,
-                                    const float* __restrict__ v_pool,
-                                    const int* __restrict__ tables,
-                                    const int* __restrict__ seq_lens, int H,
-                                    int KV, int hd, int n_pool, int bs,
-                                    int nb, int n_splits, int bps,
-                                    float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int kvh = blockIdx.x, s = blockIdx.y, b = blockIdx.z;
-  const int G = H / KV;
-  // q (B, 1, H, hd): the group's heads are contiguous
-  const size_t head0 = (size_t)b * H + (size_t)kvh * G;
-  const int lim0 = seq_lens[b] - 1;
-  const attn::PagedSrc src{tables + (size_t)b * nb, n_pool, bs, G, lim0,
-                           (size_t)bs * KV * hd};
-  const int t_begin = s * bps * bs;
-  // slots past the frontier, the table's nb blocks or this split's bps
-  // blocks are not swept
-  const int t_end = min(min(lim0 + 1, nb * bs), (s + 1) * bps * bs);
-  // partials (B, H, n_splits, hd) and (B, H, n_splits)
-  const size_t part0 = head0 * n_splits + s;
-  attn::attend_partial(q + head0 * hd, (size_t)H * hd, G, hd,
-                       k_pool + (size_t)kvh * hd, v_pool + (size_t)kvh * hd,
-                       (size_t)KV * hd, src, t_begin, t_end, bs, scale, smem,
-                       acc + part0 * hd, m + part0, l + part0, n_splits);
-}
 
 __global__ void splitk_combine_kernel(const float* __restrict__ acc,
                                       const float* __restrict__ m,
@@ -70,7 +39,7 @@ __global__ void splitk_combine_kernel(const float* __restrict__ acc,
   const size_t bh = (size_t)b * H + h;
   const float* ms = m + bh * n_splits;
   const float* ls = l + bh * n_splits;
-  float m_g = attn::NEG;
+  float m_g = pattn::NEG;
   for (int s = 0; s < n_splits; ++s) m_g = fmaxf(m_g, ms[s]);
   float l_g = 0.f;
   for (int s = 0; s < n_splits; ++s) l_g += ls[s] * expf(ms[s] - m_g);
@@ -89,8 +58,9 @@ __global__ void splitk_combine_kernel(const float* __restrict__ acc,
 // q (B,1,H,hd), out (B,1,H,hd), pools (n_pool,bs,KV,hd) fp32 contiguous;
 // acc (B,H,n_splits,hd), m and l (B,H,n_splits) fp32 scratch; tables
 // (B,nb), seq_lens (B,) int32; n_splits * bps >= nb > (n_splits - 1) *
-// bps. Launches both kernels on `stream` without synchronising; returns
-// the first failing launch's cudaError_t (0 on success).
+// bps; hd <= 256. Launches both kernels on `stream`
+// without synchronising; returns the first failing launch's cudaError_t
+// (0 on success).
 extern "C" int paged_decode_attention_splitk_f32(
     const float* q, float* out, float* acc, float* m, float* l,
     const float* k_pool, const float* v_pool, const int* tables,
@@ -98,14 +68,11 @@ extern "C" int paged_decode_attention_splitk_f32(
     int nb, int n_splits, int bps, float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = attn::smem_bytes(H / KV, hd, bs);
-  err = attn::allow_smem(paged_splitk_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = (cudaStream_t)stream;
-  paged_splitk_kernel<<<dim3(KV, n_splits, B), 128, smem, st>>>(
-      q, acc, m, l, k_pool, v_pool, tables, seq_lens, H, KV, hd, n_pool, bs,
-      nb, n_splits, bps, scale);
-  err = cudaGetLastError();
+  const pattn::DecodeArgs a{q, nullptr, acc, m, l, k_pool, v_pool, tables,
+                            seq_lens, H, KV, hd, n_pool, bs, nb, n_splits,
+                            bps, /*n_chunks=*/0, scale};
+  err = pattn::launch_decode<true>(a, B, st);
   if (err != cudaSuccess) return (int)err;
   splitk_combine_kernel<<<dim3(H, B), 128, 0, st>>>(acc, m, l, out, H, hd,
                                                     n_splits);

@@ -4,50 +4,26 @@
 //
 // Replaces the TPU kernel repro/kernels/prefill_attention.py
 // paged_prefill_attention (Pallas grid (B, H, nb) holding the whole padded
-// chunk resident per query head). Here one thread block serves one
-// (sequence, KV head, tile of TQ query rows) and holds the tile's rows for
-// all G = H / KV heads of the group: TQ = 16 rows times G heads fits in
-// shared memory at any T, including T = 512. Each live K/V block is
-// staged once per tile; the sweep stops at the tile's last live block, so
-// early tiles read less. Rows i >= T are neither computed nor written.
-// Bound on an H100: bytes of live K/V at small T; at large T the score and
-// value products (4 * hd flops per query row and attended slot), against
-// 67 TFLOP/s fp32 outside the tensor cores.
-#include "attention.cuh"
-
-namespace {
-
-__global__ void paged_prefill_kernel(const float* __restrict__ q,
-                                     float* __restrict__ out,
-                                     const float* __restrict__ k_pool,
-                                     const float* __restrict__ v_pool,
-                                     const int* __restrict__ tables,
-                                     const int* __restrict__ pos, int T,
-                                     int H, int KV, int hd, int n_pool,
-                                     int bs, int nb, int tq, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int tile = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int G = H / KV;
-  const int i0 = tile * tq;
-  const int n_rows = min(tq, T - i0);
-  // q, out (B, T, H, hd): row i of the tile, heads of the group contiguous
-  const size_t base = (((size_t)b * T + i0) * H + (size_t)kvh * G) * hd;
-  const int lim0 = pos[b] + i0;
-  const attn::PagedSrc src{tables + (size_t)b * nb, n_pool, bs, G, lim0,
-                           (size_t)bs * KV * hd};
-  // the sweep stops at the last row's limit; slots past the table's nb
-  // blocks do not exist
-  const int t_end = min(lim0 + n_rows, nb * bs);
-  attn::attend(q + base, out + base, (size_t)H * hd, n_rows, G, hd,
-               k_pool + (size_t)kvh * hd, v_pool + (size_t)kvh * hd,
-               (size_t)KV * hd, src, 0, t_end, bs, scale, smem);
-}
-
-}  // namespace
+// chunk resident per query head). Here one block of 256 threads serves one
+// (sequence, KV head, tile of tq query rows) and holds the tile's rows for
+// all G = H / KV heads of the group: 64 score rows, tq = 64 / G (32 at
+// qwen3-0.6b's G = 2, so a 512-token chunk is 16 tiles x 8 KV heads = 128
+// blocks on 132 SMs). It sweeps 64-slot K/V tiles (four pool blocks) up
+// to its last row's position, staged with cp.async into a two-stage ring
+// so the next tile loads while this one computes, and tiles both products
+// in registers (4 x 4 micro-tiles of S = Q K^T, 4 rows x 8 dims of
+// O += P V): the body in paged_attention.cuh. Rows i >= T are neither
+// computed nor written. Bound on an H100: at large T the two products
+// (4 * hd flops per query row and attended slot) against 67 TFLOP/s fp32
+// outside the tensor cores; the bytes of live K/V at small T.
+#include "paged_attention.cuh"
 
 // q (B,T,H,hd), out (B,T,H,hd), pools (n_pool,bs,KV,hd) fp32 contiguous;
-// tables (B,nb), pos (B,) int32. Launches on `stream` without
-// synchronising; returns the launch's cudaError_t (0 on success).
+// tables (B,nb), pos (B,) int32; G = H / KV <= 64, hd <= 256. The tile
+// plan is derived here: tq = 64 / G query rows per block and
+// prefill_tile_slots(hd / 64) slots per K/V tile (64, or 32 at hd > 128).
+// Launches on `stream` without synchronising; returns the launch's
+// cudaError_t (0 on success).
 extern "C" int paged_prefill_attention_f32(
     const float* q, float* out, const float* k_pool, const float* v_pool,
     const int* tables, const int* pos, int B, int T, int H, int KV, int hd,
@@ -55,17 +31,27 @@ extern "C" int paged_prefill_attention_f32(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int G = H / KV;
-  // 16 query rows per tile; fewer when a wide group would not fit the
-  // 227 KB of shared memory a block may use
-  int tq = 16;
-  while (tq > 1 && attn::smem_bytes(tq * G, hd, bs) > attn::SMEM_MAX)
-    tq /= 2;
-  const size_t smem = attn::smem_bytes(tq * G, hd, bs);
-  err = attn::allow_smem(paged_prefill_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
+  if (G < 1 || G > pattn::PF_ROWS) return cudaErrorInvalidValue;
+  const int tq = pattn::PF_ROWS / G;
+  const int nj = (hd + 63) / 64;
+  const int tk = pattn::prefill_tile_slots(nj);
+  const size_t smem = pattn::prefill_smem_bytes(nj, tk);
+  const pattn::PrefillArgs a{q, out, k_pool, v_pool, tables, pos, T, H, KV,
+                             hd, n_pool, bs, nb, tq, scale};
   const dim3 grid((T + tq - 1) / tq, KV, B);
-  paged_prefill_kernel<<<grid, 256, smem, (cudaStream_t)stream>>>(
-      q, out, k_pool, v_pool, tables, pos, T, H, KV, hd, n_pool, bs, nb, tq,
-      scale);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+#define PATTN_PREFILL_CASE(NJ_, TK_)                                       \
+  if (nj == NJ_ && tk == TK_) {                                            \
+    err = pattn::allow_smem(pattn::paged_prefill_kernel<NJ_, TK_>, smem);  \
+    if (err != cudaSuccess) return (int)err;                               \
+    pattn::paged_prefill_kernel<NJ_, TK_>                                  \
+        <<<grid, pattn::PF_THREADS, smem, st>>>(a);                        \
+    return (int)cudaGetLastError();                                        \
+  }
+  PATTN_PREFILL_CASE(1, 64)
+  PATTN_PREFILL_CASE(2, 64)
+  PATTN_PREFILL_CASE(3, 32)
+  PATTN_PREFILL_CASE(4, 32)
+#undef PATTN_PREFILL_CASE
+  return cudaErrorInvalidValue;
 }

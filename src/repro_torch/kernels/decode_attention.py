@@ -14,24 +14,26 @@ cache once per query head. Bound on an H100: the bytes of valid K/V.
 paged_decode_attention``: one query token per sequence attends the
 ``(N, bs, KV, hd)`` block pool through ``block_tables (B, nb)``; logical
 slots ``>= seq_lens[b]`` are masked and table columns past them never
-read. Its kernel (``csrc/paged_decode_attention.cu``) has the same
-(sequence, KV head) blocks and loads its own table entries for live
-columns only. Bound: the bytes of live K/V (4 * hd flops per 8 * hd bytes
-per head pair, far below the fp32 ridge of about 20 flops per byte).
-
-``paged_decode_attention_splitk`` replaces ``repro/kernels/
+read. ``paged_decode_attention_splitk`` replaces ``repro/kernels/
 decode_attention.py::paged_decode_attention_splitk``: the same function
-with the logical sweep cut into ``n_splits`` segments. Its kernel
-(``csrc/paged_decode_attention_splitk.cu``) runs one block per (KV head,
-split, sequence), each writing its split's unnormalised ``(acc, m, l)``,
-and a second small kernel merges them with a log-sum-exp combine.
+with the logical sweep cut into ``n_splits`` segments, each writing its
+unnormalised ``(acc, m, l)``, merged by a second small kernel with a
+log-sum-exp combine. Bound: the bytes of live K/V (4 * hd flops per 8 *
+hd bytes per head pair, far below the fp32 ridge of about 20 flops per
+byte).
 
-One block per (sequence, KV head) leaves most of the 132 SMs idle when
-B * KV is small: 32 blocks for qwen3-0.6b's 8 KV heads at the pool's
-four slots. :func:`decode_splits` picks the split count from the batch,
-the KV heads, the table width and the SM count, and the model's paged
-decode (``models/attention.py``) takes split-K on the card whenever it
-returns more than one split.
+Both kernels (``csrc/paged_decode_attention.cu``, one split, writing the
+normalised output; ``csrc/paged_decode_attention_splitk.cu``) run one
+body (``csrc/paged_attention.cuh``): a block of eight warps per (KV head,
+split, sequence) holds the group's query heads in registers (a group
+past 8 heads in near-equal chunks, chosen by the entry point; lane ``l``
+owns dims ``[4l, 4l + 4)``), deals the split's live slots out to its warps
+and reads each slot's K and V row once, as one coalesced 16-byte load per
+lane, several slots in flight; no shared-memory staging and no barrier in
+the sweep. :func:`decode_splits` picks the split count from the batch, the
+KV heads, the table width and the SM count, and the model's paged decode
+(``models/attention.py``) takes split-K on the card whenever it returns
+more than one split.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.prefill_attention import (
-    NEG, paged_prefill_attention_plain)
+    NEG, _check_head_dim, paged_prefill_attention_plain)
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -129,6 +131,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"sequence, got q {tuple(q.shape)}")
     B, _, H, hd = q.shape
     N, bs, KV, _ = k_pool.shape
+    _check_head_dim("paged_decode_attention", hd)
     out = torch.empty_like(q)
     if B == 0:
         return out
@@ -154,22 +157,40 @@ MAX_SPLITS = 16
 def decode_splits(B: int, KV: int, nb: int, n_sm: int) -> int:
     """The split count the card's paged decode takes for a batch of ``B``
     sequences over ``KV`` heads and ``nb``-column tables on ``n_sm`` SMs:
-    ``min(16, n_sm // (B * KV), nb // 2)`` when ``B * KV <= n_sm // 4``,
-    else 1. A result above 1 means :func:`paged_decode_attention_splitk`
-    with that ``n_splits``; 1 means the unsplit kernel. A pure function of
-    shapes, so choosing needs no host synchronisation.
+    ``min(16, max(2, n_sm // (B * KV)), nb // 2)`` when ``B * KV <=
+    n_sm``, else 1. A result above 1 means
+    :func:`paged_decode_attention_splitk` with that ``n_splits``; 1 means
+    the one-split kernel. A pure function of shapes, so choosing needs no
+    host synchronisation.
 
-    The threshold is not where splitting stops paying. On an H100 80GB
-    HBM3 at 700 W, split-K on 640-token tables takes 0.084-0.121 ms of
-    device time against the unsplit kernel's 0.242-0.244 ms at every
-    B * KV timed from 40 to 128 (2 or 3 splits; ``chip_smoke.py``). The
-    quarter of the SMs is held so that the 8-slot engines (B * KV = 64)
-    keep launching the unsplit kernel: both kernels stay on a path until
-    the paged decode's redesign moves the threshold or retires one."""
+    The threshold is the measured crossover (``chip_smoke.py``'s dispatch
+    grid, the profiler's device time, every sequence at the full table,
+    qwen3-0.6b's 8 KV heads; H100 80GB HBM3 at 700 W). Split-K, at this
+    rule's count (at least 2), against one split, on 576- and 640-token
+    tables: B * KV = 8: 0.0074 / 0.0086 against 0.0280 / 0.0304 ms; 64
+    (the 8-slot drains): 0.0245 / 0.0256 against 0.0314 / 0.0346; 128:
+    0.0339 / 0.0360 against 0.0379 / 0.0420; 256: 0.0613 / 0.0656 against
+    0.0548 / 0.0625 (and 0.0211 against 0.0165 on the 8-column tables of
+    ``serve_continuous`` at 32 slots). So splitting pays up to B * KV =
+    128 and loses at 256, where one split's B * KV blocks already fill
+    the card; ``n_sm`` (132) lies between. At 4096-token tables split-K
+    wins by 3-8x at B * KV = 8 to 32 (0.0235 / 0.0370 / 0.0675 against
+    0.1996 / 0.2005 / 0.2015 ms).
+
+    End to end the choice does not show yet: the full-width qwen3-0.6b
+    decode iteration is host-bound (80-89 % of it idle), and split-K's
+    second launch and scratch buffer cost host time. Alternating the
+    rule with one split every 5 iterations (``phase_split_rule``, 20
+    pairs of turns each), split-K minus one split came to +1.07 and
+    -0.44 ms per 44-50 ms iteration at 8 slots (standard errors 0.73 and
+    0.54) and +1.18 and -3.03 ms at 4 slots (1.43 and 1.33): within the
+    host's noise, while split-K's device busy was 0.15-0.18 ms (8 slots)
+    and 0.34 ms (4 slots) lower per iteration. The rule follows device
+    time, which sets the pace once the host no longer does."""
     work = B * KV
-    if work < 1 or work > n_sm // 4:
+    if work < 1 or work > n_sm:
         return 1
-    return max(1, min(MAX_SPLITS, n_sm // work, nb // 2))
+    return max(1, min(MAX_SPLITS, max(2, n_sm // work), nb // 2))
 
 
 def split_plan(nb: int, n_splits: int):
@@ -267,19 +288,22 @@ def paged_decode_attention_splitk(q: torch.Tensor, k_pool: torch.Tensor,
     B, _, H, hd = q.shape
     N, bs, KV, _ = k_pool.shape
     nb = block_tables.shape[1]
+    _check_head_dim("paged_decode_attention_splitk", hd)
     out = torch.empty_like(q)
     if B == 0 or nb == 0:
         return out
     S, bps = split_plan(nb, n_splits)
-    # one scratch buffer: acc (B,H,S,hd), then m and l (B,H,S)
-    part = torch.empty(B * H * S * (hd + 2), dtype=torch.float32,
+    # one scratch buffer: acc (B,H,S,hd), then m and l (B,H,S), addressed
+    # by offset (no views: the call's host time is the decode step's cost)
+    n_part = B * H * S
+    part = torch.empty(n_part * (hd + 2), dtype=torch.float32,
                        device=q.device)
-    acc, m, l = part.split([B * H * S * hd, B * H * S, B * H * S])
+    acc = part.data_ptr()
+    m, l = acc + 4 * n_part * hd, acc + 4 * n_part * (hd + 1)
     fn = _build.load("paged_decode_attention_splitk")
-    rc = fn(q.data_ptr(), out.data_ptr(), acc.data_ptr(), m.data_ptr(),
-            l.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_tables.data_ptr(), seq_lens.data_ptr(), B, H, KV, hd, N,
-            bs, nb, S, bps, float(scale), q.device.index,
+    rc = fn(q.data_ptr(), out.data_ptr(), acc, m, l, k_pool.data_ptr(),
+            v_pool.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
+            B, H, KV, hd, N, bs, nb, S, bps, float(scale), q.device.index,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention_splitk launch failed: "

@@ -10,12 +10,20 @@ the chunk's own K/V is already written through the table.
 Bound on an H100: the bytes of live K/V at small T; at large T the two
 products (4 * hd flops per query row and attended slot) against 67
 TFLOP/s fp32 outside the tensor cores. The kernel
-(``csrc/paged_prefill_attention.cu``) runs one thread block per
-(sequence, KV head, tile of 16 query rows) holding the tile for all
-``H / KV`` heads of the group, so each live block is read once per tile
-rather than once per query head, and a tile's sweep stops at its own
-last live block. Plain fp32 FMAs: tensor cores (``wgmma``), TMA and
-split-K come in a later change.
+(``csrc/paged_prefill_attention.cu`` on the body of
+``csrc/paged_attention.cuh``) runs one block of 256 threads per
+(sequence, KV head, tile of ``tq`` query rows) holding the tile for all
+``G = H / KV`` heads of the group (64 score rows), so each live block is
+read once per tile rather than once per query head. It streams 64-slot
+K/V tiles through a two-stage ``cp.async`` ring, computes both products
+in 4 x 4 register micro-tiles, masks only the tile on the diagonal,
+stops at its last row's position, and launches the heaviest query tiles
+first. The kernel's entry point derives the tile plan from G and hd:
+``tq = 64 // G`` (32 at qwen3-0.6b's G = 2, so a 512-token chunk is 16
+tiles per KV head: 128 blocks on the H100's 132 SMs; 12 at G = 5, 9 at
+G = 7), and 64-slot K/V tiles, or 32 where the ring of 64 would not fit
+227 KB (hd > 128). IEEE fp32 FMAs: tensor cores (``wgmma``) come in a
+later change.
 """
 from __future__ import annotations
 
@@ -24,6 +32,15 @@ import torch
 from repro_torch.kernels import _build
 
 NEG = -1.0e30
+
+#: the widest head the paged kernels take (two float4s per lane in decode,
+#: four 64-dim column groups in prefill)
+MAX_HEAD_DIM = 256
+
+
+def _check_head_dim(name: str, hd: int) -> None:
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {hd} (at most {MAX_HEAD_DIM})")
 
 
 def paged_prefill_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -80,6 +97,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
                              block_tables, pos)
     B, T, H, hd = q.shape
     N, bs, KV, _ = k_pool.shape
+    _check_head_dim("paged_prefill_attention", hd)
     out = torch.empty_like(q)
     if B == 0 or T == 0:
         return out
@@ -87,7 +105,8 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     rc = fn(q.data_ptr(), out.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), block_tables.data_ptr(), pos.data_ptr(),
             B, T, H, KV, hd, N, bs, block_tables.shape[1], float(scale),
-            q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+            q.device.index,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_prefill_attention launch failed: CUDA "
                            f"error {rc}")

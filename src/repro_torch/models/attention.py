@@ -13,8 +13,9 @@ Attention goes through the kernel wrappers (``flash_attention`` for
 prefill, ``decode_attention`` and the paged kernels for decode and
 chunks): on the card the CUDA kernels, on the CPU their plain versions.
 Paged decode on the card takes the split-K kernel when ``decode_splits``
-asks for more than one split (a small B * KV), the whole sweep otherwise;
-both compute the same function.
+asks for more than one split (B * KV up to the SM count, where splitting
+was measured faster), the one-split kernel otherwise; both run one body
+and compute the same function.
 Chunked prefill over a dense cache has no kernel in the reference and is
 plain PyTorch here too.
 

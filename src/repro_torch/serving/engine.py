@@ -344,17 +344,17 @@ class ContinuousBatchingEngine:
     their chunked prefills under the per-iteration token budget, then
     runs ONE decode iteration over all ``n_slots`` rows.
 
-    ``kv_layout="paged"`` (the default here; the reference defaults to
-    dense): each chunk attends the block pool through the slot's block
-    table (``paged_prefill_attention``) and decode reads it the same way
-    (``paged_decode_attention``). A slot only holds the blocks its
-    sequence needs (prompt bucket + requested decode tokens); admission
-    is gated on reservable blocks, blocks are allocated when decode
-    crosses a block boundary, and eviction returns them.
+    ``kv_layout="paged"``: each chunk attends the block pool through the
+    slot's block table (``paged_prefill_attention``) and decode reads it
+    the same way (``paged_decode_attention`` or its split-K form). A slot
+    only holds the blocks its sequence needs (prompt bucket + requested
+    decode tokens); admission is gated on reservable blocks, blocks are
+    allocated when decode crosses a block boundary, and eviction returns
+    them.
 
-    ``kv_layout="dense"``: one ``(n_slots, cache_len)`` cache row per slot
-    (a ``window``-slot ring for windowed layers, a state row for recurrent
-    ones). Chunks prefill into a one-slot staging cache that is grafted
+    ``kv_layout="dense"`` (the default, as in the reference): one
+    ``(n_slots, cache_len)`` cache row per slot (a ``window``-slot ring
+    for windowed layers, a state row for recurrent ones). Chunks prefill into a one-slot staging cache that is grafted
     into the slot's row when the prompt is done; decode runs
     ``decode_attention`` over the rows.
 
@@ -370,7 +370,7 @@ class ContinuousBatchingEngine:
 
     def __init__(self, cfg: ModelConfig, max_slots: int = 4,
                  max_seq: int = 256, seed: int = 0,
-                 kv_layout: str = "paged", block_size: int = 16,
+                 kv_layout: str = "dense", block_size: int = 16,
                  kv_blocks: Optional[int] = None, kv_host_blocks: int = 0,
                  token_budget: Optional[int] = None,
                  prefix_cache: bool = False, spec_k: int = 0,

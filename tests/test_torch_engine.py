@@ -96,8 +96,9 @@ def test_engine_token_streams_match_reference(name):
     je = JaxEngine(cfg, max_slots=slots, max_seq=max_seq, kv_layout="paged",
                    token_budget=budget, kv_blocks=blocks)
     te = ContinuousBatchingEngine(_torch_cfg(cfg), max_slots=slots,
-                                  max_seq=max_seq, token_budget=budget,
-                                  kv_blocks=blocks, device="cpu")
+                                  max_seq=max_seq, kv_layout="paged",
+                                  token_budget=budget, kv_blocks=blocks,
+                                  device="cpu")
     te.load_jax_params(jax.tree.map(np.asarray, je.params))
     rng = np.random.default_rng(len(name))
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
@@ -145,7 +146,8 @@ def test_submit_validates_prompt_bounds():
     """Token ids are checked on the host at the boundary (the model's
     embedding would raise, and the reference would fill NaN rows)."""
     eng = ContinuousBatchingEngine(_torch_cfg(TINY), max_slots=1,
-                                   max_seq=32, device="cpu")
+                                   max_seq=32, kv_layout="paged",
+                                   device="cpu")
     for bad in ([1, TINY.vocab_size], [-1, 2]):
         with pytest.raises(ValueError, match="token ids"):
             eng.submit(np.asarray(bad, np.int32))
@@ -161,13 +163,15 @@ def test_submit_validates_prompt_bounds():
     {"spec_k": 2}, {"kv_host_blocks": 4}, {"mesh": object()}])
 def test_unported_engine_features_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ContinuousBatchingEngine(_torch_cfg(TINY), device="cpu", **kw)
+        ContinuousBatchingEngine(_torch_cfg(TINY), device="cpu",
+                                 **{"kv_layout": "paged", **kw})
 
 
 @pytest.mark.parametrize("kind", ["windowed", "rglru", "rwkv", "swa"])
 def test_non_attention_layer_kinds_raise(kind):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ContinuousBatchingEngine(_torch_cfg(KIND_CFGS[kind]), device="cpu")
+        ContinuousBatchingEngine(_torch_cfg(KIND_CFGS[kind]),
+                                 kv_layout="paged", device="cpu")
 
 
 def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
@@ -175,7 +179,7 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
     the CLI raise instead of quietly running on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        ContinuousBatchingEngine(_torch_cfg(TINY))
+        ContinuousBatchingEngine(_torch_cfg(TINY), kv_layout="paged")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         engine_serve.serve_continuous(cfg=_torch_cfg(TINY), duration_s=0.1)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -170,15 +170,18 @@ def test_split_plan_is_the_references(nb, n_splits, want):
 @pytest.mark.parametrize("B,KV,nb,want", [
     (4, 8, 36, 4),      # the pool at b <= 4: split in 4
     (2, 8, 36, 8), (1, 8, 36, 16), (1, 8, 256, 16),
-    (8, 8, 40, 1),      # the 8-slot drains: B * KV = 64 > 33, unsplit
-    (5, 8, 36, 1),      # 40 > 33
+    (8, 8, 40, 2),      # the 8-slot drains: B * KV = 64 <= 132, 2 splits
+    (5, 8, 36, 3),      # 40: 132 // 40
     (4, 2, 12, 6),      # reduced width: capped by nb // 2
     (2, 2, 4, 2), (1, 8, 2, 1),  # a two-column table: nb // 2 = 1
-    (33, 1, 100, 4), (34, 1, 100, 1), (0, 8, 36, 1)])
+    (33, 1, 100, 4), (34, 1, 100, 3), (0, 8, 36, 1),
+    (16, 8, 40, 2),     # 128: at least 2 splits up to n_sm
+    (32, 8, 40, 1),     # 256 > 132: one split (32 slots)
+    (132, 1, 100, 2), (133, 1, 100, 1)])
 def test_decode_splits_rule(B, KV, nb, want):
-    """split only when B * KV <= n_sm // 4 (33 of 132 SMs), into
-    min(16, n_sm // (B * KV), nb // 2) segments; 1 = the unsplit
-    kernel."""
+    """split only when B * KV <= n_sm (132), into min(16, max(2, n_sm //
+    (B * KV)), nb // 2) segments; 1 = the one-split kernel (the measured
+    crossover lies between B * KV = 128 and 256)."""
     assert tdec.decode_splits(B, KV, nb, 132) == want
 
 
