@@ -4,9 +4,9 @@ GPU: builds the eight hand-written kernels (five attention kernels, split-K
 paged decode among them, the RG-LRU and the RWKV-6 scans, the grouped
 expert GEMM) from the sources in this checkout, holds each against its
 plain PyTorch version at the main paths' shapes on poisoned inputs (the
-paged kernels at GQA groups of 2, 5 and 7; split-K also against one
-split), times them (paged decode over the B x KV grid behind its
-dispatch), serves full-width qwen3-0.6b through each main path (the paged
+five attention kernels, which run two bodies, at GQA groups of 2, 5 and 7
+and at MQA; split-K also against one split), times them (paged decode
+over the B x KV grid behind its dispatch), serves full-width qwen3-0.6b through each main path (the paged
 continuous engine, ``serve_continuous`` at 4 and 32 slots, round mode with
 the SAC scheduler, the dense continuous engine), then through the multi-model
 instance pool under the PoolScheduler (``serve_pool``: qwen3-0.6b paged,
@@ -289,19 +289,24 @@ def flash_case(torch, device, B, S, T, causal=True, window=None, H=16, KV=8,
 
 
 #: (B, S, T, causal, window): round-mode prefills (S = T, causal) at one
-#: and eight prompts, a length off the 64-slot tile, a window, and a
-#: non-causal case with T off the tile and T != S
+#: and eight prompts, a length off the 64-slot tile, a window, a
+#: non-causal case with T off the tile and T != S, the same windowed, and
+#: a causal one with more query rows than K/V rows (S > T: a tile runs
+#: past T, and rows past T attend every K/V row)
 FLASH_CASES = ((1, 16, 16, True, None), (1, 100, 100, True, None),
                (1, 512, 512, True, None), (8, 16, 16, True, None),
                (8, 100, 100, True, None), (8, 512, 512, True, None),
-               (8, 512, 512, True, 64), (1, 40, 100, False, None))
+               (8, 512, 512, True, 64), (1, 40, 100, False, None),
+               (1, 40, 100, False, 32), (1, 100, 40, True, None))
 
 #: the local layers of recurrentgemma-2b: 10 query heads over one KV head
 #: of 256 (MQA), window 2048 (wider than any prompt bucket), and the
-#: reduced config's 64-slot window
+#: reduced config's 64-slot window; then S > T and a non-causal window
+#: (not timed)
 RG_HEADS = {"H": 10, "KV": 1, "hd": 256}
 FLASH_RG_CASES = ((1, 100, 100, True, 2048), (8, 512, 512, True, 2048),
-                  (2, 512, 512, True, 64))
+                  (2, 512, 512, True, 64), (1, 100, 40, True, None),
+                  (1, 40, 100, False, 32))
 
 
 def decode_case(torch, device, C, mode, B=8, H=16, KV=8, hd=128, seed=4,
@@ -309,20 +314,26 @@ def decode_case(torch, device, C, mode, B=8, H=16, KV=8, hd=128, seed=4,
     """q (B,1,H,hd) against a dense (B, C, KV, hd) cache. ``mode``:
     "linear" (ragged frontiers, full capacity included), "round" (every
     row at one frontier, ``front`` or C - 16, as a round's lock-step
-    decode), or "ring" (the reference's ring mask with ``window``,
-    wrapping ones included). Returns the kernel's case (invalid slots
+    decode), "ring" (the reference's ring mask with ``window``, wrapping
+    ones included), or "sparse" (a few scattered valid slots, so most of
+    the kernel's splits hold none, and one row with none at all, which
+    both sides give as zeros). Returns the kernel's case (invalid slots
     NaN) and the plain version's (the same cache with them zeroed)."""
     rng = np.random.default_rng(seed + C)
     slots = np.arange(C)[None, :]
-    if mode == "linear":
-        lens = np.array([1, 17, 100, 257, 333, 480, C - 1, C][:B])
+    if mode == "linear":  # past eight rows the frontiers repeat
+        lens = np.resize([1, 17, 100, 257, 333, 480, C - 1, C], B)
         valid = slots < lens[:, None]
     elif mode == "round":
         valid = np.broadcast_to(slots < (front or C - 16), (B, C))
-    else:
+    elif mode == "ring":
         pos = np.array([5, 63, 64, 300, C - 1, C, C + 60, 3 * C + 7][:B])
         k_pos = pos[:, None] - ((pos[:, None] - slots) % C)
         valid = (k_pos >= 0) & (k_pos > pos[:, None] - window)
+    else:  # sparse: row b has b scattered valid slots, row 0 none
+        valid = np.zeros((B, C), bool)
+        for b in range(1, B):
+            valid[b, rng.choice(C, b, replace=False)] = True
     k = rng.standard_normal((B, C, KV, hd)).astype(np.float32)
     v = rng.standard_normal((B, C, KV, hd)).astype(np.float32)
     q = rng.standard_normal((B, 1, H, hd)).astype(np.float32)
@@ -338,17 +349,23 @@ def decode_case(torch, device, C, mode, B=8, H=16, KV=8, hd=128, seed=4,
 
 
 #: (C, mode): the round's cache (prompt bucket 512 + 32 new tokens) and
-#: the dense continuous engine's (max_seq 640), then a ring mask
+#: the dense continuous engine's (max_seq 640), then a ring mask and
+#: empty splits
 DECODE_CASES = ((544, "round"), (544, "linear"), (640, "linear"),
-                (640, "ring"))
+                (640, "ring"), (640, "sparse"))
 
 #: (C, mode, extra): recurrentgemma-2b's local layers: a round's
 #: 2048-slot ring filled to 528 (prompt bucket 512 + 16 tokens), the
 #: dense engine's 640-slot rows, a 2048-slot ring wrapping with window
-#: 2048, and the reduced config's 64-slot ring
+#: 2048, the reduced config's 64-slot ring, and empty splits
 DECODE_RG_CASES = ((2048, "round", {"front": 528}), (640, "linear", {}),
                    (2048, "ring", {"window": 2048}),
-                   (64, "ring", {"window": 64}))
+                   (64, "ring", {"window": 64}), (2048, "sparse", {}))
+
+#: (B, C, mode): where the split rule takes one split at 8 KV heads: 32
+#: slots of a dense engine (B.KV = 256 > 132 SMs) and a cache of one
+#: 16-slot column
+DECODE_ONE_SPLIT_CASES = ((32, 640, "linear"), (8, 16, "linear"))
 
 #: (B, S, W): rglru_scan at recurrentgemma-2b's width 2560, one and
 #: eight 512-token sequences, and a ragged case off every tile
@@ -447,6 +464,8 @@ def _check(torch, name, got, want, what, tol=TOL, vs="plain"):
 def phase_kernels(torch, device):
     """Every kernel vs its plain version at the main paths' shapes, on
     poisoned inputs. Returns name -> worst max abs error."""
+    from repro_torch.kernels.decode_attention import dense_split_plan
+
     w = _wrappers()
     errs = {name: 0.0 for name in w}
 
@@ -498,22 +517,48 @@ def phase_kernels(torch, device):
             f"{pos}", paged_prefill_case(torch, device, T, pos, **RG_HEADS))
     del c
     torch.cuda.empty_cache()
-    for B, S, T, causal, window in FLASH_CASES:
-        c = flash_case(torch, device, B, S, T, causal, window)
-        run("flash_attention", f"B={B} S={S} T={T} causal={causal} "
-            f"window={window}", c)
-    for C, mode in DECODE_CASES:
-        kc, pc = decode_case(torch, device, C, mode)
-        run("decode_attention", f"q (8,1,16,128) C={C} {mode}, "
-            f"{int(kc['valid'].sum())} valid slots", kc, pc)
+    # flash and dense decode run the same bodies at the same groups
+    dec = w["decode_attention"][0]
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def run_decode(C, mode, **kw):
+        """Dense decode at the split rule's count against its plain
+        version, then one split (four where the rule takes one) against
+        the rule's on the same inputs."""
+        kc, pc = decode_case(torch, device, C, mode, **kw)
+        B, _, H, hd = kc["q"].shape
+        KV = kc["k"].shape[2]
+        extra = {x: kw[x] for x in ("window", "front") if x in kw}
+        what = (f"q ({B},1,{H},{hd}) KV {KV} C={C} {mode}"
+                f"{' ' + str(extra) if extra else ''}, "
+                f"{int(kc['valid'].sum())} valid slots")
+        S, _ = dense_split_plan(B, KV, C, n_sm)
+        run("decode_attention", f"{what}, {S} split(s)", kc, pc)
+        alt = 1 if S > 1 else 4
+        errs["decode_attention"] = max(
+            errs["decode_attention"],
+            _check(torch, "decode_attention", dec(**kc, n_splits=alt),
+                   dec(**kc), f"{what}, n_splits {alt}", SPLITK_TOL,
+                   f"the rule's {S} split(s)"))
+
+    for heads in PAGED_HEADS:
+        H = heads["H"]
+        for B, S, T, causal, window in FLASH_CASES:
+            c = flash_case(torch, device, B, S, T, causal, window, **heads)
+            run("flash_attention", f"H={H} KV=8 B={B} S={S} T={T} "
+                f"causal={causal} window={window}", c)
+            del c
+        for C, mode in DECODE_CASES:
+            run_decode(C, mode, **heads)
+        for B, C, mode in DECODE_ONE_SPLIT_CASES:
+            run_decode(C, mode, B=B, **heads)
+        torch.cuda.empty_cache()
     for B, S, T, causal, window in FLASH_RG_CASES:
         c = flash_case(torch, device, B, S, T, causal, window, **RG_HEADS)
         run("flash_attention", f"H=10 KV=1 hd=256 B={B} S={S} T={T} "
-            f"window={window}", c)
+            f"causal={causal} window={window}", c)
     for C, mode, extra in DECODE_RG_CASES:
-        kc, pc = decode_case(torch, device, C, mode, **RG_HEADS, **extra)
-        run("decode_attention", f"q (8,1,10,256) C={C} {mode} {extra}, "
-            f"{int(kc['valid'].sum())} valid slots", kc, pc)
+        run_decode(C, mode, **RG_HEADS, **extra)
     for B, S, W in RGLRU_CASES:
         run("rglru_scan", f"(B,S,W)=({B},{S},{W}), NaN-tailed inputs",
             rglru_case(torch, device, B, S, W))
@@ -545,6 +590,28 @@ def _time_ms(torch, fn, n_args, iters=50):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(torch, fn, n_args, calls=20, tries=3):
+    """Device ms per call of ``fn(i)`` over ``calls`` calls cycling
+    through ``n_args`` input copies, from the profiler's kernel
+    durations: each kernel's mean over the events recorded, times its
+    launches per call (its events over ``calls``, rounded, at least 1),
+    summed over the call's kernels, so an event the profiler drops cannot
+    lower the time. A window in which the profiler recorded no device
+    event at all is profiled again, up to ``tries`` windows. Returns (ms,
+    events recorded per kernel)."""
+    for _ in range(tries):
+        counts = {}
+        _, _, _, names = _profiled(
+            torch, lambda: [fn(i % n_args) for i in range(calls)], counts)
+        if names:
+            break
+    else:
+        fail(f"profiler recorded no device event in {tries} windows")
+    ms = sum(t / counts[k] * max(1, round(counts[k] / calls))
+             for k, t in names.items())
+    return ms, sorted(counts.values())
 
 
 def _sdpa(torch, q, k, v, mask, scale):
@@ -778,7 +845,7 @@ def phase_timing(torch, device, smi):
     jobs += [("decode_attention", lambda a=a: _decode_job(torch, device, *a))
              for a in ((544, "round"), (640, "linear"), (640, "ring"))]
     jobs += [("flash_attention", lambda a=a: _flash_job(
-        torch, device, *a, **RG_HEADS)) for a in FLASH_RG_CASES[1:]]
+        torch, device, *a, **RG_HEADS)) for a in FLASH_RG_CASES[1:3]]
     jobs += [("decode_attention", lambda c=c, m=m, x=x: _decode_job(
         torch, device, c, m, **RG_HEADS, **x))
         for c, m, x in DECODE_RG_CASES[:3]]
@@ -825,21 +892,15 @@ def phase_timing(torch, device, smi):
                              for o in others)
         # device time alone (the profiler's kernel durations): where a
         # call's host overhead exceeds its device time, the event times
-        # above measure the host. Each kernel of a call launches once per
-        # call: its mean over the events recorded, summed over the call's
-        # kernels, so an event the profiler drops cannot lower the time
+        # above measure the host; the library call's too
         events = {}
-        for o, fn in (("kernel", lambda i: kern(**k_args[i])),
-                      *others.items()):
-            counts = {}
-            _, _, _, names = _profiled(
-                torch, lambda fn=fn: [fn(i % n) for i in range(20)], counts)
-            row[f"{o}_device_ms"] = sum(ms / counts[k]
-                                        for k, ms in names.items())
-            events[o] = sorted(counts.values())
+        timed = (("kernel", lambda i: kern(**k_args[i])), *others.items(),
+                 *((("library", lib),) if lib else ()))
+        for o, fn in timed:
+            row[f"{o}_device_ms"], events[o] = _device_ms(torch, fn, n)
         other_note += "".join(f", {o}_device_ms {row[o + '_device_ms']:.4f} "
                               f"(events per kernel of 20 calls {events[o]})"
-                              for o in ("kernel", *others))
+                              for o, _ in timed)
         other_note += (f" ({bound / row['kernel_device_ms']:.1%} of bound in "
                        "device time)")
         log(f"timing {name} {what}: kernel_ms {row['ms']:.4f} (runs "
@@ -1038,9 +1099,12 @@ def _report_profile(report, smi, label):
 
 
 #: profiler name fragments of the paged decode kernels (the split-K
-#: combine included) and of the paged prefill kernel
+#: combine included), of the paged prefill kernel, and of dense decode
+#: (its splits' combine included; a dense engine launches no paged
+#: kernel)
 DECODE_KERNELS = ("paged_decode_kernel", "splitk_combine_kernel")
 PREFILL_KERNELS = ("paged_prefill_kernel",)
+DENSE_DECODE_KERNELS = ("dense_decode_kernel", "splitk_combine_kernel")
 
 
 def _kernel_ms(names, fragments):
@@ -1092,6 +1156,11 @@ def phase_profile(torch, eng, rng, decode_p50_ms, smi, label):
             f"decode-only iteration ({dec / busy:.1%} of device busy); "
             f"paged prefill kernel {pre:.3f} ms in the one-chunk step of "
             f"{report[2][3]:.3f} ms device busy [{smi}]")
+    else:
+        dec = _kernel_ms(report[1][5], DENSE_DECODE_KERNELS) / 3
+        log(f"profile {label}: dense decode kernels {dec:.3f} ms per "
+            f"decode-only iteration ({dec / busy:.1%} of device busy) "
+            f"[{smi}]")
 
 
 def phase_split_rule(torch, device, cfg, params, smi, n_slots=8, turns=40,

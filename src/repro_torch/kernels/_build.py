@@ -48,8 +48,8 @@ KERNELS: Dict[str, tuple] = {
     "paged_prefill_attention": (_P,) * 6 + (_I,) * 8 + (_F,),
     # q, out, k, v; B S T H KV hd causal window
     "flash_attention": (_P,) * 4 + (_I,) * 8 + (_F,),
-    # q, out, k, v, valid; B C H KV hd
-    "decode_attention": (_P,) * 5 + (_I,) * 5 + (_F,),
+    # q, out, acc, m, l, k, v, valid; B C H KV hd n_splits split_slots
+    "decode_attention": (_P,) * 8 + (_I,) * 7 + (_F,),
     # a, x, h0, hs, h_final; B S W
     "rglru_scan": (_P,) * 5 + (_I,) * 3,
     # r, k, v, w, u, state, out, s_final; B S H hd

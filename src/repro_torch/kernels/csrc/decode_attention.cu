@@ -5,52 +5,56 @@
 // Replaces the TPU kernel repro/kernels/decode_attention.py
 // decode_attention (Pallas grid (B, H, C/bc), which streamed the whole
 // cache once per query head and multiplied masked slots' values by zero).
-// Here one thread block serves one (sequence, KV head) and holds all
-// G = H / KV query heads of the group; it sweeps C in tiles staged in
-// shared memory and reads K/V only at valid slots, skipping tiles with
-// none, so invalid slots may hold anything, NaN included.
-// Bound on an H100: the bytes of the valid K/V (4 * hd flops per 8 * hd
-// bytes per head pair, far below the fp32 ridge).
-#include "attention.cuh"
-
-namespace {
-
-constexpr int BK = 64;  // cache slots staged per tile
-
-__global__ void decode_kernel(const float* __restrict__ q,
-                              float* __restrict__ out,
-                              const float* __restrict__ k,
-                              const float* __restrict__ v,
-                              const unsigned char* __restrict__ valid, int C,
-                              int H, int KV, int hd, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int G = H / KV;
-  // q, out (B, 1, H, hd): the group's heads are contiguous
-  const size_t base = ((size_t)b * H + (size_t)kvh * G) * hd;
-  // k, v (B, C, KV, hd): head kvh of sequence b
-  const size_t kv_base = ((size_t)b * C * KV + kvh) * hd;
-  const attn::ValidSrc src{valid + (size_t)b * C, (size_t)KV * hd};
-  attn::attend(q + base, out + base, (size_t)H * hd, 1, G, hd, k + kv_base,
-               v + kv_base, (size_t)KV * hd, src, 0, C, BK, scale, smem);
-}
-
-}  // namespace
+// Here the decode body of paged_attention.cuh (the one paged decode runs)
+// reads the cache row directly (its DENSE source): one block of eight
+// warps per (KV head, chunk of at most 8 query heads, split of C,
+// sequence) holds the chunk's heads in registers, and each warp reads a
+// valid slot's K and V as one coalesced 16-byte load per lane, several
+// slots in flight, with no staging and no barrier in the sweep. A slot
+// marked invalid is never loaded and weighs 0, so it may hold anything,
+// NaN included; a split or a row with no valid slot contributes nothing
+// (a row with none at all comes out as zeros). With n_splits > 1 each
+// split writes its partials and splitk_combine_kernel merges them, as in
+// paged split-K: at recurrentgemma-2b's MQA shape (B * KV = 8) the splits
+// are what fills the card's 132 SMs. Bound on an H100: the bytes of the
+// valid K/V (4 * hd flops per 8 * hd bytes per head pair, far below the
+// fp32 ridge).
+#include "paged_attention.cuh"
 
 // q (B,1,H,hd), out (B,1,H,hd), k/v (B,C,KV,hd) fp32 contiguous; valid
-// (B,C) one byte per slot, nonzero = attend. Launches on `stream` without
-// synchronising; returns the launch's cudaError_t (0 on success).
-extern "C" int decode_attention_f32(const float* q, float* out, const float* k,
-                                    const float* v, const unsigned char* valid,
-                                    int B, int C, int H, int KV, int hd,
-                                    float scale, int device, void* stream) {
+// (B,C) one byte per slot, nonzero = attend; hd <= 256. Split s sweeps
+// slots [s * split_slots, (s + 1) * split_slots), split_slots a multiple
+// of 16; with n_splits > 1, acc (B,H,n_splits,hd), m and l (B,H,n_splits)
+// are fp32 scratch (unused, may be null, with one split). Launches on
+// `stream` without synchronising; returns the first failing launch's
+// cudaError_t (0 on success).
+extern "C" int decode_attention_f32(const float* q, float* out, float* acc,
+                                    float* m, float* l, const float* k,
+                                    const float* v,
+                                    const unsigned char* valid, int B, int C,
+                                    int H, int KV, int hd, int n_splits,
+                                    int split_slots, float scale, int device,
+                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = attn::smem_bytes(H / KV, hd, BK);
-  err = attn::allow_smem(decode_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(KV, B);
-  decode_kernel<<<grid, 128, smem, (cudaStream_t)stream>>>(
-      q, out, k, v, valid, C, H, KV, hd, scale);
-  return (int)cudaGetLastError();
+  pattn::DecodeArgs a{};
+  a.q = q;
+  a.out = out;
+  a.acc = acc;
+  a.m = m;
+  a.l = l;
+  a.k = k;
+  a.v = v;
+  a.valid = valid;
+  a.H = H;
+  a.KV = KV;
+  a.hd = hd;
+  a.C = C;
+  a.n_splits = n_splits;
+  a.split_slots = split_slots;
+  a.scale = scale;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(n_splits > 1
+                   ? pattn::launch_decode_splitk<pattn::DENSE>(a, B, st)
+                   : pattn::launch_decode<pattn::DENSE, false>(a, B, st));
 }

@@ -1,23 +1,50 @@
-// The paged attention bodies of the port (fp32 IEEE FMAs, SIMT, sm_90a):
-// decode (one query token per sequence, whole or one split of a split-K
-// sweep) and chunk prefill (a tile of query rows), both over the block
-// pool (N, bs, KV, hd) read through one sequence's table row. Flash and
-// dense decode keep attention.cuh's `sweep`; nothing here touches it.
+// The attention bodies of the port (fp32 IEEE FMAs, SIMT, sm_90a): the one
+// header every attention kernel builds on. Each body reads its K/V slots
+// from a source chosen at compile time: PAGED, the block pool (N, bs, KV,
+// hd) read through one sequence's table row, or DENSE, one sequence's own
+// contiguous rows.
+//   - The decode body (decode_body), one query token per sequence, whole
+//     or one split of a split-K sweep:
+//       paged_decode_attention.cu         PAGED, one split
+//       paged_decode_attention_splitk.cu  PAGED, splits + the combine
+//       decode_attention.cu               DENSE under a validity mask, one
+//                                         split or splits + the combine
+//   - The prefill body (prefill_body), a tile of query rows:
+//       paged_prefill_attention.cu        PAGED, causal from pos[b]
+//       flash_attention.cu                DENSE, causal or not, windowed
+//   - splitk_combine_kernel merges split partials for both split users.
 //
-// Both follow the reference's semantics: a masked score weighs exactly 0,
-// table ids outside [0, n_pool) read the null block 0, nothing past a
-// sequence's frontier (decode: slot >= seq_lens[b]; prefill: slot > the
-// tile's last row's position) and no table column past it is ever read,
-// and the output divides by max(l, 1e-30).
+// Both bodies follow the reference's semantics: a masked score weighs
+// exactly 0; table ids outside [0, n_pool) read the null block 0; nothing
+// past a sequence's frontier (paged decode: slot >= seq_lens[b]; prefill:
+// a slot past the tile's last row's limit or past the K/V rows), no table
+// column past it and no dense slot marked invalid is ever read; the output
+// divides by max(l, 1e-30), so a row that attends nothing comes out as
+// zeros.
 #pragma once
 
-#include "attention.cuh"  // NEG, allow_smem, SMEM_MAX
+#include <cuda_runtime.h>
+#include <stddef.h>
 
 namespace pattn {
 
-using attn::allow_smem;
-using attn::NEG;
-using attn::SMEM_MAX;
+constexpr float NEG = -1.0e30f;
+
+// The most dynamic shared memory one block may use on sm_90.
+constexpr size_t SMEM_MAX = 227 * 1024;
+
+// Raise the kernel's dynamic shared-memory cap when it needs more than
+// the default 48 KB.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+// Where a body's K/V slots live.
+enum Source { PAGED, DENSE };
 
 __device__ __forceinline__ int table_entry(const int* table, int col,
                                            int n_pool) {
@@ -47,15 +74,17 @@ __device__ __forceinline__ float4 fma4(float a, float4 x, float4 y) {
 // 4 * hd flops per 8 * hd bytes of K/V and head, far below the fp32 ridge,
 // so the design is about bytes in flight. Lane l holds dims [4l, 4l + 4)
 // (and [128 + 4l, ...) at NC = 2) of the GB query heads in registers. The
-// split's live slots are dealt out to the warps U at a time (warp w takes
-// slots t_begin + (w + k * DEC_WARPS) * U ...); per slot the warp makes one
-// coalesced 16-byte-per-lane load of K and one of V, all U slots' loads
-// issued before any is used. The GB * U dot products reduce with
+// split's slots are dealt out to the warps U at a time (warp w takes
+// slots t_begin + (w + k * DEC_WARPS) * U ...); per live slot the warp
+// makes one coalesced 16-byte-per-lane load of K and one of V, all U
+// slots' loads issued before any is used. A slot that is not live (past
+// the split or the frontier; DENSE: marked invalid) is never loaded: its
+// registers stay zero and it weighs 0. The GB * U dot products reduce with
 // __shfl_xor_sync, and each lane keeps the online softmax (m, l) and the
-// acc float4s of every head in registers. One table read serves a chunk
-// of U slots (bs % U == 0 keeps a chunk inside one pool block). There is
-// no __syncthreads in the sweep: the warps' (m, l, acc) merge once through
-// shared memory at the end.
+// acc float4s of every head in registers. PAGED: one table read serves a
+// chunk of U slots (bs % U == 0 keeps a chunk inside one pool block).
+// There is no __syncthreads in the sweep: the warps' (m, l, acc) merge
+// once through shared memory at the end.
 constexpr int DEC_WARPS = 8;
 
 // U: slots per warp iteration, so that each lane has 2 * U * NC
@@ -72,11 +101,18 @@ struct DecodeArgs {
   float* acc;          // (B, H, n_splits, hd) partials (several splits)
   float* m;            // (B, H, n_splits)
   float* l;            // (B, H, n_splits)
-  const float* k_pool;  // (n_pool, bs, KV, hd)
-  const float* v_pool;
-  const int* tables;    // (B, nb)
-  const int* seq_lens;  // (B,)
-  int H, KV, hd, n_pool, bs, nb, n_splits, bps, n_chunks;
+  const float* k;      // PAGED: pool (n_pool, bs, KV, hd); DENSE: (B, C, KV, hd)
+  const float* v;
+  const int* tables;   // PAGED: (B, nb)
+  const int* seq_lens;  // PAGED: (B,)
+  const unsigned char* valid;  // DENSE: (B, C), nonzero = attend
+  int H, KV, hd;
+  int n_pool, bs, nb;  // PAGED
+  int C;               // DENSE: slots per sequence
+  // split s sweeps slots [s * split_slots, (s + 1) * split_slots) (a
+  // multiple of 16, so of U; PAGED: of bs)
+  int n_splits, split_slots;
+  int n_chunks;        // set by launch_decode
   float scale;
 };
 
@@ -97,12 +133,11 @@ inline size_t decode_smem_bytes(int gb, int nc) {
 
 // PARTIAL: write the split's UNNORMALISED (acc, m, l) (an empty split
 // writes m = NEG, l = 0, acc = 0); else the normalised output.
-template <int GB, int NC, bool PARTIAL>
-__global__ void __launch_bounds__(DEC_WARPS * 32, 1)
-    paged_decode_kernel(DecodeArgs a) {
+template <Source SRC, int GB, int NC, bool PARTIAL>
+__device__ __forceinline__ void decode_body(const DecodeArgs& a,
+                                            float* smem) {
   constexpr int U = DecodeTile<GB, NC>::U;
   constexpr int HDR = NC * 128;  // a head's row in the merge buffer
-  extern __shared__ __align__(16) float smem[];
   const int kvh = blockIdx.x / a.n_chunks;
   const int g0 = (blockIdx.x % a.n_chunks) * GB;
   const int s = blockIdx.y, b = blockIdx.z;
@@ -110,11 +145,24 @@ __global__ void __launch_bounds__(DEC_WARPS * 32, 1)
   const int gn = min(GB, G - g0);  // heads of this chunk
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int hd = a.hd;
-  // slots past the frontier, the table's nb blocks or this split's bps
-  // blocks are not swept
-  const int t_begin = s * a.bps * a.bs;
-  const int t_end = min(min(__ldg(a.seq_lens + b), a.nb * a.bs),
-                        (s + 1) * a.bps * a.bs);
+  const size_t slot_stride = (size_t)a.KV * hd;
+  // slots past the frontier (PAGED: the sequence's length and the
+  // table's nb blocks; DENSE: C) or this split are not swept
+  int frontier = a.C;
+  const int* table = nullptr;
+  const unsigned char* valid = nullptr;
+  const float* kbase = a.k + (size_t)kvh * hd;
+  const float* vbase = a.v + (size_t)kvh * hd;
+  if constexpr (SRC == PAGED) {
+    frontier = min(__ldg(a.seq_lens + b), a.nb * a.bs);
+    table = a.tables + (size_t)b * a.nb;
+  } else {
+    valid = a.valid + (size_t)b * a.C;
+    kbase += (size_t)b * a.C * slot_stride;
+    vbase += (size_t)b * a.C * slot_stride;
+  }
+  const int t_begin = s * a.split_slots;
+  const int t_end = min(frontier, t_begin + a.split_slots);
   const size_t head0 = (size_t)b * a.H + (size_t)kvh * G + g0;
 
   float4 q[GB][NC], o[GB][NC];
@@ -132,15 +180,18 @@ __global__ void __launch_bounds__(DEC_WARPS * 32, 1)
     l[g] = 0.f;
   }
 
-  const int* table = a.tables + (size_t)b * a.nb;
-  const size_t slot_stride = (size_t)a.KV * hd;
-  const size_t block_floats = (size_t)a.bs * slot_stride;
-  const float* kbase = a.k_pool + (size_t)kvh * hd;
-  const float* vbase = a.v_pool + (size_t)kvh * hd;
-
   for (int t0 = t_begin + warp * U; t0 < t_end; t0 += DEC_WARPS * U) {
-    const int col0 = t0 / a.bs;
-    const int phys0 = table_entry(table, col0, a.n_pool);
+    bool live[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      live[u] = t0 + u < t_end;
+      if constexpr (SRC == DENSE) live[u] = live[u] && __ldg(valid + t0 + u);
+    }
+    int col0 = 0, phys0 = 0;
+    if constexpr (SRC == PAGED) {
+      col0 = t0 / a.bs;
+      phys0 = table_entry(table, col0, a.n_pool);
+    }
     float4 kk[U][NC], vv[U][NC];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -150,13 +201,15 @@ __global__ void __launch_bounds__(DEC_WARPS * 32, 1)
         kk[u][c] = make_float4(0.f, 0.f, 0.f, 0.f);
         vv[u][c] = kk[u][c];
       }
-      if (t < t_end) {
-        const int col = t / a.bs;
-        const int phys =
-            col == col0 ? phys0 : table_entry(table, col, a.n_pool);
-        const size_t off =
-            (size_t)phys * block_floats + (size_t)(t - col * a.bs) *
-                                              slot_stride;
+      if (live[u]) {
+        size_t off = (size_t)t * slot_stride;
+        if constexpr (SRC == PAGED) {
+          const int col = t / a.bs;
+          const int phys =
+              col == col0 ? phys0 : table_entry(table, col, a.n_pool);
+          off = (size_t)phys * a.bs * slot_stride +
+                (size_t)(t - col * a.bs) * slot_stride;
+        }
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
           const int d = 4 * lane + 128 * c;
@@ -178,7 +231,7 @@ __global__ void __launch_bounds__(DEC_WARPS * 32, 1)
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
           p += __shfl_xor_sync(0xffffffffu, p, off);
-        sc[u][g] = t0 + u < t_end ? p * a.scale : NEG;
+        sc[u][g] = live[u] ? p * a.scale : NEG;
       }
     }
 #pragma unroll
@@ -191,7 +244,7 @@ __global__ void __launch_bounds__(DEC_WARPS * 32, 1)
       float p[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        p[u] = t0 + u < t_end ? expf(sc[u][g] - mx) : 0.f;
+        p[u] = live[u] ? expf(sc[u][g] - mx) : 0.f;
         sum += p[u];
       }
       m[g] = mx;
@@ -249,10 +302,39 @@ __global__ void __launch_bounds__(DEC_WARPS * 32, 1)
   }
 }
 
+// One kernel name per source, so a profile tells paged from dense decode.
+template <int GB, int NC, bool PARTIAL>
+__global__ void __launch_bounds__(DEC_WARPS * 32, 1)
+    paged_decode_kernel(DecodeArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  decode_body<PAGED, GB, NC, PARTIAL>(a, smem);
+}
+
+template <int GB, int NC, bool PARTIAL>
+__global__ void __launch_bounds__(DEC_WARPS * 32, 1)
+    dense_decode_kernel(DecodeArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  decode_body<DENSE, GB, NC, PARTIAL>(a, smem);
+}
+
+template <Source SRC, int GB, int NC, bool PARTIAL>
+inline cudaError_t launch_decode_as(const DecodeArgs& a, dim3 grid,
+                                    size_t smem, cudaStream_t st) {
+  void (*kernel)(DecodeArgs);
+  if constexpr (SRC == PAGED)
+    kernel = paged_decode_kernel<GB, NC, PARTIAL>;
+  else
+    kernel = dense_decode_kernel<GB, NC, PARTIAL>;
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, DEC_WARPS * 32, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
 // Launch the decode body: grid (KV * n_chunks, n_splits, B), gb =
 // decode_heads_per_block(G) heads per block (a.n_chunks = ceil(G / gb)),
 // nc = hd / 128 rounded up (1 or 2). Returns the launch's cudaError_t.
-template <bool PARTIAL>
+template <Source SRC, bool PARTIAL>
 inline cudaError_t launch_decode(DecodeArgs a, int B, cudaStream_t st) {
   const int G = a.H / a.KV;
   if (G < 1) return cudaErrorInvalidValue;
@@ -261,15 +343,9 @@ inline cudaError_t launch_decode(DecodeArgs a, int B, cudaStream_t st) {
   a.n_chunks = (G + gb - 1) / gb;
   const dim3 grid(a.KV * a.n_chunks, a.n_splits, B);
   const size_t smem = decode_smem_bytes(gb, nc);
-#define PATTN_DECODE_CASE(GB_, NC_)                                         \
-  if (gb == GB_ && nc == NC_) {                                             \
-    cudaError_t e = allow_smem(paged_decode_kernel<GB_, NC_, PARTIAL>,     \
-                               smem);                                       \
-    if (e != cudaSuccess) return e;                                         \
-    paged_decode_kernel<GB_, NC_, PARTIAL>                                  \
-        <<<grid, DEC_WARPS * 32, smem, st>>>(a);                            \
-    return cudaGetLastError();                                              \
-  }
+#define PATTN_DECODE_CASE(GB_, NC_)                                   \
+  if (gb == GB_ && nc == NC_)                                         \
+    return launch_decode_as<SRC, GB_, NC_, PARTIAL>(a, grid, smem, st);
 #define PATTN_DECODE_NC(GB_) PATTN_DECODE_CASE(GB_, 1) PATTN_DECODE_CASE(GB_, 2)
   PATTN_DECODE_NC(1) PATTN_DECODE_NC(2) PATTN_DECODE_NC(3)
   PATTN_DECODE_NC(4) PATTN_DECODE_NC(5) PATTN_DECODE_NC(6)
@@ -279,24 +355,68 @@ inline cudaError_t launch_decode(DecodeArgs a, int B, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
+// The split-K combine, grid (H, B): rescales each split to the global
+// max, w_s = exp(m_s - max_s m_s) (an empty split weighs exp(NEG - m) = 0),
+// and writes sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30). A second small
+// kernel rather than a last-block-done counter: no atomics and no counter
+// to reset between launches.
+static __global__ void splitk_combine_kernel(const float* __restrict__ acc,
+                                             const float* __restrict__ m,
+                                             const float* __restrict__ l,
+                                             float* __restrict__ out, int H,
+                                             int hd, int n_splits) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const size_t bh = (size_t)b * H + h;
+  const float* ms = m + bh * n_splits;
+  const float* ls = l + bh * n_splits;
+  float m_g = NEG;
+  for (int s = 0; s < n_splits; ++s) m_g = fmaxf(m_g, ms[s]);
+  float l_g = 0.f;
+  for (int s = 0; s < n_splits; ++s) l_g += ls[s] * expf(ms[s] - m_g);
+  l_g = fmaxf(l_g, 1e-30f);
+  const float* as = acc + bh * n_splits * hd;
+  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
+    float o = 0.f;
+    for (int s = 0; s < n_splits; ++s)
+      o += as[(size_t)s * hd + d] * expf(ms[s] - m_g);
+    out[bh * hd + d] = o / l_g;
+  }
+}
+
+// Split-K decode: the body writes each split's partials into a.acc, a.m,
+// a.l, then the combine writes a.out. Returns the first failing launch's
+// cudaError_t.
+template <Source SRC>
+inline cudaError_t launch_decode_splitk(const DecodeArgs& a, int B,
+                                        cudaStream_t st) {
+  const cudaError_t err = launch_decode<SRC, true>(a, B, st);
+  if (err != cudaSuccess) return err;
+  splitk_combine_kernel<<<dim3(a.H, B), 128, 0, st>>>(a.acc, a.m, a.l,
+                                                      a.out, a.H, a.hd,
+                                                      a.n_splits);
+  return cudaGetLastError();
+}
+
 // ----------------------------------------------------------------- prefill
-// One block of 256 threads serves (sequence, KV head, query tile of TQ
-// rows x the G heads of the group): RP = 64 score rows r = i * G + g,
-// TQ = 64 / G (rows r >= TQ * G, or past the chunk's T, are padding:
-// computed, never written). It sweeps the slots [0, t_end) up to the
-// tile's last row's position in tiles of TK slots (64: four pool blocks
-// of 16), read through the table with cp.async 16-byte copies into a
-// two-stage ring, so tile k + 1 loads while tile k computes. Slots past
-// t_end are zero-filled, never read. Thread (ty, tx) = (tid / 16, tid %
-// 16) owns score rows ty + 16 i (i < 4) and columns tx + 16 j (j < TK /
-// 16), a 4 x 4 micro-tile of S = Q K^T at TK = 64 (each float4 it reads
-// from shared memory feeds 16 FMAs), and output rows ty + 16 i times dims
-// 4 tx + 64 jj (jj < NJ = hd / 64) of O += P V, the same rows, so the
-// per-row (m, l) and the rescale alpha live in registers; the 16 threads
-// that share a row reduce its max and sum with shuffles. Only tiles that
-// cross the diagonal (a slot past the tile's first row's position) are
-// masked; tiles above the last row's are not swept. Blocks launch heaviest
-// query tile first.
+// One block of 256 threads serves (sequence, KV head, query tile of TQ rows
+// x the G heads of the group): RP = 64 score rows r = i * G + g, TQ = 64 /
+// G (rows r >= TQ * G, or past the T query rows, are padding: computed,
+// never written). Row r at position qpos attends slots t in [lo, hi]: hi =
+// qpos if causal (at most the last K/V row), else the last K/V row; lo =
+// qpos - window + 1 with a window, else 0 (PAGED: causal from qpos = pos[b]
+// + i, no window). The block sweeps the tiles of TK slots from the one
+// holding the first row's lo up to the last row's hi (64: four pool blocks
+// of 16), read with cp.async 16-byte copies into a two-stage ring, so tile
+// k + 1 loads while tile k computes. Slots past the sweep's end are
+// zero-filled, never read. Thread (ty, tx) = (tid / 16, tid % 16) owns
+// score rows ty + 16 i (i < 4) and columns tx + 16 j (j < TK / 16), a 4 x 4
+// micro-tile of S = Q K^T at TK = 64 (each float4 it reads from shared
+// memory feeds 16 FMAs), and output rows ty + 16 i times dims 4 tx + 64 jj
+// (jj < NJ = hd / 64) of O += P V, the same rows, so the per-row (m, l) and
+// the rescale alpha live in registers; the 16 threads that share a row
+// reduce its max and sum with shuffles. Only tiles that cross an edge (a
+// slot past the first row's hi, or before the last row's lo) are masked.
+// Blocks launch heaviest query tile first.
 constexpr int PF_THREADS = 256;
 constexpr int PF_ROWS = 64;
 constexpr int PF_STAGES = 2;
@@ -321,11 +441,15 @@ inline int prefill_tile_slots(int nj) {
 struct PrefillArgs {
   const float* q;   // (B, T, H, hd)
   float* out;       // (B, T, H, hd)
-  const float* k_pool;
-  const float* v_pool;
-  const int* tables;  // (B, nb)
-  const int* pos;     // (B,)
-  int T, H, KV, hd, n_pool, bs, nb, tq;
+  const float* k;   // PAGED: pool (n_pool, bs, KV, hd); DENSE: (B, T_kv, KV, hd)
+  const float* v;
+  const int* tables;  // PAGED: (B, nb)
+  const int* pos;     // PAGED: (B,) position of query row 0
+  int T, H, KV, hd;
+  int n_pool, bs, nb;  // PAGED
+  int T_kv;            // DENSE: K/V rows per sequence (query row i at i)
+  int causal, window;  // DENSE: window <= 0 for none
+  int tq;              // set by launch_prefill
   float scale;
 };
 
@@ -347,12 +471,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Where a prefill block's K/V slots live: slot t < t_end of the sequence
-// lies at table[t / bs]'s block, row t % bs; slots past t_end are not read.
+// Where a prefill block's K/V slots live: slot t < t_end lies at
+// kbase/vbase + t * slot_stride (DENSE) or at table[t / bs]'s block, row
+// t % bs (PAGED); slots past t_end are not read.
 struct PfTileSrc {
   const int* table;
   int n_pool, bs;
-  size_t block_floats, slot_stride;
+  size_t slot_stride;
   int hd4, t_end;
   const float* kbase;
   const float* vbase;
@@ -360,7 +485,7 @@ struct PfTileSrc {
 
 // Issue the cp.async copies of K/V tile kt (TK slots) into its stage of
 // the ring and commit them as one group; dead slots are zero-filled.
-template <int ROW, int TK>
+template <Source SRC, int ROW, int TK>
 __device__ __forceinline__ void pf_load_tile(const PfTileSrc& src,
                                              float* s_kv, int kt) {
   float* sk = s_kv + (kt % PF_STAGES) * 2 * TK * ROW;
@@ -372,10 +497,12 @@ __device__ __forceinline__ void pf_load_tile(const PfTileSrc& src,
     const bool live = t < src.t_end;
     size_t off = 0;
     if (live) {
-      const int col = t / src.bs;
-      off = (size_t)table_entry(src.table, col, src.n_pool) *
-                src.block_floats +
-            (size_t)(t - col * src.bs) * src.slot_stride + 4 * d4;
+      off = (size_t)t * src.slot_stride + 4 * d4;
+      if constexpr (SRC == PAGED) {
+        const int col = t / src.bs;
+        off = ((size_t)table_entry(src.table, col, src.n_pool) * src.bs +
+               (t - col * src.bs)) * src.slot_stride + 4 * d4;
+      }
     }
     cp_async16(sk + ts * ROW + 4 * d4, src.kbase + off, live);
     cp_async16(sv + ts * ROW + 4 * d4, src.vbase + off, live);
@@ -383,13 +510,12 @@ __device__ __forceinline__ void pf_load_tile(const PfTileSrc& src,
   cp_async_commit();
 }
 
-template <int NJ, int TK>
-__global__ void __launch_bounds__(PF_THREADS, 1)
-    paged_prefill_kernel(PrefillArgs a) {
+template <Source SRC, int NJ, int TK>
+__device__ __forceinline__ void prefill_body(const PrefillArgs& a,
+                                             float* smem) {
   constexpr int ROW = pf_row(NJ);
   constexpr int CN = TK / 16;  // score columns per thread
   constexpr int PROW = TK + 4;
-  extern __shared__ __align__(16) float smem[];
   float* s_q = smem;                                   // PF_ROWS x ROW
   float* s_kv = s_q + PF_ROWS * ROW;                   // stages x {K, V}
   float* s_p = s_kv + PF_STAGES * 2 * TK * ROW;        // PF_ROWS x PROW
@@ -401,16 +527,34 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
   const int i0 = tile * a.tq;
   const int n_rows = min(a.tq, a.T - i0);
   const int R = n_rows * G;
-  const int lim_first = __ldg(a.pos + b) + i0;
-  // the sweep stops at the last row's limit; slots past the table's nb
-  // blocks do not exist
-  const int t_end = min(lim_first + n_rows, a.nb * a.bs);
-  const int n_tiles = (t_end + TK - 1) / TK;
-  const int* table = a.tables + (size_t)b * a.nb;
   const size_t slot_stride = (size_t)a.KV * hd;
-  const size_t block_floats = (size_t)a.bs * slot_stride;
-  const float* kbase = a.k_pool + (size_t)kvh * hd;
-  const float* vbase = a.v_pool + (size_t)kvh * hd;
+  const float* kbase = a.k + (size_t)kvh * hd;
+  const float* vbase = a.v + (size_t)kvh * hd;
+  // q0: the first row's position; n_slots: the slots that exist
+  int q0 = i0, n_slots = a.T_kv, causal = a.causal, window = a.window;
+  const int* table = nullptr;
+  if constexpr (SRC == PAGED) {
+    q0 += __ldg(a.pos + b);
+    n_slots = a.nb * a.bs;
+    causal = 1;
+    window = 0;
+    table = a.tables + (size_t)b * a.nb;
+  } else {
+    kbase += (size_t)b * a.T_kv * slot_stride;
+    vbase += (size_t)b * a.T_kv * slot_stride;
+  }
+  // the sweep ends at the last row's hi and starts at the tile holding
+  // the first row's lo: tiles wholly outside every row's window are not
+  // swept
+  const int t_end = causal ? min(q0 + n_rows, n_slots) : n_slots;
+  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / TK : 0;
+  const int n_tiles = (t_end + TK - 1) / TK;
+  // a tile is masked where it crosses the first row's hi or the last
+  // row's lo; hi never passes the last slot (DENSE causal with more query
+  // rows than K/V rows: rows past T_kv attend every slot, and the
+  // zero-filled slots after it stay masked)
+  const int hi_first = causal ? min(q0, n_slots - 1) : n_slots - 1;
+  const int lo_last = window > 0 ? q0 + n_rows - window : 0;
 
   // q rows of the tile (zeros past R and past hd); the K/V rows' dims
   // past hd are zeroed once (the copies never write them)
@@ -442,20 +586,22 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[i][jj][c] = 0.f;
   }
-  // each owned row's position (past R: -1, attends nothing)
-  int lim[4];
+  // each owned row's window [lo, hi] (past R: hi = -1, attends nothing)
+  int lo[4], hi[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
-    lim[i] = r < R ? lim_first + r / G : -1;
+    const int qpos = q0 + r / G;
+    hi[i] = r < R ? (causal ? min(qpos, n_slots - 1) : n_slots - 1) : -1;
+    lo[i] = window > 0 ? qpos - window + 1 : 0;
   }
 
-  const PfTileSrc src{table, a.n_pool, a.bs, block_floats, slot_stride, hd4,
-                      t_end, kbase, vbase};
-  if (n_tiles > 0) pf_load_tile<ROW, TK>(src, s_kv, 0);
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  const PfTileSrc src{table, a.n_pool, a.bs, slot_stride, hd4, t_end,
+                      kbase, vbase};
+  if (kt_begin < n_tiles) pf_load_tile<SRC, ROW, TK>(src, s_kv, kt_begin);
+  for (int kt = kt_begin; kt < n_tiles; ++kt) {
     if (kt + 1 < n_tiles) {
-      pf_load_tile<ROW, TK>(src, s_kv, kt + 1);
+      pf_load_tile<SRC, ROW, TK>(src, s_kv, kt + 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -485,14 +631,15 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
         for (int j = 0; j < CN; ++j) s[i][j] = dot4(qv[i], kv[j], s[i][j]);
     }
 
-    const bool masked = t0 + TK - 1 > lim_first;  // crosses the diagonal
+    const bool masked = t0 + TK - 1 > hi_first || t0 < lo_last;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float mx = m[i];
 #pragma unroll
       for (int j = 0; j < CN; ++j) {
-        s[i][j] = (masked && t0 + tx + 16 * j > lim[i]) ? NEG
-                                                        : s[i][j] * a.scale;
+        const int t = t0 + tx + 16 * j;
+        s[i][j] = (masked && (t > hi[i] || t < lo[i])) ? NEG
+                                                       : s[i][j] * a.scale;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -563,6 +710,58 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
                         acc[i][jj][2] / den, acc[i][jj][3] / den);
     }
   }
+}
+
+// One kernel name per source, so a profile tells paged prefill from flash.
+template <int NJ, int TK>
+__global__ void __launch_bounds__(PF_THREADS, 1)
+    paged_prefill_kernel(PrefillArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  prefill_body<PAGED, NJ, TK>(a, smem);
+}
+
+template <int NJ, int TK>
+__global__ void __launch_bounds__(PF_THREADS, 1)
+    flash_kernel(PrefillArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  prefill_body<DENSE, NJ, TK>(a, smem);
+}
+
+template <Source SRC, int NJ, int TK>
+inline cudaError_t launch_prefill_as(const PrefillArgs& a, dim3 grid,
+                                     size_t smem, cudaStream_t st) {
+  void (*kernel)(PrefillArgs);
+  if constexpr (SRC == PAGED)
+    kernel = paged_prefill_kernel<NJ, TK>;
+  else
+    kernel = flash_kernel<NJ, TK>;
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, PF_THREADS, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// Launch the prefill body, grid (ceil(T / tq), KV, B), with the tile plan
+// derived from G and hd: a.tq = 64 / G query rows per block (G <= 64)
+// and prefill_tile_slots(hd / 64) slots per K/V tile (64, or 32 at hd >
+// 128; hd <= 256). Returns the launch's cudaError_t.
+template <Source SRC>
+inline cudaError_t launch_prefill(PrefillArgs a, int B, cudaStream_t st) {
+  const int G = a.H / a.KV;
+  if (G < 1 || G > PF_ROWS || a.hd > 256) return cudaErrorInvalidValue;
+  a.tq = PF_ROWS / G;
+  const int nj = (a.hd + 63) / 64;
+  const int tk = prefill_tile_slots(nj);
+  const size_t smem = prefill_smem_bytes(nj, tk);
+  const dim3 grid((a.T + a.tq - 1) / a.tq, a.KV, B);
+#define PATTN_PREFILL_CASE(NJ_, TK_) \
+  if (nj == NJ_ && tk == TK_) return launch_prefill_as<SRC, NJ_, TK_>(a, grid, smem, st);
+  PATTN_PREFILL_CASE(1, 64)
+  PATTN_PREFILL_CASE(2, 64)
+  PATTN_PREFILL_CASE(3, 32)
+  PATTN_PREFILL_CASE(4, 32)
+#undef PATTN_PREFILL_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace pattn

@@ -6,8 +6,8 @@
 // paged_decode_attention_splitk (Pallas grid (B, H, n_splits, bps), which
 // streamed every K/V block once per query head, then merged the splits'
 // partials outside the kernel). Here two kernels run back to back on the
-// stream:
-//   1. the decode body of paged_attention.cuh (the one
+// stream (paged_attention.cuh, launch_decode_splitk):
+//   1. the decode body over its PAGED source (the one
 //      paged_decode_attention.cu runs whole), grid (KV * chunks, n_splits,
 //      B): one block of eight warps per (KV head, split, sequence) holds
 //      the group's query heads in registers, so each live K/V slot is read
@@ -17,43 +17,13 @@
 //      frontier are never read. It writes the split's UNNORMALISED
 //      accumulator and its max m and denominator l; an empty split writes
 //      m = NEG, l = 0 and acc = 0.
-//   2. splitk_combine_kernel, grid (H, B): rescales each split to the
-//      global max, w_s = exp(m_s - max_s m_s) (an empty split weighs
-//      exp(NEG - m) = 0), and writes sum_s w_s acc_s / max(sum_s w_s l_s,
-//      1e-30). A second small kernel rather than a last-block-done
-//      counter: no atomics and no counter to reset between launches.
+//   2. splitk_combine_kernel, grid (H, B), the log-sum-exp merge of the
+//      partials (dense decode's splits use it too).
 // Why split: one block per (KV head, sequence) runs KV * B blocks, 32 at
 // qwen3-0.6b's 8 KV heads and 4 sequences, on 132 SMs; the split
 // multiplies that by n_splits. Bound on an H100: the bytes of live K/V,
 // plus q, the output and the partials written and read back.
 #include "paged_attention.cuh"
-
-namespace {
-
-__global__ void splitk_combine_kernel(const float* __restrict__ acc,
-                                      const float* __restrict__ m,
-                                      const float* __restrict__ l,
-                                      float* __restrict__ out, int H, int hd,
-                                      int n_splits) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const size_t bh = (size_t)b * H + h;
-  const float* ms = m + bh * n_splits;
-  const float* ls = l + bh * n_splits;
-  float m_g = pattn::NEG;
-  for (int s = 0; s < n_splits; ++s) m_g = fmaxf(m_g, ms[s]);
-  float l_g = 0.f;
-  for (int s = 0; s < n_splits; ++s) l_g += ls[s] * expf(ms[s] - m_g);
-  l_g = fmaxf(l_g, 1e-30f);
-  const float* as = acc + bh * n_splits * hd;
-  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
-    float o = 0.f;
-    for (int s = 0; s < n_splits; ++s)
-      o += as[(size_t)s * hd + d] * expf(ms[s] - m_g);
-    out[bh * hd + d] = o / l_g;
-  }
-}
-
-}  // namespace
 
 // q (B,1,H,hd), out (B,1,H,hd), pools (n_pool,bs,KV,hd) fp32 contiguous;
 // acc (B,H,n_splits,hd), m and l (B,H,n_splits) fp32 scratch; tables
@@ -68,13 +38,25 @@ extern "C" int paged_decode_attention_splitk_f32(
     int nb, int n_splits, int bps, float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const pattn::DecodeArgs a{q, nullptr, acc, m, l, k_pool, v_pool, tables,
-                            seq_lens, H, KV, hd, n_pool, bs, nb, n_splits,
-                            bps, /*n_chunks=*/0, scale};
-  err = pattn::launch_decode<true>(a, B, st);
-  if (err != cudaSuccess) return (int)err;
-  splitk_combine_kernel<<<dim3(H, B), 128, 0, st>>>(acc, m, l, out, H, hd,
-                                                    n_splits);
-  return (int)cudaGetLastError();
+  pattn::DecodeArgs a{};
+  a.q = q;
+  a.out = out;
+  a.acc = acc;
+  a.m = m;
+  a.l = l;
+  a.k = k_pool;
+  a.v = v_pool;
+  a.tables = tables;
+  a.seq_lens = seq_lens;
+  a.H = H;
+  a.KV = KV;
+  a.hd = hd;
+  a.n_pool = n_pool;
+  a.bs = bs;
+  a.nb = nb;
+  a.n_splits = n_splits;
+  a.split_slots = bps * bs;
+  a.scale = scale;
+  return (int)pattn::launch_decode_splitk<pattn::PAGED>(
+      a, B, (cudaStream_t)stream);
 }

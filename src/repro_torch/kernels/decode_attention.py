@@ -4,12 +4,8 @@ kernels' wrappers and their plain PyTorch versions.
 ``decode_attention`` replaces ``repro/kernels/decode_attention.py::
 decode_attention`` (Pallas, TPU): one query token per sequence attends its
 dense ``(C, KV, hd)`` cache row under a ``valid (B, C)`` mask that carries
-the linear frontier, ring-buffer holes and the window. The kernel
-(``csrc/decode_attention.cu``) runs one thread block per (sequence, KV
-head) holding all ``H / KV`` query heads of the group and reads K/V only
-at valid slots; the Pallas grid ``(B, H, C / bc)`` streamed the whole
-cache once per query head. Bound on an H100: the bytes of valid K/V.
-
+the linear frontier, ring-buffer holes and the window; the Pallas grid
+``(B, H, C / bc)`` streamed the whole cache once per query head.
 ``paged_decode_attention`` replaces ``repro/kernels/decode_attention.py::
 paged_decode_attention``: one query token per sequence attends the
 ``(N, bs, KV, hd)`` block pool through ``block_tables (B, nb)``; logical
@@ -22,20 +18,31 @@ log-sum-exp combine. Bound: the bytes of live K/V (4 * hd flops per 8 *
 hd bytes per head pair, far below the fp32 ridge of about 20 flops per
 byte).
 
-Both kernels (``csrc/paged_decode_attention.cu``, one split, writing the
-normalised output; ``csrc/paged_decode_attention_splitk.cu``) run one
-body (``csrc/paged_attention.cuh``): a block of eight warps per (KV head,
-split, sequence) holds the group's query heads in registers (a group
-past 8 heads in near-equal chunks, chosen by the entry point; lane ``l``
-owns dims ``[4l, 4l + 4)``), deals the split's live slots out to its warps
-and reads each slot's K and V row once, as one coalesced 16-byte load per
-lane, several slots in flight; no shared-memory staging and no barrier in
-the sweep. :func:`decode_splits` picks the split count from the batch, the
-KV heads, the table width and the SM count, and the model's paged decode
-(``models/attention.py``) takes split-K on the card whenever it returns
-more than one split.
+All three kernels (``csrc/decode_attention.cu``,
+``csrc/paged_decode_attention.cu``, ``csrc/paged_decode_attention_splitk
+.cu``) run one body (``csrc/paged_attention.cuh``), over the dense cache
+or through the table: a block of eight warps per (KV head, split,
+sequence) holds the group's query heads in registers (a group past 8
+heads in near-equal chunks; lane ``l`` owns dims ``[4l, 4l + 4)``), deals
+the split's live slots out to its warps and reads each slot's K and V row
+once, as one coalesced 16-byte load per lane, several slots in flight; no
+shared-memory staging and no barrier in the sweep. A dense slot marked
+invalid is never read. :func:`decode_splits` picks the split count from
+the batch, the KV heads, the table width and the SM count: the model's
+paged decode (``models/attention.py``) takes split-K on the card whenever
+it returns more than one split, and dense decode splits its cache by the
+same rule over 16-slot columns (:func:`dense_split_plan`), so that
+recurrentgemma-2b's MQA rows (B * KV = 8 blocks unsplit) fill the card.
+Dense decode's device time on an H100 80GB HBM3 at 700 W (profiler,
+``tools/attention_ab.py``): 0.0331 ms for 8 MQA rows over a wrapping
+2048-slot ring (the previous kernel, one block per (KV head, sequence),
+1.7807), 0.0179 over 640-slot rows (0.4919), and 0.0215 for qwen3-0.6b's
+round over 544 slots (0.1515).
 """
 from __future__ import annotations
+
+import functools
+from typing import Optional
 
 import torch
 
@@ -62,13 +69,17 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     valid: torch.Tensor, scale: float) -> torch.Tensor:
+                     valid: torch.Tensor, scale: float,
+                     n_splits: Optional[int] = None) -> torch.Tensor:
     """q (B,1,H,hd) float32; k/v (B,C,KV,hd) float32; valid (B,C)
     torch.bool, each row with at least one valid slot -> (B,1,H,hd).
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel
-    on the current stream (no synchronisation) or raise; ``launches``
-    counts the kernel launches."""
+    CPU tensors take the plain version (``n_splits`` does not change the
+    function). CUDA tensors launch the kernel, split as
+    :func:`dense_split_plan` says (``n_splits`` overrides the rule's
+    count), with the split-K combine after it where that is more than
+    one split, on the current stream (no synchronisation) or raise;
+    ``launches`` counts the calls that launched it."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, valid, scale)
     if q.device.type != "cuda":
@@ -79,12 +90,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got q {tuple(q.shape)}")
     B, _, H, hd = q.shape
     C, KV = k.shape[1], k.shape[2]
+    _check_head_dim("decode_attention", hd)
     out = torch.empty_like(q)
-    if B == 0:
-        return out
+    if B == 0 or C == 0:  # no slot to attend: zeros, as the kernel writes
+        return out.zero_()
+    S, span = dense_split_plan(B, KV, C, sm_count(q.device), n_splits)
+    part, acc, m, l = _partials(B, H, S, hd, q.device) if S > 1 \
+        else (None, None, None, None)
     fn = _build.load("decode_attention")
-    rc = fn(q.data_ptr(), out.data_ptr(), k.data_ptr(), v.data_ptr(),
-            valid.data_ptr(), B, C, H, KV, hd, float(scale), q.device.index,
+    rc = fn(q.data_ptr(), out.data_ptr(), acc, m, l, k.data_ptr(),
+            v.data_ptr(), valid.data_ptr(), B, C, H, KV, hd, S, span,
+            float(scale), q.device.index,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention launch failed: CUDA error {rc}")
@@ -202,6 +218,50 @@ def split_plan(nb: int, n_splits: int):
     return -(-nb // bps), bps
 
 
+#: dense decode views its C cache slots as ceil(C / 16) columns of this
+#: many, as paged decode's tables hold 16-slot blocks, so one split rule
+#: serves both
+DENSE_COLUMN = 16
+
+
+def dense_split_plan(B: int, KV: int, C: int, n_sm: int,
+                     n_splits: Optional[int] = None):
+    """(splits, slots per split) of the card's dense decode over a
+    ``C``-slot cache: :func:`decode_splits` (or ``n_splits`` where given)
+    and :func:`split_plan` over ``ceil(C / DENSE_COLUMN)`` columns.
+    recurrentgemma-2b's MQA rows (B * KV = 8) take 16 splits of a
+    2048-slot ring (128 slots each) and 14 of a 640-slot row (48 each);
+    qwen3-0.6b's 8 sequences over 8 KV heads take 2 (272 slots each of
+    544); 32 slots over 8 KV heads (B * KV = 256), or a cache of at most
+    16 slots, take one."""
+    nb = -(-C // DENSE_COLUMN)
+    S, bps = split_plan(nb, decode_splits(B, KV, nb, n_sm)
+                        if n_splits is None else n_splits)
+    return S, bps * DENSE_COLUMN
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device, read once per device."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
+def _partials(B: int, H: int, S: int, hd: int, device: torch.device):
+    """One scratch buffer for the split kernels' partials and its
+    addresses: acc (B,H,S,hd), then m and l (B,H,S) (no views: the call's
+    host time is the decode step's cost). -> (buffer, acc, m, l)."""
+    n_part = B * H * S
+    part = torch.empty(n_part * (hd + 2), dtype=torch.float32,
+                       device=device)
+    acc = part.data_ptr()
+    return part, acc, acc + 4 * n_part * hd, acc + 4 * n_part * (hd + 1)
+
+
 def splitk_combine_plain(acc: torch.Tensor, m: torch.Tensor,
                          l: torch.Tensor) -> torch.Tensor:
     """The reference's reduction pass over split partials acc (B,H,S,hd),
@@ -213,21 +273,53 @@ def splitk_combine_plain(acc: torch.Tensor, m: torch.Tensor,
     return ((acc * w[..., None]).sum(dim=2) / l_g[..., None])[:, None]
 
 
+def splitk_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 valid: torch.Tensor, scale: float, n_splits: int,
+                 split_slots: int) -> torch.Tensor:
+    """The split kernels' arithmetic in PyTorch over a logical view k/v
+    (B,T,KV,hd) under valid (B,T): split ``s`` takes the slots ``[s *
+    split_slots, (s + 1) * split_slots)`` (past T: none) and gives the
+    unnormalised ``(acc, m, l)`` of a masked softmax (a split with no
+    valid slot: m = NEG, l = 0, acc = 0); :func:`splitk_combine_plain`
+    merges them. Invalid slots contribute exactly zero, so they may hold
+    anything, NaN included. -> (B,1,H,hd)."""
+    B, _, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    S, width = n_splits, n_splits * split_slots
+    keep = valid[:, :, None, None]
+    pad = torch.zeros((B, width - T, KV, hd), device=q.device)
+    k = torch.cat([torch.where(keep, k.float(), 0.0), pad], 1)
+    v = torch.cat([torch.where(keep, v.float(), 0.0), pad], 1)
+    valid = torch.cat([valid, torch.zeros((B, width - T), dtype=torch.bool,
+                                          device=q.device)], 1)
+    qg = q.reshape(B, KV, H // KV, hd).float()
+    scores = torch.einsum("bkgh,btkh->bkgt", qg, k) * scale
+    scores = torch.where(valid[:, None, None], scores, NEG)
+    scores = scores.reshape(B, KV, H // KV, S, split_slots)
+    m = scores.max(dim=-1).values                               # (B,KV,G,S)
+    p = torch.where(valid.reshape(B, 1, 1, S, split_slots),
+                    torch.exp(scores - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bkgst,bstkh->bkgsh", p,
+                       v.reshape(B, S, split_slots, KV, hd))
+    out = splitk_combine_plain(acc.reshape(B, H, S, hd), m.reshape(B, H, S),
+                               l.reshape(B, H, S))
+    return out.to(q.dtype)
+
+
 def paged_decode_attention_splitk_plain(q: torch.Tensor,
                                         k_pool: torch.Tensor,
                                         v_pool: torch.Tensor,
                                         block_tables: torch.Tensor,
                                         seq_lens: torch.Tensor, scale: float,
                                         n_splits: int = 4) -> torch.Tensor:
-    """The split arithmetic of the reference in PyTorch: per split, the
-    unnormalised ``(acc, m, l)`` of a masked softmax over its logical
-    blocks (an empty split gives m = NEG, l = 0, acc = 0), then
-    :func:`splitk_combine_plain`. Table columns past the frontier and ids
-    outside ``[0, N)`` read the null block 0, and slots past
-    ``seq_lens`` contribute exactly zero, so they may hold anything, NaN
-    included."""
-    B, _, H, hd = q.shape
-    N, bs, KV, _ = k_pool.shape
+    """The split arithmetic of the reference in PyTorch: the logical view
+    gathered through the table, then :func:`splitk_plain` over
+    :func:`split_plan`'s splits. Table columns past the frontier and ids
+    outside ``[0, N)`` read the null block 0, and slots past ``seq_lens``
+    contribute exactly zero, so they may hold anything, NaN included."""
+    B = q.shape[0]
+    N, bs, KV, hd = k_pool.shape
     nb = block_tables.shape[1]
     S, bps = split_plan(nb, n_splits)
     dev = q.device
@@ -236,29 +328,10 @@ def paged_decode_attention_splitk_plain(q: torch.Tensor,
     live = (torch.arange(nb, device=dev)[None, :] * bs < lens) \
         & (tbl >= 0) & (tbl < N)
     tbl = torch.where(live, tbl, 0)
-    # the last split's blocks past nb are padded in, empty
-    width = S * bps * bs
-    valid = torch.arange(width, device=dev)[None, :] \
-        < torch.clamp(lens, max=nb * bs)                        # (B, width)
-    pad = torch.zeros((B, (S * bps - nb) * bs, KV, hd), device=dev)
-    k = torch.cat([k_pool[tbl].reshape(B, nb * bs, KV, hd).float(), pad], 1)
-    v = torch.cat([v_pool[tbl].reshape(B, nb * bs, KV, hd).float(), pad], 1)
-    keep = valid[:, :, None, None]
-    k = torch.where(keep, k, 0.0)
-    v = torch.where(keep, v, 0.0)
-    qg = q.reshape(B, KV, H // KV, hd).float()
-    scores = torch.einsum("bkgh,btkh->bkgt", qg, k) * scale
-    scores = torch.where(valid[:, None, None], scores, NEG)
-    scores = scores.reshape(B, KV, H // KV, S, bps * bs)
-    m = scores.max(dim=-1).values                               # (B,KV,G,S)
-    p = torch.where(valid.reshape(B, 1, 1, S, bps * bs),
-                    torch.exp(scores - m[..., None]), 0.0)
-    l = p.sum(dim=-1)
-    acc = torch.einsum("bkgst,bstkh->bkgsh", p,
-                       v.reshape(B, S, bps * bs, KV, hd))
-    out = splitk_combine_plain(acc.reshape(B, H, S, hd), m.reshape(B, H, S),
-                               l.reshape(B, H, S))
-    return out.to(q.dtype)
+    valid = torch.arange(nb * bs, device=dev)[None, :] < lens   # (B, nb*bs)
+    return splitk_plain(q, k_pool[tbl].reshape(B, nb * bs, KV, hd),
+                        v_pool[tbl].reshape(B, nb * bs, KV, hd), valid,
+                        scale, S, bps * bs)
 
 
 def paged_decode_attention_splitk(q: torch.Tensor, k_pool: torch.Tensor,
@@ -293,13 +366,7 @@ def paged_decode_attention_splitk(q: torch.Tensor, k_pool: torch.Tensor,
     if B == 0 or nb == 0:
         return out
     S, bps = split_plan(nb, n_splits)
-    # one scratch buffer: acc (B,H,S,hd), then m and l (B,H,S), addressed
-    # by offset (no views: the call's host time is the decode step's cost)
-    n_part = B * H * S
-    part = torch.empty(n_part * (hd + 2), dtype=torch.float32,
-                       device=q.device)
-    acc = part.data_ptr()
-    m, l = acc + 4 * n_part * hd, acc + 4 * n_part * (hd + 1)
+    part, acc, m, l = _partials(B, H, S, hd, q.device)
     fn = _build.load("paged_decode_attention_splitk")
     rc = fn(q.data_ptr(), out.data_ptr(), acc, m, l, k_pool.data_ptr(),
             v_pool.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),

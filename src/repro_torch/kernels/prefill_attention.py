@@ -18,7 +18,8 @@ read once per tile rather than once per query head. It streams 64-slot
 K/V tiles through a two-stage ``cp.async`` ring, computes both products
 in 4 x 4 register micro-tiles, masks only the tile on the diagonal,
 stops at its last row's position, and launches the heaviest query tiles
-first. The kernel's entry point derives the tile plan from G and hd:
+first (flash attention runs the same body over contiguous K/V). The
+body's launcher derives the tile plan from G and hd:
 ``tq = 64 // G`` (32 at qwen3-0.6b's G = 2, so a 512-token chunk is 16
 tiles per KV head: 128 blocks on the H100's 132 SMs; 12 at G = 5, 9 at
 G = 7), and 64-slot K/V tiles, or 32 where the ring of 64 would not fit

@@ -27,7 +27,6 @@ clamp it onto earlier rows.
 """
 from __future__ import annotations
 
-import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -35,7 +34,7 @@ import torch
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels.decode_attention import (
     decode_attention, decode_splits, paged_decode_attention,
-    paged_decode_attention_splitk)
+    paged_decode_attention_splitk, sm_count)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.prefill_attention import paged_prefill_attention
 from repro_torch.models.layers import apply_norm, dense_init, norm_init
@@ -284,7 +283,7 @@ def attention_decode_paged(p: Dict, x: torch.Tensor, cache: Dict,
     n_splits = 1
     if q.device.type == "cuda":
         n_splits = decode_splits(B, cache["k"].shape[2], tables.shape[1],
-                                 _n_sm(q.device))
+                                 sm_count(q.device))
     if n_splits > 1:
         out = paged_decode_attention_splitk(q, cache["k"], cache["v"],
                                             tables, pos + 1, scale,
@@ -293,17 +292,6 @@ def attention_decode_paged(p: Dict, x: torch.Tensor, cache: Dict,
         out = paged_decode_attention(q, cache["k"], cache["v"], tables,
                                      pos + 1, scale)
     return out.reshape(B, 1, -1) @ p["wo"]
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _n_sm(device: torch.device) -> int:
-    """The SM count of a CUDA device, read once per device."""
-    return _sm_count(device.index if device.index is not None
-                     else torch.cuda.current_device())
 
 
 def attention_chunk_paged(p: Dict, x: torch.Tensor, cache: Dict,

@@ -4,7 +4,7 @@ serve (llama4-maverick's G = 5, arctic-480b's G = 7) against the Pallas
 kernels (interpret mode) and the oracles in ``repro.kernels.ref``, on the
 same numpy inputs.
 
-The CUDA kernels, and the tile plans their entry points derive from G and
+The CUDA kernels, and the tile plans their launchers derive from G and
 hd, run only on a GPU; ``chip_smoke.py`` holds them against these plain
 versions there at G = 2, 5 and 7 and at hd 256.
 
