@@ -368,33 +368,47 @@ DECODE_RG_CASES = ((2048, "round", {"front": 528}), (640, "linear", {}),
 DECODE_ONE_SPLIT_CASES = ((32, 640, "linear"), (8, 16, "linear"))
 
 #: (B, S, W): rglru_scan at recurrentgemma-2b's width 2560, one and
-#: eight 512-token sequences, and a ragged case off every tile
-RGLRU_CASES = ((1, 512, 2560), (8, 512, 2560), (2, 33, 100))
+#: eight 512-token sequences (two passes and one pass), a ragged case off
+#: every tile, two passes with a ragged last chunk (16 chunks of 63
+#: steps, the last 55), and a width off 4 floats (4-byte copies)
+RGLRU_CASES = ((1, 512, 2560), (8, 512, 2560), (2, 33, 100),
+               (1, 1000, 2560), (2, 70, 33))
+#: the decays a each RGLRU case is drawn from: those of tests/test_kernels.py
+#: and recurrentgemma-2b's (0.9, 0.999) at r = 1 (models/rglru.py)
+RGLRU_DECAYS = ((0.4, 0.9), (0.9, 0.999))
 #: (B, S, H, hd): rwkv6_scan at rwkv6-3b's 40 heads of 64, one and
-#: eight 512-token sequences, and the largest head size (128)
-RWKV_CASES = ((1, 512, 40, 64), (8, 512, 40, 64), (1, 64, 1, 128))
+#: eight 512-token sequences, the largest head size (128), hd 48 over
+#: six column groups of 8, and a head size off 4 floats (4-byte copies)
+RWKV_CASES = ((1, 512, 40, 64), (8, 512, 40, 64), (1, 64, 1, 128),
+              (1, 77, 3, 48), (2, 9, 2, 5))
 
 
-def rglru_case(torch, device, B, S, W, seed=5):
-    """The distributions of tests/test_kernels.py: a in (0.4, 0.9),
-    x and h0 normal; every input at the head of a NaN-tailed buffer."""
+def rglru_case(torch, device, B, S, W, seed=5, decay=RGLRU_DECAYS[0]):
+    """The distributions of tests/test_kernels.py: a uniform in ``decay``
+    (there (0.4, 0.9)), x and h0 normal; every input at the head of a
+    NaN-tailed buffer."""
     rng = np.random.default_rng(seed + B * S + W)
-    arrs = {"a": rng.random((B, S, W)) * 0.5 + 0.4,
+    lo, hi = decay
+    arrs = {"a": rng.random((B, S, W)) * (hi - lo) + lo,
             "x": rng.standard_normal((B, S, W)) * 0.3,
             "h0": rng.standard_normal((B, W)) * 0.1}
     return {n: _nan_headed(torch, a.astype(np.float32), device)
             for n, a in arrs.items()}
 
 
-def rwkv_case(torch, device, B, S, H, hd, seed=6):
+def rwkv_case(torch, device, B, S, H, hd, seed=6, model_w=False):
     """The distributions of tests/test_kernels.py: w in (0.4, 0.9), the
-    rest normal; every input at the head of a NaN-tailed buffer."""
+    rest normal; with ``model_w``, w = exp(-exp(z)) with z uniform in
+    (-6, 1), rwkv6-3b's range of w_base (models/rwkv.py), so w spans
+    0.066 to 0.9975. Every input at the head of a NaN-tailed buffer."""
     rng = np.random.default_rng(seed + B * S + H * hd)
     seq = (B, S, H, hd)
+    w = (np.exp(-np.exp(rng.uniform(-6.0, 1.0, seq))) if model_w
+         else rng.random(seq) * 0.5 + 0.4)
     arrs = {"r": rng.standard_normal(seq),
             "k": rng.standard_normal(seq) * 0.3,
             "v": rng.standard_normal(seq) * 0.3,
-            "w": rng.random(seq) * 0.5 + 0.4,
+            "w": w,
             "u": rng.standard_normal((H, hd)) * 0.1,
             "state": rng.standard_normal((B, H, hd, hd)) * 0.1}
     return {n: _nan_headed(torch, a.astype(np.float32), device)
@@ -465,6 +479,8 @@ def phase_kernels(torch, device):
     """Every kernel vs its plain version at the main paths' shapes, on
     poisoned inputs. Returns name -> worst max abs error."""
     from repro_torch.kernels.decode_attention import dense_split_plan
+    from repro_torch.kernels.rglru_scan import rglru_plan
+    from repro_torch.kernels.rwkv6_scan import rwkv6_plan
 
     w = _wrappers()
     errs = {name: 0.0 for name in w}
@@ -560,11 +576,18 @@ def phase_kernels(torch, device):
     for C, mode, extra in DECODE_RG_CASES:
         run_decode(C, mode, **RG_HEADS, **extra)
     for B, S, W in RGLRU_CASES:
-        run("rglru_scan", f"(B,S,W)=({B},{S},{W}), NaN-tailed inputs",
-            rglru_case(torch, device, B, S, W))
+        plan = rglru_plan(B, S, W, n_sm)
+        for decay in RGLRU_DECAYS:
+            run("rglru_scan", f"(B,S,W)=({B},{S},{W}) a in {decay}, plan "
+                f"(channels, chunks, length) {plan}, NaN-tailed inputs",
+                rglru_case(torch, device, B, S, W, decay=decay))
     for B, S, H, hd in RWKV_CASES:
-        run("rwkv6_scan", f"(B,S,H,hd)=({B},{S},{H},{hd}), NaN-tailed "
-            "inputs", rwkv_case(torch, device, B, S, H, hd))
+        plan = rwkv6_plan(B, H, hd, n_sm)
+        for model_w in (False, True):
+            run("rwkv6_scan", f"(B,S,H,hd)=({B},{S},{H},{hd}) w in "
+                f"{'(0.066, 0.9975)' if model_w else '(0.4, 0.9)'}, plan "
+                f"(columns, threads, rows) {plan}, NaN-tailed inputs",
+                rwkv_case(torch, device, B, S, H, hd, model_w=model_w))
     for E, C, D, F in MOE_REF_CASES + MOE_ARCTIC_CASES:
         c = moe_case(torch, device, E, C, D, F)
         run("moe_matmul", f"x ({E},{C},{D}) @ w ({E},{D},{F}), NaN-tailed "
@@ -771,11 +794,14 @@ def _rglru_job(torch, device, B, S, W):
     """No single PyTorch call computes the recurrence (library none); the
     bound counts a, x and h0 read once, hs and the final h written once,
     and 2 flops per (b, t, w)."""
+    from repro_torch.kernels.rglru_scan import rglru_plan
+
     n_bytes = 4 * (3 * B * S * W + 2 * B * W)
     copies = [rglru_case(torch, device, B, S, W, seed=40 + i)
               for i in range(_copies(n_bytes))]
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     return copies, copies, None, _bound(n_bytes, 2 * B * S * W), \
-        f"(B,S,W)=({B},{S},{W})"
+        f"(B,S,W)=({B},{S},{W}) plan {rglru_plan(B, S, W, n_sm)}"
 
 
 def _rwkv_job(torch, device, B, S, H, hd):
@@ -785,11 +811,14 @@ def _rwkv_job(torch, device, B, S, H, hd):
     head): r . S over the keys (2 hd^2), the decay and the k v^T update
     (3 hd^2), and the bonus, which factors as v_j * sum_i r_i u_i k_i
     (5 hd)."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_plan
+
     n_bytes = 4 * (5 * B * S * H * hd + H * hd + 2 * B * H * hd * hd)
     copies = [rwkv_case(torch, device, B, S, H, hd, seed=50 + i)
               for i in range(_copies(n_bytes))]
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     return copies, copies, None, _bound(n_bytes, B * S * H * (5 * hd * hd + 5 * hd)), \
-        f"(B,S,H,hd)=({B},{S},{H},{hd})"
+        f"(B,S,H,hd)=({B},{S},{H},{hd}) plan {rwkv6_plan(B, H, hd, n_sm)}"
 
 
 def _moe_job(torch, device, E, C, D, F):

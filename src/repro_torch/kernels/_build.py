@@ -50,10 +50,10 @@ KERNELS: Dict[str, tuple] = {
     "flash_attention": (_P,) * 4 + (_I,) * 8 + (_F,),
     # q, out, acc, m, l, k, v, valid; B C H KV hd n_splits split_slots
     "decode_attention": (_P,) * 8 + (_I,) * 7 + (_F,),
-    # a, x, h0, hs, h_final; B S W
-    "rglru_scan": (_P,) * 5 + (_I,) * 3,
-    # r, k, v, w, u, state, out, s_final; B S H hd
-    "rwkv6_scan": (_P,) * 8 + (_I,) * 4,
+    # a, x, h0, hs, h_final, summaries; B S W cb n_chunks chunk_len
+    "rglru_scan": (_P,) * 6 + (_I,) * 6,
+    # r, k, v, w, u, state, out, s_final; B S H hd jc R rows
+    "rwkv6_scan": (_P,) * 8 + (_I,) * 7,
     # x, w, out; E C D F
     "moe_matmul": (_P,) * 3 + (_I,) * 4,
 }

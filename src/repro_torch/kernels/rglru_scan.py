@@ -1,14 +1,20 @@
-"""The RG-LRU diagonal recurrence: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""The RG-LRU diagonal recurrence: the CUDA kernel's wrapper, its launch
+plan and its plain PyTorch version.
 
 Replaces ``repro/kernels/rglru_scan.py::rglru_scan`` (Pallas, TPU):
 ``h_t = a_t * h_{t-1} + x_t`` over ``(B, S, W)`` from ``h0 (B, W)``,
 returning every ``h_t`` and the final state. ``rglru_seq`` runs it on
 every RG-LRU layer's sequence form (round prefill and each chunk of a
 chunked prefill). The Pallas kernel padded S and W to its blocks with
-``a = 1``, ``x = 0``; the kernel (``csrc/rglru_scan.cu``) runs one thread
-per (sequence, channel), steps through exactly S steps and reads nothing
-past S or W.
+``a = 1``, ``x = 0``. The kernel (``csrc/rglru_scan.cu``) gives a warp 32
+channels and streams a and x through a 32-step ``cp.async`` ring in
+shared memory. Where the channels alone cannot keep enough bytes in
+flight (:func:`rglru_plan`, e.g. one sequence at W = 2560) it splits S
+into chunks: pass 1 composes each chunk into a summary ``(prod a, h from
+0)``, pass 2 folds the earlier summaries into its chunk's start state and
+runs the chunk's exact recurrence. One pass repeats the plain loop bit for
+bit; two passes round only the chunks' start states differently. Nothing
+past S or W is read.
 
 Bound on an H100: bytes, 12 per (b, t, w) (a and x read, h written).
 """
@@ -19,6 +25,35 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import sm_count
+
+#: channels per block of the kernel: one warp, a lane per channel
+RGLRU_CHANNELS = 32
+#: (sequence, channel) pairs per SM at and above which one pass keeps
+#: enough bytes in flight (the kernel's 32-step ring: 256 bytes each)
+RGLRU_PAIRS_PER_SM = 128
+#: most time chunks of the two-pass form, and the shortest chunk
+RGLRU_MAX_CHUNKS = 16
+RGLRU_MIN_CHUNK = 16
+
+
+def rglru_plan(B: int, S: int, W: int, n_sm: int) -> Tuple[int, int, int]:
+    """(channels per block, time chunks C, chunk length L) of the card's
+    kernel over ``(B, S, W)`` on ``n_sm`` SMs. A pure function of shapes.
+
+    One chunk (one pass) where ``B * W >= RGLRU_PAIRS_PER_SM * n_sm``
+    (B = 8 at W = 2560 on 132 SMs: 20,480 of 16,896); else as many chunks
+    as allowed, at most 16 and at least 16 steps each (B = 1 at W = 2560:
+    16 chunks of 32 of 512 steps). On an H100 at (1, 512, 2560) 16 chunks
+    took 0.0143 ms, 7 0.0171 and one pass 0.0490; at (8, 512, 2560) one
+    pass 0.0550 and 2 chunks 0.0645 (``tools/scan_sweep.py``). L = ceil(S
+    / C) and C = ceil(S / L), so the last chunk may be short but none is
+    empty."""
+    C = 1
+    if B * W < RGLRU_PAIRS_PER_SM * n_sm:
+        C = max(1, min(RGLRU_MAX_CHUNKS, S // RGLRU_MIN_CHUNK))
+    L = max(1, -(-S // C))
+    return RGLRU_CHANNELS, max(1, -(-S // L)), L
 
 
 def rglru_scan_plain(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor
@@ -58,8 +93,14 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor
     if B == 0 or W == 0:
         return hs, h_final
     fn = _build.load("rglru_scan")
+    cb, C, L = rglru_plan(B, S, W, sm_count(a.device))
+    # the chunks' summaries (prod a, then h from 0), two passes only
+    summaries = torch.empty((2, B, C, W), dtype=a.dtype, device=a.device) \
+        if C > 1 else None
     rc = fn(a.data_ptr(), x.data_ptr(), h0.data_ptr(), hs.data_ptr(),
-            h_final.data_ptr(), B, S, W, a.device.index,
+            h_final.data_ptr(),
+            summaries.data_ptr() if summaries is not None else None,
+            B, S, W, cb, C, L, a.device.index,
             torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rglru_scan launch failed: CUDA error {rc}")

@@ -1,5 +1,5 @@
-"""The RWKV-6 WKV recurrence: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""The RWKV-6 WKV recurrence: the CUDA kernel's wrapper, its launch plan
+and its plain PyTorch version.
 
 Replaces ``repro/kernels/rwkv6_scan.py::rwkv6_scan`` (Pallas, TPU). Per
 (sequence, head), with a ``(hd, hd)`` state carried through time::
@@ -9,9 +9,15 @@ Replaces ``repro/kernels/rwkv6_scan.py::rwkv6_scan`` (Pallas, TPU). Per
 
 ``time_mix_seq`` runs it on every RWKV layer's sequence form (round
 prefill and each chunk of a chunked prefill). The Pallas kernel padded S
-to its chunk with ``w = 1``; the kernel (``csrc/rwkv6_scan.cu``) runs one
-thread block per (sequence, head), thread j holding column j of the state
-in registers, and steps through exactly S steps. Head sizes up to 128.
+to its chunk with ``w = 1``. The kernel (``csrc/rwkv6_scan.cu``) runs
+parallel over the state and staged over time: one block per (column
+group, head, sequence), ``R`` threads splitting the key rows of its
+``JC`` value columns, each holding 4 x 4 state elements in registers
+(:func:`rwkv6_plan`), r, k, w and v staged 32 steps at a time in shared
+memory with ``cp.async``, and the R partials of each output summed once
+per chunk. Each state element keeps the plain loop's update: a chunked
+form over time would need products of w, which underflow fp32 at
+rwkv6-3b's decays. Head sizes up to 128; nothing past S or hd is read.
 
 Bound on an H100: bytes (about 20 * hd per (b, t, head)) just ahead of
 operations (5 * hd^2 + 5 * hd flops) at hd 64.
@@ -23,9 +29,52 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import sm_count
 
-#: largest head size the kernel holds in registers
+#: largest head size the kernel takes
 MAX_HEAD = 128
+#: the kernel's thread tile: key rows and value columns per thread
+ROWS = COLS = 4
+#: most threads in one of its blocks (JC / COLS * R)
+MAX_THREADS = 256
+#: its steps staged per chunk and chunk buffers, and the shared memory a
+#: block may take (bytes)
+CHUNK, STAGES, MAX_SMEM = 32, 3, 232448
+
+
+def rwkv6_smem(jc: int, R: int) -> int:
+    """Shared memory of one block of the kernel (bytes): STAGES chunk
+    buffers of r, k, w (CHUNK x 4R rows) and v (CHUNK x jc), and CHUNK
+    rows of the threads' partials of out (4 floats each, one float4 of
+    pad a row)."""
+    nt = jc // COLS * R
+    return 4 * (STAGES * (3 * CHUNK * R * ROWS + CHUNK * jc)
+                + CHUNK * COLS * (nt + 1))
+
+
+def rwkv6_plan(B: int, H: int, hd: int, n_sm: int) -> Tuple[int, int, int]:
+    """(columns per block JC, threads per 4 columns R, rows per thread
+    ROWS) of the card's kernel over ``B`` sequences of ``H`` heads of
+    ``hd`` on ``n_sm`` SMs. A pure function of shapes.
+
+    Each thread holds ROWS = 4 key rows of COLS = 4 neighbouring value
+    columns; R = ceil(hd / 4) threads cover the hd rows of a column group
+    (the rows past hd hold zeros), so a block runs JC / 4 * R threads.
+    JC is one of 64, 32, 16, 8 (at most max(8, hd), at most 256 threads,
+    the shared memory within the card's): the narrowest whose blocks fit
+    one wave of one block per SM, else the widest, since each block
+    stages its head's r, k and w whole. At rwkv6-3b's B = 1 (40 heads of
+    64) one wave of 80 blocks beat 160 blocks on 132 SMs (28 of which
+    then hold two), and at B = 8 320 blocks of 64 columns beat 640 of 32
+    (``tools/scan_sweep.py``; PERF.md has the times). So B = 1 takes (32,
+    16, 4), 80 blocks of 128 threads, and B = 8 (64, 16, 4), 320 blocks
+    of 256."""
+    R = -(-hd // ROWS)
+    widths = [jc for jc in (64, 32, 16, 8)
+              if jc <= max(8, hd) and jc // COLS * R <= MAX_THREADS
+              and rwkv6_smem(jc, R) <= MAX_SMEM]
+    one_wave = [jc for jc in widths if B * H * -(-hd // jc) <= n_sm]
+    return (one_wave[-1] if one_wave else widths[0]), R, ROWS
 
 
 def wkv_step(state: torch.Tensor, r: torch.Tensor, k: torch.Tensor,
@@ -85,7 +134,8 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn = _build.load("rwkv6_scan")
     rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), state.data_ptr(), out.data_ptr(),
-            s_final.data_ptr(), B, S, H, hd, r.device.index,
+            s_final.data_ptr(), B, S, H, hd,
+            *rwkv6_plan(B, H, hd, sm_count(r.device)), r.device.index,
             torch.cuda.current_stream(r.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rwkv6_scan launch failed: CUDA error {rc}")
