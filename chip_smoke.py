@@ -16,7 +16,11 @@ through the dense continuous engine and round mode, and arctic-480b at
 full width cut to one layer through the paged continuous engine and round
 mode, with exact kernel launch counts, and checks the card's greedy tokens
 against the CPU's on every path at reduced width (the pool's too; the MoE
-family also with capacity drops).
+family also with capacity drops). Before the models it drives the
+simulator path behind the paper's utility figures at the CLI's defaults
+(``phase_sim``: the edge-serving simulator with SAC and the interference
+predictor guard on the card, each baseline scheduler, the CLI, and a
+greedy episode on the card against the CPU).
 
     python3 chip_smoke.py
 
@@ -1797,6 +1801,336 @@ def phase_moe(torch, device, smi):
     return launches
 
 
+# ---------------------------------------------------------------- phase sim
+#: the simulator path at the CLI's defaults (the six Table-IV models on
+#: Xavier NX at 30 requests/s per model, SAC at batch 256 and lr 5e-4,
+#: the NN predictor as the guard): simulated ms of each learning episode
+#: and of each baseline's
+SIM_EPISODE_MS = 20_000.0
+SIM_BASELINE_MS = 10_000.0
+#: relative gap the card's and the CPU's guard predictions may have where
+#: a verdict flips (a near-tie); the greedy logit margin of a shown tie
+SIM_TIE = 2e-4
+SIM_MARGIN = 1e-4
+
+
+class _TimedAgent:
+    """An agent whose ``act`` and ``update`` are timed on the host clock
+    between ``torch.cuda.synchronize`` calls (an update's ms are kept only
+    when it ran). Given an ``events`` list it acts greedily and appends
+    (``"act"``, state, action, top-two logit margin, simulated ms) for
+    each action, ``env`` supplying the time."""
+
+    def __init__(self, torch, agent, env=None, events=None):
+        self.torch, self.agent, self.env, self.events = \
+            torch, agent, env, events
+        self.act_ms, self.update_ms = [], []
+
+    def act(self, s, greedy=False):
+        torch = self.torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = self.agent.act(s, greedy=self.events is not None)
+        torch.cuda.synchronize()
+        self.act_ms.append((time.perf_counter() - t0) * 1e3)
+        if self.events is not None:
+            with torch.no_grad():
+                logits = self.agent.policy(torch.as_tensor(
+                    s, dtype=torch.float32, device=self.agent.device))
+            top2 = np.sort(logits.cpu().double().numpy())[-2:]
+            self.events.append(("act", np.asarray(s).copy(), a,
+                                float(top2[1] - top2[0]), self.env.now))
+        return a
+
+    def observe(self, *t):
+        self.agent.observe(*t)
+
+    def update(self):
+        torch = self.torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = self.agent.update()
+        torch.cuda.synchronize()
+        if m:
+            self.update_ms.append((time.perf_counter() - t0) * 1e3)
+        return m
+
+
+def _trace_predictions(pred, env, events):
+    """Record every guard prediction: (``"pred"``, features, value, None,
+    simulated ms)."""
+    inner = pred.predict
+
+    def predict(feats):
+        y = inner(feats)
+        events.append(("pred", np.asarray(feats).copy(), y, None, env.now))
+        return y
+
+    pred.predict = predict
+
+
+def _first_divergence(a, b):
+    """(index of the first event whose kind, input or action differs, the
+    index of the event that caused it), or None for identical traces: an
+    act whose action differs is its own cause, an input that differs
+    blames the event before it (a guard verdict)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x[0] != y[0] or not np.array_equal(x[1], y[1]):
+            return i, i - 1
+        if x[0] == "act" and x[2] != y[2]:
+            return i, i
+    if len(a) != len(b):
+        n = min(len(a), len(b))
+        return n, n - 1
+    return None
+
+
+def _baseline_update_ms(torch, agent, calls=5):
+    """ms of each of ``calls`` updates of a learning baseline at its own
+    mini-batch (TAC, DDQN: 512 from the replay; PPO: a 256-step rollout,
+    4 epochs), its replay or rollout topped up with copies of the
+    transitions its episode recorded: a 10 s episode holds fewer."""
+    rows = list(getattr(agent, "buf", []))
+    ms = []
+    for _ in range(calls):
+        if hasattr(agent, "replay"):
+            r, n = agent.replay, len(agent.replay)
+            for i in range(max(0, agent.batch_size - n)):
+                j = i % n
+                agent.observe(r.s[j], r.a[j], r.r[j], r.s2[j], r.done[j])
+        else:
+            agent.buf = (rows * (agent.horizon // len(rows) + 1))[
+                :agent.horizon]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = agent.update()
+        torch.cuda.synchronize()
+        if not m:
+            fail(f"sim: baseline {agent.name} did not update")
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def _on_cuda(torch, label, modules, tensors=()):
+    """Fail unless every parameter of ``modules`` and every tensor in
+    ``tensors`` lies on the card."""
+    where = {p.device.type for m in modules for p in m.parameters()}
+    where |= {t.device.type for t in tensors}
+    if where != {"cuda"}:
+        fail(f"sim: {label} has parameters on {sorted(where)}, not the card")
+
+
+def _sim_episode(torch, smi, label, env, agent, pred=None, guard=True,
+                 learn=True):
+    """One ``run_episode`` through a timed agent; logs the episode's
+    figures and fails unless requests are conserved. Returns the result
+    and the timed agent."""
+    from repro_torch.serving.bcedge import run_episode
+
+    timed = agent if isinstance(agent, _TimedAgent) else \
+        _TimedAgent(torch, agent)
+    n_act, n_upd = len(timed.act_ms), len(timed.update_ms)
+    pred_ms = []
+    if pred is not None:  # time each guard prediction, readback included
+        inner = pred.predict
+
+        def predict(feats):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            y = inner(feats)
+            torch.cuda.synchronize()
+            pred_ms.append((time.perf_counter() - t) * 1e3)
+            return y
+
+        pred.predict = predict
+    t0 = time.perf_counter()
+    try:
+        res = run_episode(env, timed, pred, guard=guard, learn=learn)
+    finally:
+        if pred is not None:
+            pred.predict = inner
+    wall = time.perf_counter() - t0
+    s = res.summary
+    served = sum(r.n_requests for r in env.history)
+    queued = sum(len(q) for q in env.queues.values())
+    dropped = sum(q.dropped for q in env.queues.values())
+    in_flight = sum(p.n_requests if k == "complete" else
+                    len(p.active) + len(p.done)
+                    for _, _, k, p in env._events if k in ("complete",
+                                                           "iter"))
+    if served + queued + in_flight + dropped != env.total_requests or \
+            not served:
+        fail(f"sim {label}: {env.total_requests} arrived, {served} served "
+             f"+ {queued} queued + {in_flight} in flight + {dropped} "
+             "dropped")
+    n = len(res.overhead_ms)
+    act_ms, update_ms = timed.act_ms[n_act:], timed.update_ms[n_upd:]
+
+    def mean(xs):
+        return f"{np.mean(xs):.3f}" if xs else "none"
+
+    log(f"sim {label}: {n} decisions in {wall:.1f} s wall, utility "
+        f"{s['mean_utility']:.4f}, throughput {s['throughput_rps']:.2f} "
+        f"rps, goodput {s['goodput_rps']:.2f} rps, violation rate "
+        f"{s['slo_violation_rate']:.4f}, {env.total_requests} arrived = "
+        f"{served} served + {queued} queued + {in_flight} in flight + "
+        f"{dropped} dropped; ms per decision {np.mean(res.overhead_ms):.3f}"
+        f" (p50 {np.percentile(res.overhead_ms, 50):.3f}, p99 "
+        f"{np.percentile(res.overhead_ms, 99):.3f}); act ms "
+        f"{mean(act_ms)} over {len(act_ms)}, update ms {mean(update_ms)} "
+        f"over {len(update_ms)}, guard predict ms {mean(pred_ms)} over "
+        f"{len(pred_ms)} [{smi}]")
+    return res, timed
+
+
+def phase_sim(torch, device, smi):
+    """The simulator path (``EdgeServingEnv``, ``run_episode``, the
+    ``BCEdgeScheduler`` guard) at the CLI's defaults, agents and predictor
+    on the card: two learning round-mode episodes and one continuous
+    (6 decode iterations a request) of SAC with the guard, one episode of
+    each baseline, the CLI itself, then a greedy episode with learning
+    off on the card against the same nets on the CPU (the same schedule,
+    or a shown near-tie). No TPU kernel lies on this path; the launch
+    counts read 0. Returns them."""
+    from repro_torch.config.base import ServingConfig
+    from repro_torch.core import baselines as bl
+    from repro_torch.core.interference import NNInterferencePredictor
+    from repro_torch.core.sac import NETS, SACAgent, SACConfig
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serving.features import queue_feature_index, state_dim
+    from repro_torch.serving.simulator import EdgeServingEnv
+
+    reset_launches()
+    t_phase = time.perf_counter()
+    cfg = ServingConfig()
+    models = EdgeServingEnv(cfg, episode_ms=1.0).models
+    dim = state_dim(models)
+
+    def sac_and_guard():
+        agent = SACAgent(dim, cfg.n_actions,
+                         SACConfig(batch_size=256, lr=5e-4), device=device)
+        pred = NNInterferencePredictor(device=device)
+        _on_cuda(torch, "SAC + predictor",
+                 [getattr(agent, n) for n in NETS] + [pred.net],
+                 [agent.log_alpha])
+        return agent, pred
+
+    log(f"sim: {len(models)} models {models} on {cfg.platform} at "
+        f"{cfg.arrival_rps} rps each, {cfg.n_actions} actions, state "
+        f"{dim}; SAC batch 256, lr 5e-4; NN predictor guard; agents on "
+        f"{torch.cuda.get_device_name(device)}")
+    agent, pred = sac_and_guard()
+    timed = _TimedAgent(torch, agent)
+    for ep in range(2):
+        env = EdgeServingEnv(cfg, episode_ms=SIM_EPISODE_MS, seed=ep)
+        _sim_episode(torch, smi, f"SAC round ep{ep}", env, timed, pred)
+    if not timed.update_ms:
+        fail("sim: SAC never updated in two episodes")
+    log(f"sim: SAC act ms p50 {np.percentile(timed.act_ms, 50):.3f}, "
+        f"update ms p50 {np.percentile(timed.update_ms, 50):.3f} (batch "
+        f"256, {len(timed.update_ms)} updates) [{smi}]")
+    trained = agent
+    ccfg = ServingConfig(exec_mode="continuous", decode_steps_mean=6.0)
+    agent_c, pred_c = sac_and_guard()
+    _sim_episode(torch, smi, "SAC continuous (decode 6)",
+                 EdgeServingEnv(ccfg, episode_ms=SIM_EPISODE_MS, seed=0),
+                 agent_c, pred_c)
+
+    qi = queue_feature_index(models)
+    learned = {"tac": bl.TACAgent(dim, cfg.n_actions, device=device),
+               "ppo": bl.PPOAgent(dim, cfg.n_actions, device=device),
+               "ddqn": bl.DDQNAgent(dim, cfg.n_actions, device=device)}
+    for name, a in learned.items():
+        _on_cuda(torch, name, [getattr(a, n) for n in a.NETS])
+    heuristics = {
+        "ga": bl.GAScheduler(dim, cfg.n_actions),
+        "edf": bl.EDFScheduler(cfg.batch_sizes, cfg.concurrency_levels, qi,
+                               n_models=len(models),
+                               arrival_rps=cfg.arrival_rps,
+                               platform=cfg.platform),
+        "fixed": bl.FixedScheduler(cfg.pair_to_action(4, 2))}
+    for name, a in {**learned, **heuristics}.items():
+        _sim_episode(torch, smi, f"baseline {name}",
+                     EdgeServingEnv(cfg, episode_ms=SIM_BASELINE_MS, seed=0),
+                     a, guard=False)
+    for name, a in learned.items():
+        ms = _baseline_update_ms(torch, a)
+        log(f"sim baseline {name}: update ms at its own batch "
+            f"{np.mean(ms):.3f} (p50 {np.percentile(ms, 50):.3f}, {len(ms)} "
+            f"updates) [{smi}]")
+
+    t0 = time.perf_counter()
+    serve_cli.main(["--episodes", "1", "--episode-ms", "3000"])
+    log(f"sim: the CLI's default (simulator, cuda) ran one 3000 ms episode "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    # greedy, learning off: the trained SAC nets on the card and copied to
+    # the CPU, each with a fresh predictor made from one net, traced
+    card_pred = NNInterferencePredictor(device=device)
+    cpu_agent = SACAgent(dim, cfg.n_actions,
+                         SACConfig(batch_size=256, lr=5e-4), device="cpu")
+    nets = {n: {k: v.cpu() for k, v in getattr(trained, n).state_dict()
+                .items()} for n in NETS}
+    nets["log_alpha"] = trained.log_alpha.detach().cpu()
+    cpu_agent.load_nets(nets)
+    cpu_pred = NNInterferencePredictor(device="cpu")
+    cpu_pred.load_net({k: v.cpu() for k, v in
+                       card_pred.net.state_dict().items()})
+    runs = {}
+    for where, a, p in (("card", trained, card_pred),
+                        ("cpu", cpu_agent, cpu_pred)):
+        env = EdgeServingEnv(cfg, episode_ms=SIM_BASELINE_MS, seed=7)
+        events = []
+        _trace_predictions(p, env, events)
+        _sim_episode(torch, smi, "SAC greedy, learning off, "
+                              f"{where}", env,
+                              _TimedAgent(torch, a, env, events), p,
+                              learn=False)
+        runs[where] = (env, events)
+    (c_env, c_ev), (h_env, h_ev) = runs["card"], runs["cpu"]
+    div = _first_divergence(c_ev, h_ev)
+    t_cut = float("inf")
+    if div is not None:
+        at, cause = div
+        x, y = c_ev[cause], h_ev[cause]
+        if x[0] == "act":
+            if min(x[3], y[3]) >= SIM_MARGIN:
+                fail(f"sim parity: greedy actions differ at event {cause} "
+                     f"({x[2]} vs {y[2]}), logit margin {x[3]:.3e}")
+            note = f"greedy action near-tie, logit margin {x[3]:.3e}"
+        else:
+            gap = abs(x[2] - y[2]) / y[2]
+            if gap >= SIM_TIE:
+                fail(f"sim parity: guard verdicts differ at event {cause}, "
+                     f"predictions {x[2]} vs {y[2]} (gap {gap:.3e})")
+            note = (f"guard near-tie, predictions {x[2]:.6g} vs {y[2]:.6g}"
+                    f" (gap {gap:.3e})")
+        t_cut = x[4]
+        log(f"sim parity: first difference at event {at} of {len(c_ev)} "
+            f"(t = {t_cut:.1f} ms): {note}")
+    keep = [(r.model, r.b, r.m_c, r.n_requests, r.decision_ms, r.finish_ms,
+             r.utility) for r in h_env.history if r.decision_ms < t_cut]
+    got = [(r.model, r.b, r.m_c, r.n_requests, r.decision_ms, r.finish_ms,
+            r.utility) for r in c_env.history if r.decision_ms < t_cut]
+    if got != keep or len(got) < 20:
+        fail(f"sim parity: {len(got)} card rounds vs {len(keep)} CPU rounds "
+             "before the first difference, not the same schedule")
+    preds = [(x[2], y[2]) for x, y in zip(c_ev, h_ev)
+             if x[0] == y[0] == "pred"]
+    gap = max((abs(x - y) / y for x, y in preds), default=0.0)
+    log(f"sim parity: greedy episode, learning off, card vs CPU: "
+        f"{len(got)} rounds identical{' (whole episode)' if div is None else ''}"
+        f", {len(c_ev)} traced events, {len(preds)} guard predictions "
+        f"within {gap:.3e} relative, smallest logit margin "
+        f"{min(e[3] for e in c_ev if e[0] == 'act'):.3e}")
+    got = read_launches()
+    if any(got.values()):
+        fail(f"sim: the simulator path launched kernels {got}")
+    log(f"sim: {time.perf_counter() - t_phase:.1f} s; launches {got} (no "
+        f"TPU kernel lies on this path) [{smi}]")
+    return got
+
+
 def run(torch, device, smi):
     """Every phase after the build: kernels vs plain, timing, the three
     serving paths of full-width qwen3-0.6b, then the dense continuous
@@ -1816,6 +2150,8 @@ def run(torch, device, smi):
     def add(got):
         for name, n in got.items():
             launches[name] += n
+
+    add(phase_sim(torch, device, smi))
 
     full = get_config(FULL)
     params = init_params(full, seed=0, device=device)

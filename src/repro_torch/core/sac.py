@@ -170,3 +170,25 @@ class SACAgent:
                 "actor_loss": actor.detach(),
                 "alpha": self.log_alpha.detach().exp(),
                 "entropy": entropy.mean(), "alpha_loss": alpha_loss.detach()}
+
+    # ---- deployment checkpointing (paper §V-A: train offline, deploy) ---
+    def save(self, path: str) -> str:
+        """Write the nets, ``log_alpha`` and ``{"n_actions", "step"}`` to
+        ``path`` with ``torch.save`` (CPU tensors); returns ``path``. The
+        optimizer states and the replay buffer are not saved."""
+        nets = {name: {k: v.detach().cpu() for k, v in
+                       getattr(self, name).state_dict().items()}
+                for name in NETS}
+        nets["log_alpha"] = self.log_alpha.detach().cpu()
+        torch.save({"nets": nets, "meta": {"n_actions": self.n_actions,
+                                           "step": self.step}}, path)
+        return path
+
+    def load(self, path: str) -> None:
+        """Restore the nets and ``log_alpha`` saved by :meth:`save` onto
+        this agent's device. Raises ``ValueError`` when the checkpoint's
+        action space differs from this agent's."""
+        ckpt = torch.load(path, map_location=self.device, weights_only=True)
+        if ckpt["meta"].get("n_actions") != self.n_actions:
+            raise ValueError("checkpoint action-space mismatch")
+        self.load_nets(ckpt["nets"])

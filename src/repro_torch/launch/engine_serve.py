@@ -324,7 +324,8 @@ def main(exec_mode: str = "round", arch: str = "qwen3-0.6b",
          slo_ms: float = 1500.0, models: Optional[Sequence[str]] = None,
          max_instances: int = 4, kv_layout: str = "dense",
          kv_block_budget: Optional[int] = None,
-         token_budget: Optional[int] = None, device="cuda") -> None:
+         token_budget: Optional[int] = None, shared_prefix_tokens: int = 0,
+         device="cuda") -> None:
     if models:
         if exec_mode != "continuous":
             print("multi-model pool serving is continuous-only; "
@@ -332,8 +333,13 @@ def main(exec_mode: str = "round", arch: str = "qwen3-0.6b",
         serve_pool(models, duration_s, rps, slo_ms,
                    max_instances=max_instances, kv_layout=kv_layout,
                    kv_block_budget=kv_block_budget,
-                   token_budget=token_budget, device=device)
+                   token_budget=token_budget,
+                   shared_prefix_tokens=shared_prefix_tokens, device=device)
         return
+    if shared_prefix_tokens:
+        raise NotImplementedError(
+            "a templated workload outside the pool is not ported yet "
+            "(ROADMAP.md, Queue A items 5 and 7: the prefix cache)")
     if exec_mode == "continuous":
         serve_continuous(arch, duration_s, rps, slo_ms, kv_layout=kv_layout,
                          kv_block_budget=kv_block_budget,

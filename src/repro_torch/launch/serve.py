@@ -1,11 +1,14 @@
-"""Serving launcher of the port: the real engine in round or continuous
-mode, or the multi-model instance pool (``--models``), on the GPU unless
-``--device cpu`` (a subset of ``repro.launch.serve``, with its defaults:
-round mode, dense KV).
+"""Serving launcher of the port: the BCEdge scheduler over the edge-serving
+simulator (the default, as in ``repro.launch.serve``), or the real engine
+(``--engine``) in round or continuous mode, or the multi-model instance
+pool (``--models``). The agents and the interference predictor run on the
+GPU unless ``--device cpu``; the simulator itself is numpy on the host.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --episodes 1 \
+        --episode-ms 3000
+    PYTHONPATH=src python -m repro_torch.launch.serve --exec-mode \
+        continuous --decode-steps 6 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --engine
-    PYTHONPATH=src python -m repro_torch.launch.serve --engine \
-        --exec-mode continuous --kv-layout dense
     PYTHONPATH=src python -m repro_torch.launch.serve --engine \
         --exec-mode continuous --kv-layout paged --token-budget 64 \
         --device cpu
@@ -17,29 +20,95 @@ from __future__ import annotations
 
 import argparse
 
+from repro_torch.serving.platforms import PLATFORMS
+
+#: engine features the port does not serve yet, by flag, with the
+#: ROADMAP.md Queue A item that brings each
+_ENGINE_UNPORTED = (
+    ("preemption", "--preemption",
+     "items 5 and 7: cancel, recompute preemption and seeded sampling"),
+    ("prefix_cache", "--prefix-cache", "items 5 and 7: the prefix cache"),
+    ("spec_k", "--spec-k",
+     "items 5 and 7: speculation and the host swap tier"),
+)
+
+
+def simulate(cfg, episodes: int, episode_ms: float, guard: bool = True,
+             device="cuda") -> None:
+    """The reference CLI's simulator mode: one SAC agent (batch 256, lr
+    5e-4) and, with ``guard``, the NN interference predictor, both on
+    ``device``, trained online over ``episodes`` seeded episodes; prints
+    one ``ep{i}:`` line per episode and the profiler's best (b, m_c) per
+    model."""
+    from repro_torch.core.interference import NNInterferencePredictor
+    from repro_torch.core.sac import SACAgent, SACConfig
+    from repro_torch.serving.bcedge import run_episode
+    from repro_torch.serving.features import state_dim
+    from repro_torch.serving.profiler import PerformanceProfiler
+    from repro_torch.serving.simulator import EdgeServingEnv
+
+    env0 = EdgeServingEnv(cfg, episode_ms=1.0)
+    agent = SACAgent(state_dim(env0.models), cfg.n_actions,
+                     SACConfig(batch_size=256, lr=5e-4), device=device)
+    pred = NNInterferencePredictor(device=device) if guard else None
+    profiler = PerformanceProfiler()
+    for ep in range(episodes):
+        env = EdgeServingEnv(cfg, episode_ms=episode_ms, seed=ep)
+        res = run_episode(env, agent, pred, guard=guard)
+        profiler.reset_env()
+        profiler.poll(env)
+        s = res.summary
+        util = profiler.utilization()
+        print(f"ep{ep}: utility={s['mean_utility']:.2f} "
+              f"thr={s['throughput_rps']:.1f}rps "
+              f"goodput={s['goodput_rps']:.1f}rps "
+              f"viol={s['slo_violation_rate']:.1%} "
+              f"lat={s['mean_latency_ms']:.0f}ms "
+              f"busy={util['busy_frac']:.0%} "
+              f"overhead={sum(res.overhead_ms)/max(len(res.overhead_ms),1):.2f}ms/decision")
+    # profiler-informed per-model configurations (§IV-E)
+    for m in env0.models:
+        best = profiler.best_config(m, max_violation=0.2)
+        if best:
+            print(f"profile[{m}]: best (b, m_c) within 20% violations "
+                  f"= {best}")
+
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--engine", action="store_true",
-                    help="serve a real model (the simulator is not ported "
-                         "yet; required)")
+    ap.add_argument("--platform", default="xavier_nx",
+                    help=f"simulated edge platform, one of {sorted(PLATFORMS)}"
+                         " (the paper's)")
+    ap.add_argument("--rps", type=float, default=None,
+                    help="Poisson arrival rate: per model in the simulator "
+                         "(default 30, the paper's), overall for the engine "
+                         "(default 12)")
+    ap.add_argument("--episodes", type=int, default=6)
+    ap.add_argument("--episode-ms", type=float, default=20_000.0)
+    ap.add_argument("--no-guard", action="store_true")
     ap.add_argument("--exec-mode", default="round",
                     choices=["round", "continuous"],
                     help="round = run-to-completion batches whose size the "
                          "SAC agent picks (the default, as in the JAX CLI); "
                          "continuous = iteration-level batching")
+    ap.add_argument("--decode-steps", type=float, default=1.0,
+                    help="simulator: mean decode iterations per request "
+                         "(geometric); >1 makes the workload autoregressive")
+    ap.add_argument("--prefill-tokens", type=float, default=0.0,
+                    help="simulator: mean prompt tokens per request "
+                         "(geometric; 0 = single-shot, no prefill modeling)")
+    ap.add_argument("--engine", action="store_true",
+                    help="serve a real model instead of the simulator")
     ap.add_argument("--arch", default="qwen3-0.6b",
                     help="architecture id, served at its reduced width")
     ap.add_argument("--models", default=None,
                     help="comma-separated model ids: serve them "
                          "concurrently through the multi-model instance "
                          "pool with the PoolScheduler driving (b, m_c) "
-                         "per model (continuous only)")
+                         "per model (requires --engine; continuous only)")
     ap.add_argument("--max-instances", type=int, default=4,
                     help="pool-wide cap on live engine instances (the "
                          "m_c budget shared by all --models)")
-    ap.add_argument("--rps", type=float, default=12.0,
-                    help="Poisson arrival rate, requests per second")
     ap.add_argument("--kv-layout", default="dense",
                     choices=["dense", "paged"],
                     help="KV cache layout of continuous mode (default "
@@ -50,23 +119,76 @@ def main(argv=None) -> None:
                          "dense-equivalent worst case)")
     ap.add_argument("--token-budget", type=int, default=None,
                     help="per-iteration cap on prefill-chunk + decode "
-                         "tokens (default: uncapped)")
+                         "tokens; engine: a fixed cap (the pool: its "
+                         "scheduler axis too); simulator: adds an action "
+                         "level. Default: uncapped")
+    ap.add_argument("--preemption", action="store_true",
+                    help="simulator: SLO-aware preemption in continuous "
+                         "sessions (not ported to the engine yet)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="simulator: sessions skip shared prefixes an "
+                         "earlier request already prefilled (not ported "
+                         "to the engine yet)")
+    ap.add_argument("--shared-prefix-tokens", type=float, default=0.0,
+                    help="templated workload: every prompt starts with one "
+                         "of a small population of shared prefixes of this "
+                         "many tokens (simulator, and the engine's pool). "
+                         "Default: 0 (off)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="simulator: speculative decoding depth, an added "
+                         "action level (continuous only; not ported to the "
+                         "engine yet). Default: 0 (off)")
     ap.add_argument("--device", default="cuda",
-                    help="torch device; the default cuda fails without a "
+                    help="torch device of the agents, the predictor and "
+                         "the engine; the default cuda fails without a "
                          "GPU, cpu runs the kernels' plain versions")
     args = ap.parse_args(argv)
-    if not args.engine:
-        ap.error("the port serves the real engine only: pass --engine (the "
-                 "simulator is still to port, see ROADMAP.md)")
+    if args.models and not args.engine:
+        ap.error("--models requires --engine (the simulator is already "
+                 "multi-tenant over the paper's Table-IV models)")
+    if args.platform not in PLATFORMS:
+        ap.error(f"--platform {args.platform!r}: the port simulates the "
+                 f"paper's edge platforms {sorted(PLATFORMS)} only; the "
+                 "reference's tpu_v5e entry holds constants written for a "
+                 "TPU, which the port does not carry over")
 
-    from repro_torch.launch import engine_serve
+    if args.engine:
+        for attr, flag, item in _ENGINE_UNPORTED:
+            if getattr(args, attr):
+                raise NotImplementedError(
+                    f"{flag} on the engine is not ported yet (ROADMAP.md, "
+                    f"Queue A {item})")
+        from repro_torch.launch import engine_serve
 
-    models = [m for m in (args.models or "").split(",") if m] or None
-    engine_serve.main(exec_mode=args.exec_mode, arch=args.arch, rps=args.rps,
-                      models=models, max_instances=args.max_instances,
-                      kv_layout=args.kv_layout,
-                      kv_block_budget=args.kv_block_budget,
-                      token_budget=args.token_budget, device=args.device)
+        models = [m for m in (args.models or "").split(",") if m] or None
+        engine_serve.main(exec_mode=args.exec_mode, arch=args.arch,
+                          rps=12.0 if args.rps is None else args.rps,
+                          models=models, max_instances=args.max_instances,
+                          kv_layout=args.kv_layout,
+                          kv_block_budget=args.kv_block_budget,
+                          token_budget=args.token_budget,
+                          shared_prefix_tokens=int(
+                              args.shared_prefix_tokens),
+                          device=args.device)
+        return
+
+    from repro_torch.config.base import ServingConfig
+
+    cfg = ServingConfig(platform=args.platform,
+                        arrival_rps=30.0 if args.rps is None else args.rps,
+                        exec_mode=args.exec_mode,
+                        decode_steps_mean=max(1.0, args.decode_steps),
+                        prefill_tokens_mean=max(0.0, args.prefill_tokens),
+                        token_budgets=(0,) if not args.token_budget
+                        else (0, args.token_budget),
+                        preemption=args.preemption,
+                        shared_prefix_tokens=max(
+                            0.0, args.shared_prefix_tokens),
+                        prefix_cache=args.prefix_cache,
+                        spec_depths=(0,) if args.spec_k <= 0
+                        else (0, args.spec_k))
+    simulate(cfg, args.episodes, args.episode_ms, guard=not args.no_guard,
+             device=args.device)
 
 
 if __name__ == "__main__":

@@ -21,18 +21,21 @@ follows:
 * **Tied head.** The tied LM head is the ``(V, d)`` embedding table
   itself (``transformer.py:418-421``); an untied ``lm_head`` is (d, V).
 
-The SAC scheduler's nets (:func:`sac_nets_from_jax`) and the interference
-predictor's (:func:`interference_from_jax`) are ``{"layers": [{"w": (in,
-out), "b": (out,)}, ...]}`` on both sides, also untransposed.
+The scheduler agents' nets (:func:`sac_nets_from_jax`; the baselines'
+:func:`tac_nets_from_jax`, :func:`ppo_nets_from_jax` and
+:func:`ddqn_nets_from_jax`) and the interference predictor's
+(:func:`interference_from_jax`) are ``{"layers": [{"w": (in, out), "b":
+(out,)}, ...]}`` on both sides, also untransposed.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.core.baselines import DDQNAgent, PPOAgent, TACAgent
 from repro_torch.core.sac import NETS
 from repro_torch.models.transformer import check_supported
 
@@ -103,6 +106,31 @@ def sac_nets_from_jax(nets_np: Dict) -> Dict:
     out: Dict = {name: mlp_from_jax(nets_np[name]) for name in NETS}
     out["log_alpha"] = _f32(nets_np["log_alpha"])
     return out
+
+
+def _nets_from_jax(state_np: Dict, names: Sequence[str]) -> Dict:
+    return {name: mlp_from_jax(state_np[name]) for name in names}
+
+
+def tac_nets_from_jax(state_np: Dict) -> Dict:
+    """``TACAgent.load_nets`` input from the reference TAC agent's state
+    (``state._asdict()`` with numpy leaves; its ``policy`` and ``value``
+    nets are read)."""
+    return _nets_from_jax(state_np, TACAgent.NETS)
+
+
+def ppo_nets_from_jax(state_np: Dict) -> Dict:
+    """``PPOAgent.load_nets`` input from the reference PPO agent's state
+    (``state._asdict()`` with numpy leaves; its ``policy`` and ``value``
+    nets are read)."""
+    return _nets_from_jax(state_np, PPOAgent.NETS)
+
+
+def ddqn_nets_from_jax(state_np: Dict) -> Dict:
+    """``DDQNAgent.load_nets`` input from the reference DDQN agent's state
+    (``state._asdict()`` with numpy leaves; its ``q`` and ``q_target``
+    nets are read)."""
+    return _nets_from_jax(state_np, DDQNAgent.NETS)
 
 
 def interference_from_jax(net_np: Dict) -> Dict:

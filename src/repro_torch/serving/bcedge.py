@@ -1,29 +1,199 @@
-"""The BCEdge scheduler over the real instance pool: the port of
-``repro.serving.bcedge``'s ``PoolScheduler`` (paper Fig. 2: agent + SLO
-guard, docs/RUNTIME.md).
+"""BCEdge framework facade (paper Fig. 2: agent + SLO guard): the port of
+``repro.serving.bcedge``.
 
-One discrete SAC agent per model picks (b, m_c, token budget): b caps
-the active slots per instance, m_c is applied through ``pool.scale_to``
-so the action really spawns or drains engine instances, and the token
-budget caps each iteration's prefill + decode tokens. Before an action
-is applied, the SLO guard checks it against the models the pool
-calibrates from its own measured iterations (contention, token cost, KV
-occupancy) and degrades an infeasible one to the nearest feasible.
+The learning-based scheduler picks (b, m_c); before dispatch, the
+SLO-aware interference predictor estimates the round latency, and if it
+exceeds the scheduling-slot budget (Eq. 1) or memory capacity, the guard
+degrades the action to the nearest feasible (b, m_c) (paper §IV-F).
 
-The reference's action also carries a speculation depth and a TP degree;
-the port's pool serves neither yet, so a ``ServingConfig`` that offers
-more than ``spec_depths=(0,)`` and ``tp_degrees=(1,)`` is refused
-(ROADMAP.md). The simulator's ``BCEdgeScheduler`` and ``run_episode``
-come with the simulator (Queue A item 8).
+Two drivers live here:
+
+* ``BCEdgeScheduler`` + ``run_episode`` — the simulator path (paper
+  experiments, Figs. 7-16). The simulator is numpy on the host; the agent
+  and the predictor run on their own device (the GPU by default), and
+  each ``act`` and each guard ``predict`` reads one value back from it, a
+  device synchronisation per call.
+* ``PoolScheduler`` — the real runtime path: one discrete SAC agent per
+  model picks (b, m_c, token budget) over the instance pool; b caps the
+  active slots per instance, m_c is applied through ``pool.scale_to`` so
+  the action really spawns or drains engine instances, and the token
+  budget caps each iteration's prefill + decode tokens. Its guard checks
+  an action against the models the pool calibrates from its own measured
+  iterations (contention, token cost, KV occupancy).
+
+The reference's pool action also carries a speculation depth and a TP
+degree; the port's pool serves neither yet, so ``PoolScheduler`` refuses
+a ``ServingConfig`` that offers more than ``spec_depths=(0,)`` and
+``tp_degrees=(1,)`` (ROADMAP.md). The TP collective surcharge
+(``tp_collective_ms_per_token``) comes with tensor parallelism.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+import time
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from repro_torch.config.base import ServingConfig
+from repro_torch.configs.paper_edge_models import EDGE_MODELS
+from repro_torch.core.interference import NNInterferencePredictor
 from repro_torch.serving import latency_model as lm
+from repro_torch.serving.simulator import EdgeServingEnv
+
+
+@dataclasses.dataclass
+class EpisodeResult:
+    """Aggregated outcome of one serving episode (the quantities the
+    paper's Figs. 7-16 are computed from)."""
+    summary: Dict[str, float]
+    rewards: List[float]
+    losses: List[float]
+    overhead_ms: List[float]
+    per_model_utility: Dict[str, float]
+    per_model_throughput: Dict[str, float]
+    per_model_latency: Dict[str, float]
+    timeline: List[Dict]
+
+
+class BCEdgeScheduler:
+    """Agent + SLO guard, the paper's Fig.-2 scheduler block (§IV-B with
+    the §IV-F predictor guard; continuous-mode reinterpretation in
+    docs/ARCHITECTURE.md §7)."""
+
+    def __init__(self, env: EdgeServingEnv, agent,
+                 predictor: Optional[NNInterferencePredictor] = None,
+                 guard: bool = True):
+        self.env = env
+        self.agent = agent
+        self.predictor = predictor
+        self.guard = guard and predictor is not None
+        self.guard_interventions = 0
+
+    # ---- SLO guard --------------------------------------------------------
+    def _feasible(self, model: str, b: int, m_c: int) -> bool:
+        """Deadline feasibility: the predicted round latency (plus the
+        batch-formation wait still ahead) must fit the OLDEST queued
+        request's remaining SLO budget — the paper's predictor-guided
+        robustness mechanism (§IV-F).
+
+        Under exec_mode="continuous" the predictor is trained on
+        PER-ITERATION latency (see ``run_episode``), so Eq.-1 feasibility
+        is checked per iteration: one predicted iteration must fit the
+        per-iteration share of the budget, i.e. the remaining SLO budget
+        divided by the expected decode length of a request."""
+        q = self.env.queues[model]
+        cfg = self.env.cfg
+        prof = EDGE_MODELS[model]
+        slo = prof.slo_ms * cfg.slo_scale
+        age = q.peek_oldest_age(self.env.now)
+        fill_wait = max(0.0, b - len(q)) * 1000.0 / \
+            max(cfg.arrival_rps, 1e-3)
+        budget_ms = max(slo - age - fill_wait, 2.0)
+        if cfg.exec_mode == "continuous":
+            budget_ms /= max(cfg.decode_steps_mean, 1.0)
+        feats = self.env.predict_features(model, b, m_c)
+        pred_lat_ms = self.predictor.predict(feats) * 1000.0
+        _, other_mem = self.env._other_load(exclude=model)
+        mem = m_c * lm.instance_memory_gb(prof, b) + other_mem
+        return pred_lat_ms <= budget_ms and mem <= self.env.hw.mem_gb
+
+    def select_action(self, state: np.ndarray, model: str) -> int:
+        a = self.agent.act(state)
+        if not self.guard:
+            return a
+        # under backlog (oldest request already deep into its SLO) the
+        # guard steps aside: throughput is the only way out, and degrading
+        # to smaller rounds would death-spiral the queue
+        q = self.env.queues[model]
+        prof = EDGE_MODELS[model]
+        if q.peek_oldest_age(self.env.now) >= 0.5 * prof.slo_ms * \
+                self.env.cfg.slo_scale:
+            return a
+        cfg = self.env.cfg
+        b, m_c = cfg.action_to_pair(a)
+        if self._feasible(model, b, m_c):
+            return a
+        # degrade toward feasibility: shrink batch first, then concurrency
+        self.guard_interventions += 1
+        bs, ms = list(cfg.batch_sizes), list(cfg.concurrency_levels)
+        bi, mi = bs.index(b), ms.index(m_c)
+        while bi > 0 or mi > 0:
+            if bi > 0:
+                bi -= 1
+            elif mi > 0:
+                mi -= 1
+            if self._feasible(model, bs[bi], ms[mi]):
+                break
+        return cfg.pair_to_action(bs[bi], ms[mi])
+
+
+def run_episode(env: EdgeServingEnv, agent,
+                predictor: Optional[NNInterferencePredictor] = None,
+                guard: bool = True, learn: bool = True,
+                update_every: int = 1, max_steps: int = 100_000
+                ) -> EpisodeResult:
+    sched = BCEdgeScheduler(env, agent, predictor, guard)
+    s = env.reset()
+    rewards: List[float] = []
+    losses: List[float] = []
+    overheads: List[float] = []
+    timeline: List[Dict] = []
+    done, steps = False, 0
+    seen_rounds = 0
+    while not done and steps < max_steps:
+        model = env._focus
+        t0 = time.perf_counter()
+        a = sched.select_action(s, model)
+        s2, r, done, info = env.step(a)
+        if learn:
+            for (ts, ta, tr, ts2, tdone) in info["transitions"]:
+                agent.observe(ts, ta, tr, ts2, tdone)
+            if steps % update_every == 0:
+                m = agent.update()
+                if m and "critic_loss" in m:
+                    losses.append(m["critic_loss"])
+        overheads.append((time.perf_counter() - t0) * 1000.0)
+        # feed the predictor every newly completed round
+        new_rounds = env.history[seen_rounds:]
+        seen_rounds = len(env.history)
+        for rnd in new_rounds:
+            rewards.append(rnd.utility)
+            timeline.append({"t_ms": rnd.finish_ms, "model": rnd.model,
+                             "reward": rnd.utility, "b": rnd.b,
+                             "m_c": rnd.m_c, "n": rnd.n_requests,
+                             "violations": rnd.violations})
+            if predictor is not None and rnd.features is not None:
+                # round mode: the target is the round latency; continuous
+                # mode: the PER-ITERATION latency (the guard checks Eq.-1
+                # feasibility per iteration, see _feasible)
+                actual_s = max(rnd.finish_ms - rnd.start_ms, 1e-3) / 1000.0
+                if rnd.exec_mode == "continuous":
+                    actual_s /= max(rnd.n_iters, 1)
+                predictor.observe(rnd.features, actual_s)
+        s = s2
+        steps += 1
+
+    # per-model aggregates
+    per_u: Dict[str, List[float]] = {}
+    per_thr: Dict[str, float] = {}
+    per_lat: Dict[str, List[float]] = {}
+    for rnd in env.history:
+        per_u.setdefault(rnd.model, []).append(rnd.utility)
+        per_thr[rnd.model] = per_thr.get(rnd.model, 0.0) + rnd.n_requests
+        per_lat.setdefault(rnd.model, []).extend(rnd.latencies_ms)
+    dur_s = max(env.now, 1.0) / 1000.0
+    return EpisodeResult(
+        summary=env.summarize(),
+        rewards=rewards,
+        losses=losses,
+        overhead_ms=overheads,
+        per_model_utility={m: float(np.mean(v)) for m, v in per_u.items()},
+        per_model_throughput={m: v / dur_s for m, v in per_thr.items()},
+        per_model_latency={m: float(np.mean(v)) for m, v in per_lat.items()},
+        timeline=timeline,
+    )
+
 
 #: state vector fed to the per-model pool agents (docs/RUNTIME.md):
 #: [log1p(queue), oldest slack s, own m_c share, total live share,
@@ -238,3 +408,31 @@ class PoolScheduler:
             self.record(hist[seen:])
             self._tick_seen[model] = len(hist)
         return self.control()
+
+
+def collect_interference_dataset(cfg: ServingConfig, n: int = 2000,
+                                 seed: int = 0):
+    """Fig. 13 protocol: random (b, m_c) probes; features + actual latency."""
+    env = EdgeServingEnv(cfg, seed=seed)
+    rng = np.random.default_rng(seed)
+    X, y = [], []
+    pending: Dict[tuple, np.ndarray] = {}
+    s = env.reset()
+    done = False
+    seen = 0
+    while len(X) < n:
+        if done:
+            env.seed += 1
+            s = env.reset()
+            pending.clear()
+            seen = 0
+        a = int(rng.integers(env.n_actions))
+        s, r, done, info = env.step(a)
+        for rnd in env.history[seen:]:
+            # overflow rounds take the failure-penalty path, not the
+            # interference latency model — they are not prediction targets
+            if rnd.features is not None and not rnd.overflow:
+                X.append(rnd.features)
+                y.append(max(rnd.finish_ms - rnd.start_ms, 1e-3) / 1000.0)
+        seen = len(env.history)
+    return np.stack(X[:n]), np.asarray(y[:n], np.float64)

@@ -1,18 +1,94 @@
-"""The measured latency and occupancy models the instance pool and its
-scheduler calibrate and read: the part of ``repro.serving.latency_model``
-they call, unchanged. Every fit here is over samples the pool records
-itself (iteration wall ms against overlap, against tokens processed, and
-KV tokens against resident sequences), so nothing in it describes a
-particular accelerator.
+"""Latency and memory models of the serving stack: the port of
+``repro.serving.latency_model`` (numpy and math only, so a copy).
 
-The analytic edge-platform model behind the simulator (hardware specs,
-batching efficiency, the Fig.-1 interference curve) and the swap-cost fit
-of the host KV tier come with the simulator and the host tier (ROADMAP.md,
-Queue A items 8 and 5).
+The analytic edge-platform half (computing model, paper §III-A-3) prices
+the simulator's rounds and sessions. End-to-end latency of a request
+(Eq. 2)::
+
+    t_r = t_t (transmit) + t_s (serialize) + t_w (queue) + t_m (infer) + t_o
+
+The simulator produces t_w from actual queueing; this module models t_t,
+t_s, t_m and memory. The inference term reproduces the qualitative
+surface of the paper's Fig. 1: throughput rises with batch size until the
+batching-efficiency curve saturates; concurrent instances first help (fill
+the accelerator) then hurt via contention, super-linearly once memory
+pressure passes the knee; past memory capacity the batch fails (the Fig. 1
+overflow region).
+
+The measured half holds the fits the instance pool and its scheduler
+calibrate from samples the pool records itself (iteration wall ms against
+overlap, against tokens processed, and KV tokens against resident
+sequences), so nothing in it describes a particular accelerator. The
+swap-cost fit of the host KV tier comes with the host tier (ROADMAP.md,
+Queue A item 5).
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Sequence, Tuple
+
+from repro_torch.configs.paper_edge_models import EdgeModelProfile
+from repro_torch.serving.platforms import HardwareSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionEstimate:
+    """One batch execution under the §III-A-3 computing model: raw
+    compute time, interference inflation (docs/ARCHITECTURE.md §2), and
+    the Eq.-4 memory-overflow flag."""
+    compute_ms: float
+    interference_factor: float
+    mem_used_gb: float     # total accelerator memory in use (all instances)
+    overflow: bool
+
+    @property
+    def total_ms(self) -> float:
+        return self.compute_ms * self.interference_factor
+
+
+def batching_efficiency(hw: HardwareSpec, b: int) -> float:
+    return hw.eff_max * b / (b + hw.eff_half)
+
+
+def instance_memory_gb(model: EdgeModelProfile, b: int) -> float:
+    # fp16 weights + activations scale with batch; +20% runtime arena
+    return 1.2 * (2.0 * model.params_m / 1024.0
+                  + model.activation_mb * b / 1024.0)
+
+
+def interference_factor(hw: HardwareSpec, total_instances: int,
+                        mem_used_gb: float) -> float:
+    """Latency inflation from co-located execution (what the NN predictor
+    learns). Linear in extra instances; super-linear past the memory knee."""
+    f = 1.0 + hw.contention * max(0, total_instances - 1)
+    pressure = mem_used_gb / hw.mem_gb
+    if pressure > hw.mem_knee:
+        over = (pressure - hw.mem_knee) / max(1e-6, 1.0 - hw.mem_knee)
+        f *= 1.0 + 2.5 * over ** 2 * total_instances
+    return f
+
+
+def estimate_execution(hw: HardwareSpec, model: EdgeModelProfile, b: int,
+                       m_c: int, other_instances: int = 0,
+                       other_mem_gb: float = 0.0) -> ExecutionEstimate:
+    """Latency of ONE batch of size b when m_c instances of this model (and
+    ``other_instances`` of other tenants) run concurrently. Each instance
+    time-shares the accelerator => effective throughput divides by the
+    number of co-resident instances."""
+    total_inst = max(1, m_c + other_instances)
+    eff = batching_efficiency(hw, b)
+    # one instance only achieves eff(b) of peak (launch gaps, host pre/post);
+    # n co-resident instances fill the accelerator up to saturation — this
+    # is WHY concurrency helps at small batches (Fig. 1), and why it stops
+    # helping once n*eff(b) >= 1 and contention takes over.
+    util = min(1.0, total_inst * eff)
+    gops = model.gflops * b
+    compute_ms = gops * total_inst / (hw.tops * util) + hw.overhead_ms
+    mem = m_c * instance_memory_gb(model, b) + other_mem_gb
+    overflow = mem > hw.mem_gb
+    f = interference_factor(hw, total_inst, mem)
+    return ExecutionEstimate(compute_ms, f, mem, overflow)
 
 
 def _least_squares(xs: Sequence[float], ys: Sequence[float]
@@ -116,3 +192,20 @@ def predicted_kv_tokens(tokens_per_seq: float, n_seqs: int) -> float:
     """KV tokens the :func:`fit_occupancy` model predicts for ``n_seqs``
     concurrently resident sequences."""
     return tokens_per_seq * max(0, n_seqs)
+
+
+def transmission_ms(hw: HardwareSpec, model: EdgeModelProfile) -> float:
+    size_mb = 2.0 * math.prod(model.input_shape) / 1e6  # fp16 payload
+    return hw.io_ms_per_mb * size_mb + 0.2
+
+
+def serialization_ms(b: int) -> float:
+    return 0.05 * b + 0.1
+
+
+def peak_throughput_rps(hw: HardwareSpec, model: EdgeModelProfile,
+                        b: int, m_c: int) -> float:
+    est = estimate_execution(hw, model, b, m_c)
+    if est.overflow:
+        return 0.0
+    return 1000.0 * b * m_c / (est.total_ms)

@@ -1,13 +1,16 @@
-"""The per-request lifecycle state machine the pool pushes events
-through: the port of ``repro.serving.request``'s ``RequestLifecycle``
-(docs/RUNTIME.md §11), unchanged.
-
-The simulator's ``Request`` and ``RequestQueue`` come with the simulator
-(ROADMAP.md, Queue A item 8).
+"""Request model, the simulator's SLO-priority queue, and the per-request
+lifecycle state machine the pool pushes events through: the port of
+``repro.serving.request`` (``Request``, ``RequestQueue`` and
+``RequestLifecycle``, docs/RUNTIME.md §11), unchanged.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import dataclasses
+import heapq
+import itertools
+from typing import Callable, Dict, List, Optional
+
+_counter = itertools.count()
 
 
 # ---------------------------------------------------------------------
@@ -122,3 +125,100 @@ class RequestLifecycle:
                 or self.finish_s < 0:
             return -1.0
         return (self.finish_s - self.first_token_s) / (self.n_tokens - 1)
+
+
+@dataclasses.dataclass(order=False)
+class Request:
+    """One inference request (paper §III-A-1 request model)."""
+    model: str            # m_t: DNN model type
+    input_type: str       # d_t: "image" | "text" | "speech"
+    input_shape: tuple    # d_s
+    slo_ms: float         # SLO_i
+    arrival_ms: float
+    seq: int = dataclasses.field(default_factory=lambda: next(_counter))
+    #: decode iterations this request needs (1 = single-shot inference;
+    #: >1 models an autoregressive request under exec_mode="continuous",
+    #: docs/ARCHITECTURE.md §5)
+    decode_steps: int = 1
+    #: iterations still to run once admitted (continuous-mode bookkeeping)
+    remaining: int = 0
+    #: prompt tokens that must be prefilled before decoding (0 = the
+    #: paper's single-shot regime; >0 models long-prompt arrivals whose
+    #: prefill is chunked under the per-iteration token budget)
+    prefill_tokens: int = 0
+    #: prefill tokens still to process (reset to prompt + emitted context
+    #: on preemption — recompute-on-resume, docs/RUNTIME.md §8)
+    prefill_remaining: int = 0
+    #: templated workload (docs/ARCHITECTURE.md §5): the leading
+    #: ``prefix_tokens`` of the prompt are one of a small population of
+    #: shared prefixes, identified by ``prefix_id`` (-1 = no shared
+    #: prefix); a prefix-cache hit skips their prefill
+    prefix_id: int = -1
+    prefix_tokens: int = 0
+    #: times this request was preempted (hysteresis caps it)
+    n_preempted: int = 0
+    # filled at dispatch/completion:
+    start_ms: Optional[float] = None
+    finish_ms: Optional[float] = None
+
+    @property
+    def deadline_ms(self) -> float:
+        return self.arrival_ms + self.slo_ms
+
+    def queue_wait_ms(self) -> float:
+        assert self.start_ms is not None
+        return self.start_ms - self.arrival_ms
+
+    def latency_ms(self) -> float:
+        assert self.finish_ms is not None
+        return self.finish_ms - self.arrival_ms
+
+    def violated(self) -> bool:
+        return self.latency_ms() > self.slo_ms
+
+
+class RequestQueue:
+    """SLO-priority queue (paper §IV-C: "the shorter the SLO, the higher
+    the priority"): pops shortest-SLO first, FIFO among equals."""
+
+    def __init__(self, model: str, max_len: int = 4096):
+        self.model = model
+        self._heap: List[tuple] = []
+        self.max_len = max_len
+        self.dropped = 0
+
+    def __len__(self) -> int:
+        return len(self._heap)
+
+    def push(self, r: Request) -> bool:
+        if len(self._heap) >= self.max_len:
+            self.dropped += 1
+            return False
+        heapq.heappush(self._heap, (r.slo_ms, r.seq, r))
+        return True
+
+    def pop_batch(self, b: int) -> List[Request]:
+        out = []
+        while self._heap and len(out) < b:
+            out.append(heapq.heappop(self._heap)[2])
+        return out
+
+    def peek_oldest_age(self, now_ms: float) -> float:
+        if not self._heap:
+            return 0.0
+        return max(now_ms - r.arrival_ms for _, _, r in self._heap)
+
+    def peek_most_urgent(self, now_ms: float):
+        """(slack_ms, request) of the queued request closest to its
+        deadline — the preemption trigger reads this
+        (docs/RUNTIME.md §8). (inf, None) when empty."""
+        best, slack = None, float("inf")
+        for _, _, r in self._heap:
+            s = r.deadline_ms - now_ms
+            if s < slack:
+                best, slack = r, s
+        return slack, best
+
+    def slo_sum_ms(self, b: int) -> float:
+        slos = sorted(r.slo_ms for _, _, r in self._heap)[:b]
+        return float(sum(slos))
