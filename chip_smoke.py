@@ -16,7 +16,15 @@ through the dense continuous engine and round mode, and arctic-480b at
 full width cut to one layer through the paged continuous engine and round
 mode, with exact kernel launch counts, and checks the card's greedy tokens
 against the CPU's on every path at reduced width (the pool's too; the MoE
-family also with capacity drops). Before the models it drives the
+family also with capacity drops). The online path runs at full-width
+qwen3-0.6b too: recompute preemption in the paged engine (two evictions
+in the drains' requests; every stream against the uninterrupted run, and
+the device cost of one resume's re-prefill) and in the pool
+(``preemption=True``, two SLO tiers 4x apart), push-mode HTTP serving
+(``ServingDriver`` and ``ServingFrontend`` on port 0 in this process:
+streams against the offline pool, a disconnect cancelled and its KV
+freed, 429 with Retry-After, TTFT and TPOT on the host clock), and seeded
+sampling in round mode. Before the models it drives the
 simulator path behind the paper's utility figures at the CLI's defaults
 (``phase_sim``: the edge-serving simulator with SAC and the interference
 predictor guard on the card, each baseline scheduler, the CLI, and a
@@ -1391,12 +1399,14 @@ def phase_serve_round(torch, device, cfg, smi):
 
 # ---------------------------------------------------------------- phase 9
 def _margin(torch, cfg, params, seq, a, b):
-    """|logit[a] - logit[b]| of the CPU model after the token sequence
-    ``seq`` (padded prompt and emitted tokens), in one prefill."""
+    """|logit[a] - logit[b]| of the model on ``params``' device after the
+    token sequence ``seq`` (padded prompt and emitted tokens), in one
+    prefill."""
     from repro_torch.models import build_model
 
-    logits, _ = build_model(cfg).prefill(
-        params, {"tokens": torch.from_numpy(np.asarray(seq, np.int32)[None])})
+    dev = next(_leaves(params)).device
+    logits, _ = build_model(cfg).prefill(params, {"tokens": torch.from_numpy(
+        np.asarray(seq, np.int32)[None]).to(dev)})
     return float((logits[0, -1, a] - logits[0, -1, b]).abs())
 
 
@@ -1770,6 +1780,540 @@ def phase_pool_parity(torch, device, cfg, n_req=8, max_new=16, seed=0):
             f"{n_dec})")
 
 
+# ---------------------------------------------------------------- online
+#: relative tolerance a resumed (re-prefilled) stream may differ from its
+#: uninterrupted run at: only a first divergence at a logit margin below
+#: this, on the card's own model, counts as a tie (phase_parity's rule)
+TIE_MARGIN = 1e-5
+
+
+def _hold_tie(torch, cfg, params, label, prompt, want, got):
+    """``got`` equals ``want``, or first differs at a near-tie: the logit
+    margin of the two tokens after the padded prompt and the common
+    prefix, on the card's model (one prefill), below ``TIE_MARGIN``.
+    Returns the margin (None when equal)."""
+    from repro_torch.serving.engine import SEQ_BUCKETS, _bucket
+
+    want, got = np.asarray(want), np.asarray(got)
+    if len(want) != len(got):
+        fail(f"{label}: {len(got)} tokens where the uninterrupted run "
+             f"has {len(want)}")
+    if np.array_equal(want, got):
+        return None
+    k = int(np.argmax(want != got))
+    S = _bucket(len(prompt), buckets=SEQ_BUCKETS)
+    m = _margin(torch, cfg, params,
+                np.concatenate([_padded(prompt, S), want[:k]]),
+                int(want[k]), int(got[k]))
+    log(f"{label}: diverges at token {k} (uninterrupted {want[k]}, got "
+        f"{got[k]}), logit margin {m:.3e}")
+    if not m < TIE_MARGIN:
+        fail(f"{label}: tokens differ beyond a tie (margin {m:.3e})")
+    return m
+
+
+def _drain_prompts(cfg, n_req=16, seed=0):
+    """phase_e2e's requests: the same draws from the same seed (after its
+    9-token warm-up prompt)."""
+    rng = np.random.default_rng(seed)
+    rng.integers(1, cfg.vocab_size, 9)
+    lens = rng.permutation(np.linspace(4, 500, n_req).round().astype(int))
+    return [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+            for n in lens]
+
+
+def _preempt_engine(torch, device, cfg, params, smi, max_new=32):
+    """The paged engine of the drains (8 slots, 640-token cache, 512-token
+    budget) over the drains' 16 requests, run uninterrupted, then again
+    with two preemptions: a decoding slot right after its first token and,
+    after 60 iterations, of the slots 8 or fewer tokens from their end the
+    one with the longest context. Each resumes by recomputing its
+    context (the padded prompt plus its tokens) through paged prefill.
+    Checks that each eviction returns the slot's blocks, that every stream
+    equals the uninterrupted run (the resumed ones up to a near-tie), and
+    the launches; then times one resume's re-prefill alone. Returns the
+    launches."""
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+
+    def engine():
+        return ContinuousBatchingEngine(cfg, max_slots=8, max_seq=640,
+                                        kv_layout="paged", token_budget=512,
+                                        device=device, params=params)
+
+    prompts = _drain_prompts(cfg)
+    eng = engine()
+    eng.run(prompts[:1], max_new_tokens=2)  # warm-up
+    ref = [r.tokens for r in eng.run(prompts, max_new_tokens=max_new)]
+    del eng
+    eng = engine()
+    eng.run(prompts[:1], max_new_tokens=2)
+    it0, ch0 = eng.n_iters, eng.n_prefill_chunks
+    reset_launches()
+    rids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    done, snaps, t0 = {}, [], time.perf_counter()
+    while eng.waiting or eng.active_slots:
+        for r in eng.step():
+            done[r.request_id] = r
+        dec = [i for i in eng.decoding_slots
+               if eng.slots[i].n_preempted == 0]
+        if len(snaps) == 0:
+            pick = [i for i in dec if len(eng.slots[i].tokens) == 1]
+        elif len(snaps) == 1 and eng.n_iters - it0 >= 60:
+            # late: of the slots 8 or fewer tokens from their end, the
+            # one with the longest context (the dearest to recompute)
+            late = [i for i in dec if eng.slots[i].remaining <= 8]
+            pick = sorted(late, key=lambda i: -len(
+                eng.slots[i].seq_tokens))[:1]
+        else:
+            pick = []
+        if pick:
+            s = eng.slots[pick[0]]
+            held = len(s.blocks) + s.n_outstanding
+            avail = eng.allocator.n_available
+            snaps.append(eng.preempt(pick[0]))
+            if eng.allocator.n_available != avail + held:
+                fail(f"preempt engine: blocks not returned "
+                     f"({eng.allocator.n_available} != {avail} + {held})")
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_iters, n_chunks = eng.n_iters - it0, eng.n_prefill_chunks - ch0
+    want = _want(cfg, "paged", n_iters=n_iters, n_chunks=n_chunks)
+    if launches != want:
+        fail(f"preempt engine: launches {launches} != {want}")
+    if len(snaps) != 2 or eng.n_preempted != 2:
+        fail(f"preempt engine: {len(snaps)} preemptions, expected 2")
+    al = eng.allocator
+    if al.n_free != al.n_blocks or al.n_reserved:
+        fail(f"preempt engine: {al.n_blocks - al.n_free} blocks live, "
+             f"{al.n_reserved} reserved after the drain")
+    if sorted(done) != rids:
+        fail(f"preempt engine: finished {sorted(done)}, submitted {rids}")
+    victims = {s.request_id for s in snaps}
+    for rid, p, want_tokens in zip(rids, prompts, ref):
+        r = done[rid]
+        if (r.n_preempted == 1) != (rid in victims):
+            fail(f"preempt engine: request {rid} n_preempted "
+                 f"{r.n_preempted}")
+        if rid in victims:
+            _hold_tie(torch, cfg, params, f"preempt engine request {rid}",
+                      p, want_tokens, r.tokens)
+        elif not np.array_equal(r.tokens, want_tokens):
+            fail(f"preempt engine: request {rid}, never preempted, differs "
+                 "from the uninterrupted run")
+    log(f"preempt engine {cfg.name}: 16 requests on 8 slots, preempted "
+        f"{[(s.request_id, s.base_len, len(s.seq_tokens)) for s in snaps]} "
+        f"((request, padded prompt, resumed context)) after 1 and "
+        f"{len(snaps[1].seq_tokens) - snaps[1].base_len} tokens; every "
+        f"block returned at each eviction; {n_iters} decode iterations, "
+        f"{n_chunks} prefill chunks, drain wall {wall:.3f} s; every stream "
+        f"equals the uninterrupted run [{smi}]")
+    log(f"preempt engine: launches {launches} == {want}")
+    # one recompute resume alone: the late victim's context re-prefilled
+    # on the idle engine under the 512-token budget
+    snap = snaps[1]
+    eng.submit_resume(snap)
+    tok0, ch0 = eng.n_prefill_chunk_tokens, eng.n_prefill_chunks
+    steps = [0]
+
+    def reprefill():
+        while eng.prefilling_slots or eng.waiting:
+            eng.step()
+            steps[0] += 1
+    wall, busy, nk, names = _profiled(torch, reprefill)
+    pre = _kernel_ms(names, PREFILL_KERNELS)
+    log(f"preempt resume cost: a {len(snap.seq_tokens)}-token context "
+        f"({snap.base_len} padded prompt + "
+        f"{len(snap.seq_tokens) - snap.base_len} emitted) re-prefilled in "
+        f"{eng.n_prefill_chunks - ch0} chunks "
+        f"({eng.n_prefill_chunk_tokens - tok0} tokens) over {steps[0]} "
+        f"steps: paged prefill kernel {pre:.3f} ms device, device busy "
+        f"{busy:.3f} ms, profiled wall {wall * 1e3:.3f} ms [{smi}]")
+    if not pre > 0:
+        fail("preempt resume cost: no paged prefill kernel in the profile")
+    while eng.active_slots:
+        eng.step()
+    return launches
+
+
+def _pool_tokens(pool, rids):
+    by_id = {r.request_id: r for m in pool.configs for r in pool.results(m)}
+    return [by_id[i] for i in rids]
+
+
+def _preempt_pool(torch, device, cfg, params, smi, seed=11):
+    """The instance pool with ``preemption=True``: one paged instance of 4
+    slots, its contention fit calibrated by a drain, then four lax-tier
+    hogs fill the slots and two tight-tier requests arrive, the tight
+    SLO 1.5 times the fit's predicted service time and the lax 4 times
+    the tight. Checks at least one preemption, every request finished in
+    full (none rejected or cancelled), the resumed tokens against one
+    uninterrupted engine run of the same prompts, and the launches.
+    Returns the launches."""
+    from repro_torch.serving import latency_model as lm
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+    from repro_torch.serving.runtime import ModelInstancePool
+
+    pool = ModelInstancePool({cfg.name: cfg}, max_instances=1, max_slots=4,
+                             max_seq=640, kv_layout="paged", preemption=True,
+                             device=device)
+    pool.load_params(cfg.name, params)
+    pool.scale_to(cfg.name, 1)
+    pool.warmup(seed=seed)
+    rng = np.random.default_rng(seed)
+    for n in (12, 40, 90):
+        pool.submit(cfg.name, rng.integers(1, cfg.vocab_size, n).astype(
+            np.int32), slo_ms=600_000.0, max_new_tokens=16)
+    pool.run_until_drained()
+    t1, c = pool.contention()
+    if not t1 > 0:
+        fail(f"preempt pool: contention uncalibrated after the drain "
+             f"({len(pool.contention_samples)} samples)")
+    it_ms = lm.predicted_iter_ms(t1, c, 1)
+    tight_new, hog_new = 16, 64
+    tight = 1.5 * tight_new * it_ms
+    lax = 4.0 * tight
+    eng = pool.running(cfg.name)[0].engine
+    it0, ch0 = eng.n_iters, eng.n_prefill_chunks
+    reset_launches()
+    n0 = pool.n_preempted
+    hogs = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+            for n in (30, 120, 250, 400)]
+    urgent = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+              for n in (20, 60)]
+    rids = [pool.submit(cfg.name, p, slo_ms=lax, max_new_tokens=hog_new)
+            for p in hogs]
+    t0 = time.perf_counter()
+    while len(eng.decoding_slots) < 4:
+        pool.step()
+    rids += [pool.submit(cfg.name, p, slo_ms=tight,
+                         max_new_tokens=tight_new) for p in urgent]
+    pool.run_until_drained()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_iters, n_chunks = eng.n_iters - it0, eng.n_prefill_chunks - ch0
+    want = _want(cfg, "paged", n_iters=n_iters, n_chunks=n_chunks, n_slots=4,
+                 nb=40)
+    if launches != want:
+        fail(f"preempt pool: launches {launches} != {want}")
+    n_pre = pool.n_preempted - n0
+    if n_pre < 1:
+        fail(f"preempt pool: no preemption (fit {t1:.3f} ms + {c:.3f}, "
+             f"SLOs {tight:.1f} / {lax:.1f} ms)")
+    res = _pool_tokens(pool, rids)
+    if any(r.rejected or r.cancelled for r in res) or [
+            len(r.tokens) for r in res] != [hog_new] * 4 + [tight_new] * 2:
+        fail("preempt pool: requests not conserved: " + str(
+            [(r.request_id, len(r.tokens), r.rejected, r.cancelled)
+             for r in res]))
+    solo = ContinuousBatchingEngine(cfg, max_slots=4, max_seq=640,
+                                    kv_layout="paged", device=device,
+                                    share_from=eng)
+    alone = [r.tokens for r in solo.run(hogs, max_new_tokens=hog_new)] + \
+        [r.tokens for r in solo.run(urgent, max_new_tokens=tight_new)]
+    resumed = [rid for rid in rids if pool.admission_log.count(
+        (rid, pool.running(cfg.name)[0].instance_id)) > 1]
+    for rid, p, r, a in zip(rids, hogs + urgent, res, alone):
+        _hold_tie(torch, cfg, params, f"preempt pool request {rid}", p, a,
+                  r.tokens)
+    tiers = {"tight": [r.latency_ms for r in res[4:]],
+             "lax": [r.latency_ms for r in res[:4]]}
+    log(f"preempt pool {cfg.name}: fit t1 {t1:.3f} ms c {c:.3f} (predicted "
+        f"iteration {it_ms:.3f} ms), SLOs tight {tight:.1f} ms, lax "
+        f"{lax:.1f} ms; {n_pre} preemption(s), resumed {resumed}; latency "
+        f"ms tight {[round(x, 1) for x in tiers['tight']]}, lax "
+        f"{[round(x, 1) for x in tiers['lax']]}; all 6 requests finished "
+        f"in full, tokens equal the uninterrupted run; {n_iters} decode "
+        f"iterations, {n_chunks} prefill chunks in {wall:.3f} s [{smi}]")
+    log(f"preempt pool: report {pool.report()[cfg.name]}")
+    log(f"preempt pool: launches {launches} == {want}")
+    return launches
+
+
+def phase_preempt(torch, device, cfg, params, smi):
+    """Recompute preemption at full width: the engine and the pool.
+    Returns the summed launches."""
+    launches = _preempt_engine(torch, device, cfg, params, smi)
+    for k, n in _preempt_pool(torch, device, cfg, params, smi).items():
+        launches[k] += n
+    torch.cuda.empty_cache()
+    return launches
+
+
+class _Hold:
+    """Holds a pool's progress from the next token it emits on: while set,
+    ``_can_progress`` reads false, so the serving driver idles (outside
+    its lock) until ``release``. The engines call
+    ``pool._on_engine_token`` through the instance, so wrapping it there
+    sees every token."""
+
+    def __init__(self, pool):
+        import threading
+
+        self.held = threading.Event()
+        self.armed = False
+        on_token, can_progress = pool._on_engine_token, pool._can_progress
+
+        def _on_token(*a):
+            on_token(*a)
+            if self.armed:
+                self.held.set()
+
+        pool._on_engine_token = _on_token
+        pool._can_progress = lambda: can_progress() and \
+            not self.held.is_set()
+
+    def arm(self):
+        self.held.clear()
+        self.armed = True
+
+    def release(self):
+        self.armed = False
+        self.held.clear()
+
+
+async def _raw_post(port, obj):
+    import asyncio
+
+    body = json.dumps(obj).encode()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write((f"POST /v1/generate HTTP/1.1\r\nContent-Length: "
+                  f"{len(body)}\r\n\r\n").encode() + body)
+    await writer.drain()
+    status = await reader.readline()
+    while await reader.readline() not in (b"\r\n", b"\n", b""):
+        pass
+    return reader, writer, status.decode()
+
+
+async def _get_stats(port):
+    import asyncio
+
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(b"GET /v1/stats HTTP/1.1\r\n\r\n")
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    return json.loads(raw.split(b"\r\n\r\n", 1)[1])
+
+
+HTTP_WAIT_S = 60.0
+
+
+def phase_http(torch, device, cfg, params, smi, n_req=8, max_new=24,
+               seed=12):
+    """Push-mode serving at full width in this process: a ServingDriver
+    thread steps a pool of one paged instance of 4 slots (640-token cache)
+    and a ServingFrontend on port 0 streams over HTTP. Eight concurrent
+    ``http_generate`` clients must each stream the tokens the same
+    requests get through the offline pool; a client that hangs up after
+    its first token is cancelled and its KV freed; with a queue depth of
+    1 and the slots pinned a burst gets 429 with Retry-After; TTFT and
+    TPOT are read from /v1/stats (host clock). Checks that the loop
+    thread launches on the stream the pool's tensors were made on, and
+    the launches. Returns the launches."""
+    import asyncio
+    import threading
+
+    from repro_torch.launch.server import ServingFrontend
+    from repro_torch.serving.driver import ServingDriver
+    from repro_torch.serving.runtime import ModelInstancePool
+    from repro_torch.serving.workload import (_read_chunked_events,
+                                              http_generate,
+                                              summarize_outcomes)
+
+    def make_pool():
+        pool = ModelInstancePool({cfg.name: cfg}, max_instances=1,
+                                 max_slots=4, max_seq=640, kv_layout="paged",
+                                 device=device)
+        pool.load_params(cfg.name, params)
+        pool.scale_to(cfg.name, 1)
+        pool.warmup(seed=seed)
+        return pool
+
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in np.linspace(8, 300, n_req).round().astype(int)]
+    offline = make_pool()
+    ids = [offline.submit(cfg.name, p, slo_ms=600_000.0,
+                          max_new_tokens=max_new) for p in prompts]
+    offline.run_until_drained()
+    want = [r.tokens for r in _pool_tokens(offline, ids)]
+    del offline
+
+    pool = make_pool()
+    eng = pool.running(cfg.name)[0].engine
+    it0, ch0 = eng.n_iters, eng.n_prefill_chunks
+    hold = _Hold(pool)
+    submitted = {}
+    submit = pool.submit
+
+    def recording_submit(model, prompt, **kw):
+        rid = submit(model, prompt, **kw)
+        submitted[rid] = np.asarray(prompt)
+        return rid
+    pool.submit = recording_submit
+    # the (thread, CUDA stream) every pool step ran on
+    seen = set()
+    step = pool.step
+
+    def recording_step():
+        seen.add((threading.get_ident(),
+                  torch.cuda.current_stream(device).cuda_stream))
+        return step()
+    pool.step = recording_step
+    main = (threading.get_ident(), torch.cuda.current_stream(
+        device).cuda_stream)
+    reset_launches()
+
+    async def serve():
+        with ServingDriver(pool) as driver:
+            fe = ServingFrontend(driver, port=0, max_queue_depth=8)
+            await fe.start()
+            try:
+                t0 = time.perf_counter()
+                outs = await asyncio.wait_for(asyncio.gather(*(
+                    http_generate("127.0.0.1", fe.port, cfg.name, p, max_new,
+                                  600_000.0) for p in prompts)), HTTP_WAIT_S)
+                wall = time.perf_counter() - t0
+                stats = await _get_stats(fe.port)
+                # a client hangs up after its first token; the pool is
+                # held from that token on, so the request cannot finish
+                # before the cancel lands
+                hold.arm()
+                reader, writer, status = await _raw_post(fe.port, {
+                    "model": cfg.name, "max_new_tokens": 64,
+                    "prompt": prompts[3].tolist(), "slo_ms": 600_000.0})
+                if "200" not in status:
+                    fail(f"http disconnect: status {status!r}")
+                async for ev in _read_chunked_events(reader):
+                    if ev.get("event") == "token":
+                        break
+                writer.close()
+                t1 = time.perf_counter()
+                while pool.n_cancelled < 1 \
+                        and time.perf_counter() - t1 < HTTP_WAIT_S:
+                    await asyncio.sleep(0.005)
+                cancel_ms = (time.perf_counter() - t1) * 1e3
+                with driver.lock:
+                    kv_after = pool.kv_used_tokens(cfg.name)
+                    live_after = eng.allocator.n_live
+                hold.release()
+                # 429: queue depth 1, the four slots pinned and held
+                fe.max_queue_depth = 1
+                hold.arm()
+                for p in prompts[:4]:
+                    driver.submit(cfg.name, p, slo_ms=600_000.0,
+                                  max_new_tokens=64)
+                await asyncio.get_running_loop().run_in_executor(
+                    None, hold.held.wait, HTTP_WAIT_S)
+
+                async def release_when_throttled():
+                    t2 = time.perf_counter()
+                    while fe.n_throttled < 1 \
+                            and time.perf_counter() - t2 < HTTP_WAIT_S:
+                        await asyncio.sleep(0.005)
+                    hold.release()
+                burst = await asyncio.wait_for(asyncio.gather(
+                    release_when_throttled(), *(
+                        http_generate("127.0.0.1", fe.port, cfg.name, p, 8,
+                                      600_000.0) for p in prompts[4:])),
+                    HTTP_WAIT_S)
+                await asyncio.get_running_loop().run_in_executor(
+                    None, driver.drain, HTTP_WAIT_S)
+                return (outs, wall, stats, cancel_ms, kv_after, live_after,
+                        burst[1:], fe)
+            finally:
+                await fe.stop()
+
+    (outs, wall, stats, cancel_ms, kv_after, live_after, burst,
+     fe) = asyncio.run(serve())
+    pool.submit = submit
+    del pool.step
+    launches = read_launches()
+    n_iters, n_chunks = eng.n_iters - it0, eng.n_prefill_chunks - ch0
+    want_l = _want(cfg, "paged", n_iters=n_iters, n_chunks=n_chunks,
+                   n_slots=4, nb=40)
+    if launches != want_l:
+        fail(f"http: launches {launches} != {want_l}")
+    if len(seen) != 1 or next(iter(seen))[0] == main[0] \
+            or next(iter(seen))[1] != main[1]:
+        fail(f"http: pool steps ran on (thread, stream) {seen}, the pool's "
+             f"tensors were made on {main}")
+    if [o.outcome for o in outs] != ["finished"] * n_req or any(
+            o.n_tokens != max_new for o in outs):
+        fail(f"http: outcomes {[(o.outcome, o.n_tokens) for o in outs]}")
+    got = {r.request_id: r for r in pool.results(cfg.name)}
+    streamed = sorted(rid for rid in submitted if rid in got
+                      and not got[rid].cancelled)[:n_req]
+    for rid in streamed:
+        k = next(i for i, p in enumerate(prompts)
+                 if np.array_equal(p, submitted[rid]))
+        _hold_tie(torch, cfg, params, f"http request {rid}", prompts[k],
+                  want[k], got[rid].tokens)
+    if pool.stats()["n_cancelled"] != 1 or kv_after != 0 or live_after:
+        fail(f"http disconnect: n_cancelled {pool.stats()['n_cancelled']}, "
+             f"KV tokens after {kv_after}, live blocks {live_after}")
+    throttled = [o for o in burst if o.outcome == "throttled"]
+    if not throttled or not all(o.retry_after_s > 0 for o in throttled):
+        fail("http backpressure: " + str(
+            [(o.outcome, o.retry_after_s) for o in burst]))
+    st = stats["stats"]
+    summ = summarize_outcomes(outs)
+    log(f"http {cfg.name}: {n_req} concurrent streams of {max_new} tokens "
+        f"over one paged instance of 4 slots in {wall:.3f} s, every stream "
+        f"equals the offline pool's; pool clock (host): TTFT ms p50 "
+        f"{st['ttft_ms_p50']:.3f} p99 {st['ttft_ms_p99']:.3f}, TPOT ms p50 "
+        f"{st['tpot_ms_p50']:.3f} p99 {st['tpot_ms_p99']:.3f}; client "
+        f"(host): TTFT ms p50 {summ['ttft_ms_p50']:.3f} p99 "
+        f"{summ['ttft_ms_p99']:.3f}, TPOT ms p50 {summ['tpot_ms_p50']:.3f} "
+        f"[{smi}]")
+    log(f"http disconnect: cancelled {cancel_ms:.1f} ms after the hang-up "
+        f"(host clock), KV tokens and live blocks back to 0; burst of "
+        f"{len(burst)} at queue depth 1: {len(throttled)} got 429, "
+        f"Retry-After {[round(o.retry_after_s, 3) for o in throttled]} s, "
+        f"{sum(o.outcome == 'finished' for o in burst)} finished; "
+        f"frontend {fe.n_streamed} streamed, {fe.n_throttled} throttled, "
+        f"{fe.n_disconnects} disconnects; the loop launched on the pool's "
+        f"stream")
+    log(f"http: launches {launches} == {want_l}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_sampling(torch, device, cfg, params, smi, max_new=16, seed=13):
+    """Seeded sampling on the card: ``InferenceEngine.generate(greedy=
+    False)`` repeats itself for one seed, differs across seeds, and its
+    first token is greedy's. Returns the launches."""
+    from repro_torch.serving.engine import InferenceEngine
+
+    eng = InferenceEngine(cfg, device=device, params=params)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (20, 90, 200, 350)]
+    reset_launches()
+    greedy = eng.generate(prompts, max_new_tokens=max_new).tokens
+    runs = [eng.generate(prompts, max_new_tokens=max_new, greedy=False,
+                         seed=s).tokens for s in (0, 0, 1)]
+    launches = read_launches()
+    want = _want(cfg, "round", n_rounds=4, n_tokens=4 * max_new)
+    if launches != want:
+        fail(f"sampling: launches {launches} != {want}")
+    if not np.array_equal(runs[0], runs[1]):
+        fail("sampling: seed 0 drew different tokens twice")
+    if np.array_equal(runs[0], runs[2]):
+        fail("sampling: seeds 0 and 1 drew the same tokens")
+    if not np.array_equal(runs[0][:, 0], greedy[:, 0]):
+        fail("sampling: the first token is not greedy's")
+    log(f"sampling {cfg.name}: b=4 rounds of {max_new} tokens: seed 0 "
+        f"twice identical, seed 1 differs in "
+        f"{int((runs[0] != runs[2]).sum())} of {runs[0].size} tokens, the "
+        f"first tokens equal greedy's, {int((runs[0] != greedy).sum())} "
+        f"sampled tokens differ from greedy [{smi}]")
+    log(f"sampling: launches {launches} == {want}")
+    del eng
+    return launches
+
+
 # ---------------------------------------------------------------- main
 def phase_moe(torch, device, smi):
     """arctic-480b at its published widths cut to ``MOE_LAYERS`` layer,
@@ -2133,7 +2677,8 @@ def phase_sim(torch, device, smi):
 
 def run(torch, device, smi):
     """Every phase after the build: kernels vs plain, timing, the three
-    serving paths of full-width qwen3-0.6b, then the dense continuous
+    serving paths of full-width qwen3-0.6b and its online path
+    (preemption, HTTP, seeded sampling), then the dense continuous
     engine and round mode of each full-width recurrent family and the
     paged engine and round mode of arctic-480b cut to one layer (one
     model on the card at a time), and card-vs-CPU parity at reduced
@@ -2176,6 +2721,9 @@ def run(torch, device, smi):
     # kernel, the only engine here that does
     add(phase_serve(torch, device, full, "paged", max_slots=32))
     add(phase_round(torch, device, full, params, smi)[0])
+    add(phase_preempt(torch, device, full, params, smi))
+    add(phase_http(torch, device, full, params, smi))
+    add(phase_sampling(torch, device, full, params, smi))
     del params
     torch.cuda.empty_cache()
     phase_serve_round(torch, device, full, smi)

@@ -1,6 +1,6 @@
 """Real-engine serving driver (importable entry point for
 ``python -m repro_torch.launch.serve --engine``): the port of
-``repro.launch.engine_serve``'s ``serve_round`` and ``serve_continuous``.
+``repro.launch.engine_serve``.
 
 Requests with random token prompts arrive Poisson; latencies are
 wall-clock and utilities are computed from them (Eq. 3).
@@ -13,20 +13,25 @@ wall-clock and utilities are computed from them (Eq. 3).
 * ``serve_pool`` (``--models a,b``) — N concurrent engine instances
   across heterogeneous models behind the ``ModelInstancePool``, with the
   ``PoolScheduler`` driving the real (b, m_c) action per model
-  (continuous only).
-
-HTTP serving is still to port (ROADMAP.md).
+  (continuous only), optionally with SLO-aware preemption;
+* ``serve_http`` (``--serve-http``) — push-mode serving: the pool steps
+  on a background ``ServingDriver`` thread with the scheduler re-deciding
+  on a wall-clock tick, and an asyncio ``ServingFrontend`` streams
+  per-token ndjson events over HTTP until interrupted.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve --engine
       PYTHONPATH=src python -m repro_torch.launch.serve --engine \
           --exec-mode continuous --kv-layout dense
       PYTHONPATH=src python -m repro_torch.launch.serve --engine \
           --models qwen3-0.6b,recurrentgemma-2b --exec-mode continuous
+      PYTHONPATH=src python -m repro_torch.launch.serve --engine \
+          --serve-http --port 8907 --models qwen3-0.6b --max-instances 1 \
+          --kv-layout paged
 """
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 
@@ -221,6 +226,9 @@ def serve_pool(models: Sequence[str] = ("qwen3-0.6b", "recurrentgemma-2b"),
                kv_layout: str = "dense",
                kv_block_budget: Optional[int] = None,
                token_budget: Optional[int] = None,
+               preemption: bool = False,
+               kv_host_blocks: int = 0,
+               preempt_mode: str = "auto",
                shared_prefix_tokens: int = 0,
                cfgs: Optional[Dict[str, ModelConfig]] = None,
                device="cuda",
@@ -232,14 +240,17 @@ def serve_pool(models: Sequence[str] = ("qwen3-0.6b", "recurrentgemma-2b"),
     slot (clamped to [control_ms, 2000] ms). ``kv_layout="paged"`` serves
     every instance from the block-pool KV layout under a shared
     ``kv_block_budget``; ``token_budget`` adds the per-iteration token cap
-    as a third scheduler axis. ``shared_prefix_tokens`` templates the
-    prompts (a shared prefix plus an 8-token tail) and sizes the cache to
-    them. ``cfgs`` (model -> config) overrides the reduced registry
-    configs (for example with the full-width ones). The reference's
-    preemption, host KV tier, prefix cache and speculation arguments are
-    not ported (ROADMAP.md). Runs on ``device`` (default ``"cuda"``, which
-    raises without a GPU). ``pool_out``, a list, receives the pool, for
-    callers that read its per-request results. Returns the pool's
+    as a third scheduler axis and ``preemption`` enables SLO-aware
+    eviction (recompute on resume; ``kv_host_blocks`` > 0 and
+    ``preempt_mode="swap"`` need the host tier, which raises as not
+    ported). ``shared_prefix_tokens`` templates the prompts (a shared
+    prefix plus an 8-token tail) and sizes the cache to them. ``cfgs``
+    (model -> config) overrides the reduced registry configs (for example
+    with the full-width ones). The reference's prefix cache and
+    speculation arguments are not ported (ROADMAP.md). Runs on
+    ``device`` (default ``"cuda"``, which raises without a GPU).
+    ``pool_out``, a list, receives the pool, for callers that read its
+    per-request results. Returns the pool's
     per-model report."""
     cfgs = dict(cfgs) if cfgs is not None else {
         m: get_reduced_config(m) for m in models}
@@ -254,6 +265,9 @@ def serve_pool(models: Sequence[str] = ("qwen3-0.6b", "recurrentgemma-2b"),
                                  seed=seed, device=device),
                              kv_layout=kv_layout,
                              kv_block_budget=kv_block_budget,
+                             preemption=preemption,
+                             kv_host_blocks=max(0, kv_host_blocks),
+                             preempt_mode=preempt_mode,
                              device=device)
     if pool_out is not None:
         pool_out.append(pool)
@@ -313,10 +327,97 @@ def serve_pool(models: Sequence[str] = ("qwen3-0.6b", "recurrentgemma-2b"),
               f"({row['served']/max(dur,1e-6):.1f} rps), "
               f"SLO attainment {row['slo_attainment']:.1%}, "
               f"mean latency {row['mean_latency_ms']:.0f}ms, "
-              f"utility {row['mean_utility']:.2f}, m_c={row['m_c']:.0f}")
+              f"utility {row['mean_utility']:.2f}, m_c={row['m_c']:.0f}, "
+              f"preempted {row['preempted']:.0f}")
     print(f"[pool] stats: {pool.stats()}")
     print(f"[pool] guard interventions: {sched.guard_interventions}")
     return report
+
+
+def serve_http(models: Sequence[str] = ("qwen3-0.6b",),
+               host: str = "127.0.0.1", port: int = 8808,
+               slo_ms: float = 2000.0, max_instances: int = 4,
+               max_slots: int = 4, seed: int = 0,
+               kv_layout: str = "paged",
+               kv_block_budget: Optional[int] = None,
+               backpressure: bool = True, max_queue_depth: int = 8,
+               control_ms: float = 500.0,
+               ready: Optional[Callable[[int], None]] = None,
+               configs: Optional[Dict[str, ModelConfig]] = None,
+               device="cuda") -> None:
+    """Push-mode HTTP serving: the pool runs on a background
+    :class:`~repro_torch.serving.driver.ServingDriver` thread with the
+    ``PoolScheduler`` re-deciding (b, m_c) on a wall-clock tick, and an
+    asyncio :class:`~repro_torch.launch.server.ServingFrontend` streams
+    per-token events over HTTP until interrupted (or until the task that
+    runs it is cancelled). ``ready(port)`` fires on the event loop once
+    the socket is bound (``port=0`` picks an ephemeral port).
+    ``configs`` overrides the registry lookup with explicit
+    ``ModelConfig`` objects (a tiny model, or a full-width one). Runs on
+    ``device`` (default ``"cuda"``, which raises without a GPU)."""
+    import asyncio
+
+    from repro_torch.launch.server import ServingFrontend
+    from repro_torch.serving.driver import ServingDriver
+
+    cfgs = configs or {m: get_reduced_config(m) for m in models}
+    for m, cfg in cfgs.items():
+        print(f"loading {cfg.name} (d={cfg.d_model}, L={cfg.n_layers}) "
+              f"on {device}...")
+    pool = ModelInstancePool(cfgs, max_instances=max_instances,
+                             max_slots=max_slots, max_seq=128, seed=seed,
+                             kv_layout=kv_layout,
+                             kv_block_budget=kv_block_budget, device=device)
+    per_model_mc = max(1, max_instances // max(1, len(cfgs)))
+    scfg = ServingConfig(
+        batch_sizes=tuple(b for b in (1, 2, 4, 8) if b <= max_slots),
+        concurrency_levels=tuple(range(1, per_model_mc + 1)))
+    sched = PoolScheduler(pool, scfg, slo_ms={m: slo_ms for m in cfgs},
+                          seed=seed)
+    sched.control()
+    for m in cfgs:
+        if pool.m_c(m) == 0:
+            pool.scale_to(m, 1)
+    pool.warmup(seed=seed)
+
+    async def _run() -> None:
+        with ServingDriver(pool, on_tick=sched.tick,
+                           tick_interval_s=control_ms / 1000.0) as driver:
+            fe = ServingFrontend(driver, host=host, port=port,
+                                 backpressure=backpressure,
+                                 max_queue_depth=max_queue_depth,
+                                 default_slo_ms=slo_ms)
+            await fe.start()
+            print(f"[http] serving {sorted(cfgs)} on "
+                  f"http://{host}:{fe.port} "
+                  f"(backpressure {'on' if backpressure else 'off'})")
+            if ready is not None:
+                ready(fe.port)
+            try:
+                await fe.serve_forever()
+            except asyncio.CancelledError:
+                pass
+            finally:
+                await fe.stop()
+                print(f"[http] stopped; stats: {driver.stats()}")
+
+    try:
+        asyncio.run(_run())
+    except KeyboardInterrupt:
+        print("[http] interrupted")
+
+
+def _refuse_unported(**flags) -> None:
+    """Raise for an engine feature the port does not serve yet, where the
+    reference would use it (continuous mode and the pool)."""
+    items = {"prefix_cache": "item 3, the prefix cache",
+             "shared_prefix_tokens": "item 3, the prefix cache",
+             "spec_k": "item 6, speculation and the host swap tier"}
+    for name, value in flags.items():
+        if value:
+            raise NotImplementedError(
+                f"{name} on the engine is not ported yet (ROADMAP.md, "
+                f"Queue A {items[name]})")
 
 
 def main(exec_mode: str = "round", arch: str = "qwen3-0.6b",
@@ -324,31 +425,49 @@ def main(exec_mode: str = "round", arch: str = "qwen3-0.6b",
          slo_ms: float = 1500.0, models: Optional[Sequence[str]] = None,
          max_instances: int = 4, kv_layout: str = "dense",
          kv_block_budget: Optional[int] = None,
-         token_budget: Optional[int] = None, shared_prefix_tokens: int = 0,
+         token_budget: Optional[int] = None,
+         preemption: bool = False, kv_host_blocks: int = 0,
+         preempt_mode: str = "auto", prefix_cache: bool = False,
+         shared_prefix_tokens: int = 0, spec_k: int = 0,
+         serve_http_port: Optional[int] = None,
+         backpressure: bool = True, max_queue_depth: int = 8,
          device="cuda") -> None:
-    if models:
+    """Dispatch as the reference's ``main`` does: HTTP serving, the pool,
+    continuous mode or round mode. A flag is refused only where the
+    reference would use it; round mode prints that the
+    continuous-engine features are ignored and serves."""
+    if serve_http_port is not None:
+        serve_http(models or [arch], port=serve_http_port, slo_ms=slo_ms,
+                   max_instances=max_instances,
+                   kv_layout=kv_layout if kv_layout else "paged",
+                   kv_block_budget=kv_block_budget,
+                   backpressure=backpressure,
+                   max_queue_depth=max_queue_depth, device=device)
+    elif models:
         if exec_mode != "continuous":
             print("multi-model pool serving is continuous-only; "
                   "running with --exec-mode continuous")
+        _refuse_unported(prefix_cache=prefix_cache, spec_k=spec_k)
         serve_pool(models, duration_s, rps, slo_ms,
                    max_instances=max_instances, kv_layout=kv_layout,
                    kv_block_budget=kv_block_budget,
-                   token_budget=token_budget,
+                   token_budget=token_budget, preemption=preemption,
+                   kv_host_blocks=kv_host_blocks, preempt_mode=preempt_mode,
                    shared_prefix_tokens=shared_prefix_tokens, device=device)
-        return
-    if shared_prefix_tokens:
-        raise NotImplementedError(
-            "a templated workload outside the pool is not ported yet "
-            "(ROADMAP.md, Queue A items 5 and 7: the prefix cache)")
-    if exec_mode == "continuous":
+    elif exec_mode == "continuous":
+        _refuse_unported(prefix_cache=prefix_cache,
+                         shared_prefix_tokens=shared_prefix_tokens,
+                         spec_k=spec_k)
         serve_continuous(arch, duration_s, rps, slo_ms, kv_layout=kv_layout,
                          kv_block_budget=kv_block_budget,
                          token_budget=token_budget, device=device)
-        return
-    if kv_layout != "dense":
-        print("round mode always uses the dense per-round cache; "
-              "--kv-layout applies to continuous serving")
-    if token_budget or kv_block_budget:
-        print("--token-budget / --kv-block-budget are continuous-engine "
-              "features; ignored in round mode")
-    serve_round(arch, duration_s, rps, slo_ms, device=device)
+    else:
+        if kv_layout != "dense":
+            print("round mode always uses the dense per-round cache; "
+                  "--kv-layout applies to continuous/pool serving")
+        if token_budget or preemption or prefix_cache or spec_k \
+                or kv_host_blocks:
+            print("chunked prefill / preemption / prefix caching / "
+                  "speculation / KV offload are continuous-engine "
+                  "features; ignored in round mode")
+        serve_round(arch, duration_s, rps, slo_ms, device=device)

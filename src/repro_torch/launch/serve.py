@@ -1,8 +1,12 @@
 """Serving launcher of the port: the BCEdge scheduler over the edge-serving
 simulator (the default, as in ``repro.launch.serve``), or the real engine
 (``--engine``) in round or continuous mode, or the multi-model instance
-pool (``--models``). The agents and the interference predictor run on the
-GPU unless ``--device cpu``; the simulator itself is numpy on the host.
+pool (``--models``), or push-mode HTTP serving (``--serve-http``). The
+agents, the interference predictor and the engines run on the GPU unless
+``--device cpu``; the simulator itself is numpy on the host. A flag of an
+engine feature the port does not serve yet raises only where the
+reference would use it (continuous mode or the pool); round mode ignores
+them, as the reference's does.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --episodes 1 \
         --episode-ms 3000
@@ -14,23 +18,16 @@ GPU unless ``--device cpu``; the simulator itself is numpy on the host.
         --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --engine \
         --models qwen3-0.6b --exec-mode continuous --kv-layout paged \
-        --kv-block-budget 256
+        --kv-block-budget 256 --preemption
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine \
+        --serve-http --port 8907 --models qwen3-0.6b --max-instances 1 \
+        --kv-layout paged
 """
 from __future__ import annotations
 
 import argparse
 
 from repro_torch.serving.platforms import PLATFORMS
-
-#: engine features the port does not serve yet, by flag, with the
-#: ROADMAP.md Queue A item that brings each
-_ENGINE_UNPORTED = (
-    ("preemption", "--preemption",
-     "items 5 and 7: cancel, recompute preemption and seeded sampling"),
-    ("prefix_cache", "--prefix-cache", "items 5 and 7: the prefix cache"),
-    ("spec_k", "--spec-k",
-     "items 5 and 7: speculation and the host swap tier"),
-)
 
 
 def simulate(cfg, episodes: int, episode_ms: float, guard: bool = True,
@@ -123,12 +120,24 @@ def main(argv=None) -> None:
                          "scheduler axis too); simulator: adds an action "
                          "level. Default: uncapped")
     ap.add_argument("--preemption", action="store_true",
-                    help="simulator: SLO-aware preemption in continuous "
-                         "sessions (not ported to the engine yet)")
+                    help="SLO-aware preemption: the pool evicts the "
+                         "largest-slack resident when an urgent request "
+                         "cannot be admitted (recompute on resume); "
+                         "simulator: in continuous sessions")
+    ap.add_argument("--kv-host-blocks", type=int, default=0,
+                    help="host-memory KV block tier per paged pool "
+                         "instance (the reference's swap tier; not ported "
+                         "to the engine yet). Default: 0")
+    ap.add_argument("--preempt-mode", default="auto",
+                    choices=["auto", "recompute", "swap"],
+                    help="the pool's eviction mode: recompute re-prefills "
+                         "on resume; swap needs --kv-host-blocks; auto "
+                         "prices both (recompute while no host tier)")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="simulator: sessions skip shared prefixes an "
-                         "earlier request already prefilled (not ported "
-                         "to the engine yet)")
+                         "earlier request already prefilled; engine: "
+                         "needs --kv-layout paged (not ported to the "
+                         "engine yet)")
     ap.add_argument("--shared-prefix-tokens", type=float, default=0.0,
                     help="templated workload: every prompt starts with one "
                          "of a small population of shared prefixes of this "
@@ -137,7 +146,22 @@ def main(argv=None) -> None:
     ap.add_argument("--spec-k", type=int, default=0,
                     help="simulator: speculative decoding depth, an added "
                          "action level (continuous only; not ported to the "
-                         "engine yet). Default: 0 (off)")
+                         "engine yet, whose round mode ignores it). "
+                         "Default: 0 (off)")
+    ap.add_argument("--serve-http", action="store_true",
+                    help="push-mode HTTP serving: a background driver "
+                         "steps the pool, an asyncio front-end streams "
+                         "per-token ndjson events; requires --engine. "
+                         "Runs until interrupted")
+    ap.add_argument("--port", type=int, default=8808,
+                    help="--serve-http listen port (0 = ephemeral)")
+    ap.add_argument("--no-backpressure", action="store_true",
+                    help="--serve-http: disable 429 admission "
+                         "backpressure (accept everything)")
+    ap.add_argument("--max-queue-depth", type=int, default=8,
+                    help="--serve-http: queued requests tolerated per "
+                         "model before arrivals that cannot start get "
+                         "429 + Retry-After")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the agents, the predictor and "
                          "the engine; the default cuda fails without a "
@@ -146,6 +170,18 @@ def main(argv=None) -> None:
     if args.models and not args.engine:
         ap.error("--models requires --engine (the simulator is already "
                  "multi-tenant over the paper's Table-IV models)")
+    if args.prefix_cache and args.engine and args.kv_layout != "paged":
+        ap.error("--prefix-cache on the engine needs --kv-layout paged "
+                 "(sharing is block-granular)")
+    if args.serve_http and not args.engine:
+        ap.error("--serve-http requires --engine (the HTTP front-end "
+                 "streams real engine tokens)")
+    if args.kv_host_blocks and args.kv_layout != "paged":
+        ap.error("--kv-host-blocks needs --kv-layout paged (the host "
+                 "tier holds KV blocks)")
+    if args.preempt_mode == "swap" and args.kv_host_blocks <= 0:
+        ap.error("--preempt-mode swap needs --kv-host-blocks > 0 "
+                 "(there is nowhere to swap to)")
     if args.platform not in PLATFORMS:
         ap.error(f"--platform {args.platform!r}: the port simulates the "
                  f"paper's edge platforms {sorted(PLATFORMS)} only; the "
@@ -153,11 +189,6 @@ def main(argv=None) -> None:
                  "TPU, which the port does not carry over")
 
     if args.engine:
-        for attr, flag, item in _ENGINE_UNPORTED:
-            if getattr(args, attr):
-                raise NotImplementedError(
-                    f"{flag} on the engine is not ported yet (ROADMAP.md, "
-                    f"Queue A {item})")
         from repro_torch.launch import engine_serve
 
         models = [m for m in (args.models or "").split(",") if m] or None
@@ -167,8 +198,17 @@ def main(argv=None) -> None:
                           kv_layout=args.kv_layout,
                           kv_block_budget=args.kv_block_budget,
                           token_budget=args.token_budget,
+                          preemption=args.preemption,
+                          kv_host_blocks=max(0, args.kv_host_blocks),
+                          preempt_mode=args.preempt_mode,
+                          prefix_cache=args.prefix_cache,
                           shared_prefix_tokens=int(
                               args.shared_prefix_tokens),
+                          spec_k=max(0, args.spec_k),
+                          serve_http_port=args.port if args.serve_http
+                          else None,
+                          backpressure=not args.no_backpressure,
+                          max_queue_depth=args.max_queue_depth,
                           device=args.device)
         return
 

@@ -201,10 +201,10 @@ def run_episode(env: EdgeServingEnv, agent,
 #:  KV budget headroom frac (1.0 for dense/unlimited pools),
 #:  log1p(prefill backlog tokens), log1p(preemptions since last decision),
 #:  prefix-cache hit rate, speculative acceptance rate, shared-device-set
-#:  utilization, host-tier occupancy frac]. The last five are features of
-#: parts the port does not have yet (preemption, the prefix cache,
-#: speculation, a device budget, the host tier) and read 0, as the
-#: reference's do for a pool without them.
+#:  utilization, host-tier occupancy frac]. The last four are features of
+#: parts the port does not have yet (the prefix cache, speculation, a
+#: device budget, the host tier) and read 0, as the reference's do for a
+#: pool without them.
 POOL_STATE_DIM = 13
 
 
@@ -241,6 +241,9 @@ class PoolScheduler:
         self.agents = agents
         self._last: Dict[str, tuple] = {}      # model -> (state, action)
         self._since: Dict[str, list] = {m: [] for m in pool.configs}
+        #: per-model preemption counter at the last decision (the state
+        #: vector feeds the delta)
+        self._preempt_seen: Dict[str, int] = {m: 0 for m in pool.configs}
         #: results already harvested from pool history by ``tick()``
         self._tick_seen: Dict[str, int] = {m: 0 for m in pool.configs}
 
@@ -275,6 +278,9 @@ class PoolScheduler:
             committed = occ["committed_blocks"] * p.block_size
             headroom = max(0.0, 1.0 - max(occ["used_tokens"], committed)
                            / occ["budget_tokens"])
+        preempts = p.preempts_by_model.get(model, 0)
+        new_preempts = preempts - self._preempt_seen.get(model, 0)
+        self._preempt_seen[model] = preempts
         return np.array([
             np.log1p(p.queue_len(model)),
             slack / 1000.0,
@@ -284,7 +290,7 @@ class PoolScheduler:
             np.log1p(max(p.slot_ms(model), 0.0)),
             headroom,
             np.log1p(max(0, p.prefill_backlog_tokens(model))),
-            0.0,  # preemptions since the last decision
+            np.log1p(max(0, new_preempts)),
             0.0,  # prefix-cache hit rate
             0.0,  # speculative acceptance rate
             0.0,  # shared-device-set utilization

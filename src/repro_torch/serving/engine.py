@@ -33,11 +33,14 @@ each step's tokens and whether it loaded a kernel library
 (``last_step_tokens``, ``last_step_compiled``), and prices admission
 (``request_blocks``, ``admissible``, ``kv_block_mapping``).
 
-What is still to port raises (see ROADMAP.md): seeded sampling, the
-prefix cache, speculative decoding, the host KV tier, tensor
-parallelism, windowed and recurrent layers under the paged layout, and
-encoder-decoder and frontend models. Preemption and cancellation come
-later too.
+Preemption (recompute: the snapshot re-prefills the padded prompt plus
+every emitted token on resume) and cancellation at any phase are ported,
+and so is seeded sampling, which draws from its own ``torch.Generator``
+and so matches the reference in distribution, not token for token.
+What is still to port raises (see ROADMAP.md): the prefix cache,
+speculative decoding, the host KV tier (and with it preemption by
+swap), tensor parallelism, windowed and recurrent layers under the paged
+layout, and encoder-decoder and frontend models.
 """
 from __future__ import annotations
 
@@ -74,13 +77,38 @@ SEQ_BUCKETS = (16, 32, 64, 128, 256, 512, 640)
 _MAX_CHUNK = 512
 
 
-def sample_tokens(logits: torch.Tensor) -> np.ndarray:
-    """Greedy next tokens from ``logits`` (..., V): the argmax over the
-    trailing vocabulary axis (the first index on ties, as ``jnp.argmax``),
-    the deterministic path every engine's token identity rests on.
-    Returns an int32 ndarray shaped ``logits.shape[:-1]``. Seeded
-    sampling is not ported yet (ROADMAP.md)."""
-    return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+def _categorical(logits: torch.Tensor,
+                 gen: torch.Generator) -> torch.Tensor:
+    """One categorical draw per row of ``logits`` (..., V) by the
+    Gumbel-max trick, as ``jax.random.categorical`` draws, with uniforms
+    from ``gen`` (which lives on the logits' device)."""
+    u = torch.rand(logits.shape, generator=gen, device=logits.device,
+                   dtype=torch.float32)
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits.float() - torch.log(-torch.log(u)),
+                        dim=-1).to(torch.int32)
+
+
+def _generator(device: torch.device, seed: int) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen
+
+
+def sample_tokens(logits: torch.Tensor, greedy: bool = True,
+                  seed: int = 0) -> np.ndarray:
+    """Next tokens from ``logits`` (..., V) over the trailing vocabulary
+    axis: the argmax when ``greedy`` (the first index on ties, as
+    ``jnp.argmax``; the deterministic path every engine's token identity
+    rests on), else a categorical draw seeded by ``seed``, the same draws
+    for the same seed. torch's generator cannot reproduce
+    ``jax.random``'s bits, so a sampled token equals the reference's in
+    distribution only. Returns an int32 ndarray shaped
+    ``logits.shape[:-1]``."""
+    if greedy:
+        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+    return _categorical(logits, _generator(logits.device, seed)
+                        ).cpu().numpy()
 
 
 def make_prefill_batch(cfg: ModelConfig, prompts: List[np.ndarray]
@@ -142,12 +170,13 @@ class InferenceEngine:
     def generate(self, prompts: List[np.ndarray], max_new_tokens: int = 8,
                  greedy: bool = True, seed: int = 0) -> GenerationResult:
         """Prefill ``prompts`` as one left-padded batch, then decode
-        ``max_new_tokens`` greedy tokens for each. Times are host-clock
-        milliseconds up to the device finishing the work."""
-        if not greedy:
-            raise NotImplementedError(
-                "seeded sampling (greedy=False) is not ported yet "
-                "(ROADMAP.md, Queue A item 3)")
+        ``max_new_tokens`` tokens for each: greedy, or with ``greedy=False``
+        drawn from one generator on the engine's device seeded by
+        ``seed``, one draw per decode step (the reference splits its key
+        once per step). The first token is the prefill's argmax either
+        way, as in the reference. Sampled tokens match the reference's in
+        distribution, not token for token (``sample_tokens``). Times are
+        host-clock milliseconds up to the device finishing the work."""
         t0 = time.perf_counter()
         batch, S, _ = make_prefill_batch(self.cfg, prompts)
         tokens = torch.from_numpy(batch["tokens"]).to(self.device)
@@ -162,12 +191,16 @@ class InferenceEngine:
                           device=self.device)
         # tokens stay on the device until the round ends: no host sync
         # per decoded token
+        gen = None if greedy else _generator(self.device, seed)
         tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
         for t in range(max_new_tokens):
             out[:, t] = tok
             logits, cache = self.model.decode_step(
                 self.params, cache, {"tokens": tok[:, None], "pos": pos})
-            tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+            if greedy:
+                tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+            else:
+                tok = _categorical(logits[:, -1, :], gen)
             pos = pos + 1
         out = out.cpu().numpy()
         t2 = time.perf_counter()
@@ -275,12 +308,17 @@ class _Slot:
     blocks: List[int] = dataclasses.field(default_factory=list)
     n_outstanding: int = 0
     # chunked prefill state machine
-    seq_tokens: Optional[np.ndarray] = None  # left-padded prompt
+    seq_tokens: Optional[np.ndarray] = None  # padded prompt (+ resume ctx)
+    base_len: int = 0           # padded-prompt length at first admission
     prefill_pos: int = 0        # tokens of seq_tokens processed so far
     #: dense layout: the one-slot cache the chunks prefill into
     staging: Optional[List[Dict]] = None
+    requested_new: int = 0      # caller-requested max_new (pre-clamp)
     truncated: bool = False
-    #: engine-clock time the first token landed (-1 before any token)
+    n_preempted: int = 0
+    #: engine-clock time the first token landed, carried across
+    #: preemption so TTFT reflects the original first token (-1 before
+    #: any token)
     first_token_s: float = -1.0
 
     @property
@@ -294,13 +332,67 @@ class _Slot:
 
 
 @dataclasses.dataclass
+class PreemptedRequest:
+    """Resumable snapshot of a preempted sequence.
+
+    Recompute snapshots (``host_blocks is None``, the only kind this
+    port's engine makes): ``seq_tokens`` holds the padded prompt plus
+    every token emitted so far, re-prefilled in chunks on resume, so
+    greedy output is token-identical to an uninterrupted run. The swap
+    fields mirror the reference's snapshot of a sequence whose KV blocks
+    went to a host tier; the port has no host tier yet (ROADMAP.md), and
+    its engines refuse a swapped snapshot."""
+    request_id: int
+    seq_tokens: np.ndarray      # padded prompt (+ emitted, recompute only)
+    base_len: int               # emitted tokens = seq_tokens[base_len:]
+    max_new: int                # tokens still to emit
+    submit_s: float
+    requested_new: int
+    truncated: bool
+    n_preempted: int
+    first_token_s: float = -1.0
+    # ---- swap-mode state (None/unused for recompute snapshots) ----
+    tokens: Optional[List[int]] = None   # emitted tokens (swap only)
+    pos: int = -1                        # decode frontier at preemption
+    pending_tok: int = 0                 # sampled-but-unwritten token
+    host_blocks: Optional[List[int]] = None
+    host_engine_id: int = 0              # id() of the owning engine
+
+    @property
+    def swapped(self) -> bool:
+        return self.host_blocks is not None
+
+
+def to_recompute(req: PreemptedRequest) -> PreemptedRequest:
+    """Rebuild a swap snapshot as a recompute snapshot without touching
+    any allocator: the context becomes the padded prompt plus the emitted
+    tokens, and greedy re-prefill regenerates the dropped pending token.
+    A recompute snapshot is returned as it is."""
+    if not req.swapped:
+        return req
+    seq = np.concatenate([req.seq_tokens,
+                          np.asarray(req.tokens, np.int32)])
+    return PreemptedRequest(
+        req.request_id, seq, base_len=req.base_len, max_new=req.max_new,
+        submit_s=req.submit_s, requested_new=req.requested_new,
+        truncated=req.truncated, n_preempted=req.n_preempted,
+        first_token_s=req.first_token_s)
+
+
+@dataclasses.dataclass
 class _WaitingReq:
-    """One queued admission: a fresh prompt."""
+    """One queued admission: a fresh prompt, or (``prepadded``) a
+    preempted sequence whose bucket padding is already baked in."""
     request_id: int
     prompt: np.ndarray
     max_new: int
     submit_s: float
+    prepadded: bool = False
+    base_len: int = -1          # resumes only
+    requested_new: int = 0
     truncated: bool = False
+    n_preempted: int = 0
+    first_token_s: float = -1.0
 
 
 @dataclasses.dataclass
@@ -315,8 +407,14 @@ class ContinuousResult:
     #: fewer tokens than requested were emitted (submit-time cache-room
     #: clamp, or the capacity clip at cache_len)
     truncated: bool = False
-    #: engine-clock time the first token landed (-1 if none landed)
+    #: times this sequence was preempted and recomputed
+    n_preempted: int = 0
+    #: engine-clock time the first token landed (the original first
+    #: token across preemption; -1 if none landed)
     first_token_s: float = -1.0
+    #: cancelled (client disconnect or explicit cancel): ``tokens`` holds
+    #: the partial completion emitted before the cancel
+    cancelled: bool = False
 
     @property
     def queue_wait_s(self) -> float:
@@ -443,12 +541,16 @@ class ContinuousBatchingEngine:
         self.n_prefill_chunks = 0
         self.n_admitted = 0
         self.n_evicted = 0
+        self.n_preempted = 0
+        self.n_cancelled = 0
         self.n_prefill_chunk_tokens = 0
         self.prefill_shapes: Set[Tuple[int, int]] = set()
         #: lifecycle hooks, fired synchronously inside engine calls (keep
         #: them cheap; they must not reenter the engine):
         #: ``on_token(request_id, token, index)`` per emitted token, index
-        #: its position in the completion; ``on_state(request_id, state)``
+        #: its position in the completion, stable across preemption
+        #: (re-prefilled context tokens never refire);
+        #: ``on_state(request_id, state)``
         #: with "prefill" at slot assignment and "decode" when the prompt
         #: is done
         self.on_token: Optional[Callable] = None
@@ -473,6 +575,20 @@ class ContinuousBatchingEngine:
     def _now(self) -> float:
         return time.perf_counter() - self._t0
 
+    def _note_token(self, s: _Slot) -> None:
+        """Stamp ``first_token_s`` and fire ``on_token`` for the token just
+        appended to ``s.tokens``. The index is the global completion
+        position: tokens emitted before a preemption live in the
+        re-prefilled context (``seq_tokens[base_len:]``) and offset the
+        resumed ones, so a streaming consumer sees every position once."""
+        if s.first_token_s < 0:
+            s.first_token_s = self._now()
+        if self.on_token is not None:
+            prior = len(s.seq_tokens) - s.base_len \
+                if s.seq_tokens is not None else 0
+            self.on_token(s.request_id, int(s.tokens[-1]),
+                          prior + len(s.tokens) - 1)
+
     def request_blocks(self, prompt_len: int, max_new: int) -> int:
         """Worst-case blocks a request of this shape reserves at admission
         (paged layout): its prompt bucket plus the decode tokens that fit
@@ -481,18 +597,30 @@ class ContinuousBatchingEngine:
         return self.allocator.blocks_for(
             S + min(max_new, self.cache_len - S))
 
+    def resume_blocks(self, req: PreemptedRequest) -> int:
+        """Worst-case blocks a preempted sequence reserves on resume: its
+        already-padded context plus the tokens still to emit (a swap
+        snapshot's: its frontier plus the tokens still to emit)."""
+        if req.swapped:
+            return self.allocator.blocks_for(req.pos + req.max_new)
+        return self.allocator.blocks_for(len(req.seq_tokens) + req.max_new)
+
     def admissible(self, prompt_len: int, max_new: int,
-                   pending_blocks: int = 0) -> bool:
+                   pending_blocks: int = 0,
+                   resume: Optional[PreemptedRequest] = None) -> bool:
         """Could a request of this shape be admitted right now? Dense: a
         free slot. Paged: a free slot and enough unreserved blocks, less
         ``pending_blocks`` a caller has promised to requests it routed
-        here but the engine has not reserved yet."""
+        here but the engine has not reserved yet. With ``resume`` the
+        need is the preempted sequence's padded context instead of the
+        fresh prompt's shape."""
         if not self.free_slots:
             return False
         if self.kv_layout != "paged":
             return True
-        return self.allocator.n_available - pending_blocks \
-            >= self.request_blocks(prompt_len, max_new)
+        need = self.resume_blocks(resume) if resume is not None \
+            else self.request_blocks(prompt_len, max_new)
+        return self.allocator.n_available - pending_blocks >= need
 
     def kv_block_mapping(self) -> Tuple[int, int]:
         """(logical block mappings, distinct physical blocks) over the
@@ -528,7 +656,8 @@ class ContinuousBatchingEngine:
         backlog = sum(len(s.seq_tokens) - s.prefill_pos
                       for s in self.slots if s.prefilling)
         for w in self.waiting:
-            backlog += _bucket(len(w.prompt), buckets=SEQ_BUCKETS)
+            backlog += len(w.prompt) if w.prepadded else \
+                _bucket(len(w.prompt), buckets=SEQ_BUCKETS)
         return backlog
 
     # ---- admission -------------------------------------------------------
@@ -562,7 +691,31 @@ class ContinuousBatchingEngine:
         granted = min(max_new_tokens, room)
         self.waiting.append(_WaitingReq(
             rid, prompt, granted, self._now(),
+            requested_new=max_new_tokens,
             truncated=granted < max_new_tokens))
+        return rid
+
+    def submit_resume(self, req: PreemptedRequest) -> int:
+        """Re-queue a preempted sequence (possibly from another engine of
+        the same model) under a fresh engine request id; the caller
+        correlates through its own bookkeeping. The padded context always
+        fits ``cache_len``: ``len(seq_tokens) + max_new`` is the footprint
+        the sequence was first admitted with. A swapped snapshot is
+        refused: its blocks would sit in a host tier, which this port's
+        engine does not have."""
+        if req.swapped:
+            raise ValueError(
+                "swap snapshot is pinned to the engine holding its host "
+                "blocks; this engine has no host tier (ROADMAP.md, Queue A "
+                "item 6)")
+        rid = self._next_id
+        self._next_id += 1
+        self.waiting.append(_WaitingReq(
+            rid, np.asarray(req.seq_tokens, np.int32), req.max_new,
+            req.submit_s, prepadded=True, base_len=req.base_len,
+            requested_new=req.requested_new, truncated=req.truncated,
+            n_preempted=req.n_preempted,
+            first_token_s=req.first_token_s))
         return rid
 
     def admit(self) -> int:
@@ -577,14 +730,19 @@ class ContinuousBatchingEngine:
         free = self.free_slots
         while self.waiting and free:
             w = self.waiting[0]
-            S = _bucket(len(w.prompt), buckets=SEQ_BUCKETS)
-            seq = np.zeros((S,), np.int32)
-            seq[S - len(w.prompt):] = w.prompt
+            if w.prepadded:  # a preempted sequence: prompt + emitted
+                seq = w.prompt
+                base_len = w.base_len
+            else:
+                S = _bucket(len(w.prompt), buckets=SEQ_BUCKETS)
+                seq = np.zeros((S,), np.int32)
+                seq[S - len(w.prompt):] = w.prompt
+                base_len = S
             reserved = n0 = 0
             ids: List[int] = []
             staging = None
             if self.kv_layout == "paged":
-                reserved = self.allocator.blocks_for(S + w.max_new)
+                reserved = self.allocator.blocks_for(len(seq) + w.max_new)
                 if not self.allocator.reserve(reserved):
                     break  # FIFO: head of queue blocks on memory
                 # allocate the prompt's blocks now; the decode tail of the
@@ -593,7 +751,7 @@ class ContinuousBatchingEngine:
                 # prefill lands (the decode batch's dummy writes for this
                 # row keep sinking into the null block); chunks carry
                 # their own table row.
-                n0 = self.allocator.blocks_for(S)
+                n0 = self.allocator.blocks_for(len(seq))
                 ids = [self.allocator.alloc_reserved() for _ in range(n0)]
             else:
                 staging = self.model.init_cache(1, self.cache_len,
@@ -604,7 +762,9 @@ class ContinuousBatchingEngine:
                 request_id=w.request_id, remaining=w.max_new,
                 submit_s=w.submit_s, admit_s=self._now(), blocks=ids,
                 n_outstanding=reserved - n0, seq_tokens=seq,
-                staging=staging, truncated=w.truncated)
+                base_len=base_len, staging=staging,
+                requested_new=w.requested_new, truncated=w.truncated,
+                n_preempted=w.n_preempted, first_token_s=w.first_token_s)
             self.pos[slot] = 0
             self.n_admitted += 1
             n += 1
@@ -682,10 +842,32 @@ class ContinuousBatchingEngine:
             for key, t in full.items():
                 t[slot].copy_(one[key][0])
 
-    # ---- iteration -------------------------------------------------------
-    def _release(self, i: int) -> None:
-        """Evict slot ``i``. Paged: free-on-evict, blocks return to the
-        pool and the unconsumed tail of the reservation is cancelled."""
+    # ---- preemption ------------------------------------------------------
+    def preemption_candidates(self) -> List[Tuple[int, int, int]]:
+        """(slot, request_id, freeable blocks) for every preemptible
+        resident: decoding slots only, never a mid-chunk prefill (its
+        chunks would be thrown away and bought again at once). Every block
+        has one owner here (no prefix cache), so all of a slot's blocks
+        and the unconsumed rest of its reservation free on eviction."""
+        return [(i, s.request_id, s.n_outstanding + len(s.blocks))
+                for i, s in enumerate(self.slots)
+                if s.active and not s.prefilling]
+
+    def can_swap(self, slot: int) -> bool:
+        """Could ``slot`` be preempted with ``mode="swap"``? Never: the
+        host KV tier is not ported (ROADMAP.md, Queue A item 6)."""
+        return False
+
+    def _emitted(self, s: _Slot) -> List[int]:
+        """Every token ``s`` has emitted: those before a preemption live
+        in the re-prefilled context, the rest in ``s.tokens``."""
+        if s.seq_tokens is not None and s.base_len < len(s.seq_tokens):
+            return [int(t) for t in s.seq_tokens[s.base_len:]] + s.tokens
+        return s.tokens
+
+    def _free_slot(self, i: int) -> None:
+        """Return slot ``i``'s blocks and the unconsumed rest of its
+        reservation (paged) and empty the slot."""
         s = self.slots[i]
         if self.kv_layout == "paged":
             self.allocator.free(s.blocks)
@@ -693,6 +875,100 @@ class ContinuousBatchingEngine:
             self.block_tables[i, :] = 0
         self.pos[i] = 0
         self.slots[i] = _Slot()
+
+    def preempt(self, slot: int, requeue: bool = True,
+                mode: str = "recompute") -> PreemptedRequest:
+        """Evict the decoding sequence in ``slot``, returning its blocks
+        and the unconsumed rest of its reservation at once. The snapshot
+        resumes by re-prefilling the padded prompt plus every token
+        emitted so far, so greedy output is token-identical to an
+        uninterrupted run. ``mode="swap"`` raises, as in the reference
+        when ``can_swap`` does not hold: here it never does.
+        ``requeue=True`` puts the snapshot back at the head of this
+        engine's queue; a pool passes ``requeue=False`` and routes it
+        through its own EDF queue (``submit_resume``)."""
+        if mode not in ("recompute", "swap"):
+            raise ValueError(f"unknown preempt mode {mode!r}")
+        s = self.slots[slot]
+        if not s.active:
+            raise ValueError(f"slot {slot} holds no sequence")
+        if s.prefilling:
+            raise ValueError("cannot preempt a mid-chunk prefill")
+        if mode == "swap":
+            raise ValueError(
+                f"slot {slot} is not swappable (host tier off, "
+                "non-pageable stack, or host pool full)")
+        req = PreemptedRequest(
+            s.request_id,
+            np.concatenate([s.seq_tokens, np.asarray(s.tokens, np.int32)]),
+            base_len=s.base_len, max_new=s.remaining, submit_s=s.submit_s,
+            requested_new=s.requested_new, truncated=s.truncated,
+            n_preempted=s.n_preempted + 1, first_token_s=s.first_token_s)
+        self._free_slot(slot)
+        self.n_preempted += 1
+        if requeue:
+            self.waiting.insert(0, _WaitingReq(
+                req.request_id, req.seq_tokens, req.max_new, req.submit_s,
+                prepadded=True, base_len=req.base_len,
+                requested_new=req.requested_new, truncated=req.truncated,
+                n_preempted=req.n_preempted,
+                first_token_s=req.first_token_s))
+        return req
+
+    def release_swap(self, req: PreemptedRequest) -> PreemptedRequest:
+        """Convert a swap snapshot back into a recompute snapshot, freeing
+        its host blocks: a recompute snapshot is returned as it is, and a
+        swapped one is refused, since no engine of the port holds a host
+        pool."""
+        if not req.swapped:
+            return req
+        raise ValueError(
+            "swap snapshot is pinned to a different engine's host pool")
+
+    # ---- cancellation ----------------------------------------------------
+    def cancel(self, request_id: int) -> Optional[ContinuousResult]:
+        """Tear ``request_id`` down at whatever phase it is in (queued,
+        mid-chunk prefill, decoding, or queued again after a preemption)
+        and free its memory before returning: its blocks go back to the
+        allocator and the unconsumed rest of its reservation is
+        cancelled. Returns a ``ContinuousResult`` with ``cancelled=True``
+        carrying the partial completion, or ``None`` when the id is not
+        live here (finished already, or resident elsewhere in a pool)."""
+        for qi, w in enumerate(self.waiting):
+            if w.request_id != request_id:
+                continue
+            self.waiting.pop(qi)
+            # a requeued preemption carries its earlier tokens in the
+            # prepadded context; a fresh prompt has none
+            emitted = w.prompt[w.base_len:] if w.prepadded \
+                else np.zeros((0,), np.int32)
+            self.n_cancelled += 1
+            return ContinuousResult(
+                request_id, np.asarray(emitted, np.int32),
+                submit_s=w.submit_s, admit_s=-1.0, finish_s=self._now(),
+                n_iters=0, truncated=w.truncated, n_preempted=w.n_preempted,
+                first_token_s=w.first_token_s, cancelled=True)
+        for i, s in enumerate(self.slots):
+            if not (s.active and s.request_id == request_id):
+                continue
+            emitted = self._emitted(s)
+            res = ContinuousResult(
+                request_id, np.asarray(emitted, np.int32),
+                submit_s=s.submit_s, admit_s=s.admit_s, finish_s=self._now(),
+                n_iters=len(emitted), truncated=s.truncated,
+                n_preempted=s.n_preempted, first_token_s=s.first_token_s,
+                cancelled=True)
+            self._free_slot(i)
+            self.n_cancelled += 1
+            self.n_evicted += 1
+            return res
+        return None
+
+    # ---- iteration -------------------------------------------------------
+    def _release(self, i: int) -> None:
+        """Evict slot ``i``. Paged: free-on-evict, blocks return to the
+        pool and the unconsumed tail of the reservation is cancelled."""
+        self._free_slot(i)
         self.n_evicted += 1
 
     def step(self) -> List[ContinuousResult]:
@@ -718,15 +994,11 @@ class ContinuousBatchingEngine:
         if not active:
             return []
         self.last_step_tokens += len(active)
-        now = self._now()
         for i in active:
             s = self.slots[i]
             s.tokens.append(int(self.pending_tok[i]))
             s.remaining -= 1
-            if s.first_token_s < 0:
-                s.first_token_s = now
-            if self.on_token is not None:
-                self.on_token(s.request_id, s.tokens[-1], len(s.tokens) - 1)
+            self._note_token(s)
         batch = {"tokens": self._int_tensor(self.pending_tok[:, None]),
                  "pos": self._int_tensor(self.pos)}
         if self.kv_layout == "paged":
@@ -756,10 +1028,12 @@ class ContinuousBatchingEngine:
                 s.truncated = True
                 s.remaining = 0
             if s.remaining <= 0:
+                emitted = self._emitted(s)
                 finished.append(ContinuousResult(
-                    s.request_id, np.asarray(s.tokens, np.int32),
+                    s.request_id, np.asarray(emitted, np.int32),
                     submit_s=s.submit_s, admit_s=s.admit_s, finish_s=now,
-                    n_iters=len(s.tokens), truncated=s.truncated,
+                    n_iters=len(emitted), truncated=s.truncated,
+                    n_preempted=s.n_preempted,
                     first_token_s=s.first_token_s))
                 self._release(i)
             else:
@@ -816,7 +1090,7 @@ class ContinuousBatchingEngine:
 
     def stats(self) -> Dict[str, float]:
         """Counters + KV occupancy metrics (the reference's keys for the
-        features this slice has, plus ``n_prefill_chunks``)."""
+        features the port has, plus ``n_prefill_chunks``)."""
         used = float(self.kv_used_tokens)
         uniq = float(self.kv_unique_used_tokens)
         alloc = float(self.kv_allocated_tokens)
@@ -834,6 +1108,8 @@ class ContinuousBatchingEngine:
                 self.allocator.n_reserved * self.block_size
                 if self.kv_layout == "paged" else 0),
             "queue_depth": float(len(self.waiting)),
+            "n_preempted": float(self.n_preempted),
+            "n_cancelled": float(self.n_cancelled),
             "prefill_backlog_tokens": float(self.prefill_backlog_tokens),
             "token_budget": float(self.token_budget or 0),
         }

@@ -28,11 +28,18 @@ pure-decode iteration records occupancy samples
 (``latency_model.fit_occupancy``) that the ``PoolScheduler``'s memory
 guard prices (b, m_c) against.
 
+With ``preemption=True`` the router evicts the largest-slack resident
+(never a mid-chunk prefill) when the most urgent waiting request cannot be
+admitted and its slack no longer covers its predicted service time; the
+victim resumes through ``submit_resume`` by recomputing its context.
+``cancel`` tears a request down at any phase and frees its blocks at once.
+
 Every instance runs on the pool's ``device`` (default ``"cuda"``, which
 raises without a GPU; ``device="cpu"`` runs the kernels' plain versions).
 What the port's engine cannot serve yet raises ``NotImplementedError``:
-preemption, the host KV tier, the prefix cache, speculative decoding,
-tensor parallelism and a device budget, and ``cancel`` (ROADMAP.md).
+the host KV tier and with it ``preempt_mode="swap"``, the prefix cache,
+speculative decoding, tensor parallelism and a device budget
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -52,7 +59,7 @@ from repro_torch.models.bridge import params_from_jax
 from repro_torch.serving import latency_model as lm
 from repro_torch.serving import request as lifecycle
 from repro_torch.serving.engine import (ContinuousBatchingEngine,
-                                        ContinuousResult)
+                                        ContinuousResult, PreemptedRequest)
 from repro_torch.serving.request import RequestLifecycle
 
 # instance lifecycle states (docs/RUNTIME.md state machine)
@@ -85,7 +92,13 @@ class PoolRequest:
     max_new_tokens: int
     submit_s: float            # pool clock
     admit_s: float = -1.0      # set by the router at admission
-    #: pool-clock time the first token landed (-1 before any token)
+    #: preempted-sequence snapshot awaiting re-admission; the router
+    #: resumes it through ``engine.submit_resume`` instead of a fresh
+    #: submit
+    resume: Optional[PreemptedRequest] = None
+    n_preempted: int = 0
+    #: pool-clock time the first token landed (-1 before any token); kept
+    #: by the pool so it survives a resume on another instance
     first_token_s: float = -1.0
     #: push-mode state machine; always attached by ``submit``
     lifecycle: Optional[RequestLifecycle] = None
@@ -109,6 +122,9 @@ class PoolResult:
     slo_ms: float
     utility: float = 0.0
     rejected: bool = False
+    #: torn down before finishing (client disconnect or explicit cancel);
+    #: ``tokens`` holds the partial completion
+    cancelled: bool = False
     #: pool-clock first-token time (-1 if no token landed)
     first_token_s: float = -1.0
 
@@ -132,6 +148,10 @@ class PoolResult:
 
     @property
     def violated(self) -> bool:
+        # a cancelled request has no completion to be late: the client
+        # walked away; report() counts cancellations separately
+        if self.cancelled:
+            return False
         return self.rejected or self.latency_ms > self.slo_ms
 
 
@@ -184,16 +204,24 @@ class ModelInstancePool:
                  kv_block_budget: Optional[int] = None,
                  blocks_per_instance: Optional[int] = None,
                  preemption: bool = False,
+                 preempt_margin_ms: float = 50.0,
+                 preempt_cooldown_steps: int = 8,
+                 max_preemptions: int = 2,
                  kv_host_blocks: int = 0,
+                 preempt_mode: str = "auto",
                  token_budget: Optional[int] = None,
                  prefix_cache: bool = False,
                  spec_k: int = 0,
                  tp_degree: int = 1,
                  n_devices: Optional[int] = None,
                  device="cuda"):
+        if preempt_mode not in ("recompute", "swap", "auto"):
+            raise ValueError(
+                f"preempt_mode must be 'recompute', 'swap' or 'auto', "
+                f"got {preempt_mode!r}")
         for flag, what, item in (
-                (preemption, "preemption", "item 5"),
                 (kv_host_blocks > 0, "kv_host_blocks > 0", "item 5"),
+                (preempt_mode == "swap", 'preempt_mode="swap"', "item 5"),
                 (prefix_cache, "prefix_cache", "item 5"),
                 (spec_k > 0, "spec_k > 0", "item 5"),
                 (tp_degree > 1, "tp_degree > 1", "item 10"),
@@ -219,6 +247,20 @@ class ModelInstancePool:
         #: target grant for a paged instance; default = dense-equivalent
         #: worst case
         self.blocks_per_instance = blocks_per_instance
+        #: SLO-aware preemption: when the most urgent waiting request
+        #: cannot be admitted anywhere and its slack no longer covers its
+        #: predicted service time, evict the largest-slack resident (never
+        #: a mid-chunk prefill), with margin, cooldown and a per-request
+        #: cap against thrash. Without a host tier every eviction
+        #: recomputes, so "auto" and "recompute" behave the same.
+        self.preemption = preemption
+        self.preempt_margin_ms = preempt_margin_ms
+        self.preempt_cooldown_steps = preempt_cooldown_steps
+        self.max_preemptions = max_preemptions
+        self.preempt_mode = preempt_mode
+        self.n_preempted = 0
+        self.preempts_by_model: Dict[str, int] = {m: 0 for m in configs}
+        self._last_preempt_step: Dict[str, int] = {}
         #: per-model per-iteration token budget applied to every live
         #: engine (None = uncapped); the scheduler's third knob
         self.token_budgets: Dict[str, Optional[int]] = {
@@ -241,11 +283,12 @@ class ModelInstancePool:
         self.admission_log: List[Tuple[int, int]] = []  # (request, instance)
         self.retired: List[ModelInstance] = []
         self.n_rejected = 0
+        self.n_cancelled = 0
         self.n_steps = 0
         #: per-request event listeners: request_id -> callable taking one
-        #: dict per event ("prefill", "decode", "token", "finished",
-        #: "rejected"), fired synchronously inside pool calls; a listener
-        #: that raises is dropped
+        #: dict per event ("prefill", "decode", "token", "preempted",
+        #: "finished", "cancelled", "rejected"), fired synchronously inside
+        #: pool calls; a listener that raises is dropped
         self._listeners: Dict[int, Callable] = {}
         self.n_listener_errors = 0
         #: client-observed serving metrics (pool clock, submit -> first
@@ -288,6 +331,9 @@ class ModelInstancePool:
         raises)."""
         self._listeners[request_id] = fn
 
+    def remove_listener(self, request_id: int) -> None:
+        self._listeners.pop(request_id, None)
+
     def _emit(self, req: PoolRequest, event: str, **payload) -> None:
         fn = self._listeners.get(req.request_id)
         if fn is None:
@@ -304,7 +350,9 @@ class ModelInstancePool:
     def _on_engine_token(self, inst: ModelInstance, erid: int, tok: int,
                          idx: int) -> None:
         """The engine emitted token ``idx`` of the sequence it knows as
-        ``erid``: stamp the pool-clock first-token time, push the event."""
+        ``erid``: stamp the pool-clock first-token time, push the event.
+        ``idx`` is the global completion index, stable across
+        preemption."""
         req = inst.requests.get(erid)
         if req is None:  # an engine-local sequence
             return
@@ -480,9 +528,11 @@ class ModelInstancePool:
         block grant returns to the shared budget."""
         for model, lst in self.instances.items():
             keep = []
+            retired_any = False
             for inst in lst:
                 if inst.state == DRAINING and inst.n_resident == 0:
                     inst.state = RETIRED
+                    retired_any = True
                     inst.engine_stats = inst.engine.stats()
                     inst.engine = None
                     if self.kv_blocks_free is not None:
@@ -496,6 +546,11 @@ class ModelInstancePool:
                 # last instance gone: drop the weight donor (the weights
                 # free unless ``load_jax_params`` holds them)
                 self._templates.pop(model, None)
+                if retired_any:
+                    # preemption bookkeeping dies with the last instance:
+                    # a respawned model starts outside any cooldown
+                    self.preempts_by_model[model] = 0
+                    self._last_preempt_step.pop(model, None)
 
     # ---- router ----------------------------------------------------------
     def submit(self, model: str, prompt: np.ndarray, slo_ms: float = 1000.0,
@@ -514,10 +569,64 @@ class ModelInstancePool:
                        (req.deadline_s, next(_seq), req))
         return rid
 
-    def cancel(self, request_id: int):
-        """Not ported: the port's engine cannot tear a sequence down
-        mid-flight yet."""
-        raise _unported("cancel", "items 5 and 7")
+    # ---- cancellation ----------------------------------------------------
+    def _dequeue(self, model: str, request_id: int
+                 ) -> Optional[PoolRequest]:
+        """Remove ``request_id`` from the model's EDF queue at once
+        (swap-pop and re-heapify), so a cancelled head never blocks the
+        requests behind it."""
+        q = self.queues[model]
+        for qi, (_, _, req) in enumerate(q):
+            if req.request_id == request_id:
+                q[qi] = q[-1]
+                q.pop()
+                heapq.heapify(q)
+                return req
+        return None
+
+    def cancel(self, request_id: int) -> Optional[PoolResult]:
+        """Tear ``request_id`` down wherever it lives (the EDF queue, a
+        preempted snapshot awaiting re-admission included, an engine's
+        waiting list, a mid-prefill or a decoding slot), freeing its
+        blocks before returning. Returns the cancelled ``PoolResult``
+        with its partial tokens, or ``None`` when the id is unknown or
+        already terminal (a cancel after finish is a no-op)."""
+        for model in self.queues:
+            req = self._dequeue(model, request_id)
+            if req is not None:
+                # a preempted snapshot carries its earlier tokens
+                snap = req.resume
+                tokens = np.asarray(snap.seq_tokens[snap.base_len:],
+                                    np.int32) if snap is not None \
+                    else np.zeros((0,), np.int32)
+                return self._finish_cancel(req, None, tokens)
+        for inst in self.live():
+            for erid, req in list(inst.requests.items()):
+                if req.request_id != request_id:
+                    continue
+                r = inst.engine.cancel(erid)
+                if r is None:  # the engine finished it this step
+                    return None
+                inst.requests.pop(erid, None)
+                return self._finish_cancel(req, inst, r.tokens)
+        return None
+
+    def _finish_cancel(self, req: PoolRequest,
+                       inst: Optional[ModelInstance],
+                       tokens: np.ndarray) -> PoolResult:
+        now = self.now()
+        res = PoolResult(req.request_id, req.model,
+                         inst.instance_id if inst is not None else -1,
+                         tokens, req.submit_s, req.admit_s, now,
+                         req.slo_ms, utility=0.0, cancelled=True,
+                         first_token_s=req.first_token_s)
+        self.n_cancelled += 1
+        self._results[req.model].append(res)
+        if req.lifecycle is not None and not req.lifecycle.terminal:
+            req.lifecycle.to(lifecycle.CANCELLED, now)
+        self._emit(req, "cancelled", tokens=[int(t) for t in tokens])
+        self._listeners.pop(req.request_id, None)
+        return res
 
     def queue_len(self, model: str) -> int:
         return len(self.queues[model])
@@ -537,7 +646,15 @@ class ModelInstancePool:
             for i in self.running(model))
         qdepth = len(self.queues[model])
         backlog = self.prefill_backlog_tokens(model)
-        queued_tokens = sum(len(r.prompt) + r.max_new_tokens
+
+        def _queued_work(r: PoolRequest) -> int:
+            if r.resume is None:
+                return len(r.prompt) + r.max_new_tokens
+            # a preempted snapshot owes its remaining decode tokens plus
+            # the re-prefill of its whole context
+            return len(r.resume.seq_tokens) + r.resume.max_new
+
+        queued_tokens = sum(_queued_work(r)
                             for _, _, r in self.queues[model])
         work = backlog + queued_tokens
         if not admissible_now:
@@ -560,6 +677,14 @@ class ModelInstancePool:
             return float("inf")
         return (self.queues[model][0][0] - self.now()) * 1000.0
 
+    def _request_blocks(self, eng: ContinuousBatchingEngine,
+                        req: PoolRequest) -> int:
+        """Worst-case block need of ``req`` on ``eng``: the resumed context
+        for a preempted sequence, the fresh prompt's shape otherwise."""
+        if req.resume is not None:
+            return eng.resume_blocks(req.resume)
+        return eng.request_blocks(len(req.prompt), req.max_new_tokens)
+
     def _never_admissible(self, model: str, req: PoolRequest) -> bool:
         """True when ``req``'s worst-case block reservation exceeds every
         grant this pool could field for ``model`` (the largest live
@@ -570,10 +695,78 @@ class ModelInstancePool:
         insts = self.running(model)
         if not insts:
             return False
-        need = insts[0].engine.request_blocks(len(req.prompt),
-                                              req.max_new_tokens)
+        need = self._request_blocks(insts[0].engine, req)
         cap = max(i.engine.allocator.n_blocks for i in insts)
         return need > max(cap, self._spawn_grant())
+
+    # ---- SLO-aware preemption -------------------------------------------
+    def _try_preempt(self, model: str, req: PoolRequest,
+                     now: float) -> bool:
+        """Preempt one resident of ``model`` to make room for the urgent
+        waiting request ``req``. Fires only when (a) no instance can admit
+        ``req``, (b) its slack no longer covers its predicted service time
+        (the calibrated contention model), and (c) a victim exists whose
+        slack exceeds the urgent slack by the margin, that was not
+        preempted too often already, is not mid-chunk prefill, and whose
+        eviction makes ``req`` admissible. At most one preemption per
+        model per cooldown window."""
+        last = self._last_preempt_step.get(model)
+        if last is not None and \
+                self.n_steps - last < self.preempt_cooldown_steps:
+            return False
+        t1, c = self.contention()
+        if t1 <= 0.0:
+            return False  # uncalibrated: no service-time prediction yet
+        need_ms = req.max_new_tokens * lm.predicted_iter_ms(
+            t1, c, max(1, self.busy_count()))
+        slack_ms = (req.deadline_s - now) * 1000.0
+        if slack_ms >= need_ms:
+            return False  # not urgent: waiting for an eviction is fine
+        best = None
+        for inst in self.running(model):
+            eng = inst.engine
+            for slot, erid, freeable in eng.preemption_candidates():
+                vreq = inst.requests.get(erid)
+                if vreq is None or vreq.n_preempted >= self.max_preemptions:
+                    continue
+                vslack_ms = (vreq.deadline_s - now) * 1000.0
+                if vslack_ms <= slack_ms + self.preempt_margin_ms:
+                    continue  # hysteresis: the victim must be clearly laxer
+                if self.kv_layout == "paged" and \
+                        eng.allocator.n_available + freeable \
+                        < self._request_blocks(eng, req):
+                    continue  # eviction would not make req admissible
+                if best is None or vslack_ms > best[0]:
+                    best = (vslack_ms, inst, slot, erid)
+        if best is None:
+            return False
+        _, inst, slot, erid = best
+        mode = self._pick_preempt_mode(inst.engine, slot)
+        snapshot = inst.engine.preempt(slot, requeue=False, mode=mode)
+        vreq = inst.requests.pop(erid)
+        vreq.resume = snapshot
+        vreq.n_preempted += 1
+        if vreq.lifecycle is not None and not vreq.lifecycle.terminal:
+            # DECODE -> QUEUED: the context is recomputed on resume
+            vreq.lifecycle.to(lifecycle.QUEUED, now, swapped=False)
+        self._emit(vreq, "preempted", instance_id=inst.instance_id,
+                   swapped=False)
+        heapq.heappush(self.queues[model],
+                       (vreq.deadline_s, next(_seq), vreq))
+        self.n_preempted += 1
+        self.preempts_by_model[model] += 1
+        self._last_preempt_step[model] = self.n_steps
+        return True
+
+    def _pick_preempt_mode(self, eng: ContinuousBatchingEngine,
+                           slot: int) -> str:
+        """Recompute or swap: the reference prices both and takes the
+        cheaper where the victim ``can_swap``. No engine of the port can
+        swap (the host tier is not ported), so every mode the pool takes
+        ("auto", "recompute") recomputes."""
+        if self.preempt_mode == "recompute" or not eng.can_swap(slot):
+            return "recompute"
+        raise _unported("preemption by swap", "item 5")
 
     def _reject(self, req: PoolRequest) -> PoolResult:
         now = self.now()
@@ -592,8 +785,10 @@ class ModelInstancePool:
         """Admit waiting requests, earliest absolute deadline first, into
         the least-loaded RUNNING instance of their model; under
         ``strict_admission`` requests that can no longer meet their
-        deadline are rejected instead of taking a slot. Returns the
-        rejections."""
+        deadline are rejected instead of taking a slot, and under
+        ``preemption`` an urgent head no instance can admit may evict a
+        laxer resident (``_try_preempt``). A preempted request resumes
+        through ``submit_resume``. Returns the rejections."""
         rejected: List[PoolResult] = []
         now = self.now()
         t1, c = self.contention()
@@ -617,12 +812,27 @@ class ModelInstancePool:
                         heapq.heappop(q)
                         rejected.append(self._reject(req))
                         continue
-                # paged engines additionally gate on free KV blocks
-                cands = [i for i in open_insts
-                         if i.engine.admissible(
-                             len(req.prompt), req.max_new_tokens,
-                             pending.get(i.instance_id, 0))]
-                if not open_insts:
+
+                def _open():
+                    return [i for i in self.running(model)
+                            if cap - i.n_resident > 0]
+
+                def _cands():
+                    # paged engines additionally gate on free KV blocks
+                    return [i for i in open_insts
+                            if i.engine.admissible(
+                                len(req.prompt), req.max_new_tokens,
+                                pending.get(i.instance_id, 0),
+                                resume=req.resume)]
+
+                cands = _cands() if open_insts else []
+                if not cands and self.preemption and \
+                        self._try_preempt(model, req, now):
+                    # the victim's slot and blocks freed synchronously;
+                    # its instance may admit the urgent request now
+                    open_insts = _open()
+                    cands = _cands()
+                if not open_insts and not cands:
                     break
                 if not cands:
                     if self._never_admissible(model, req):
@@ -635,9 +845,13 @@ class ModelInstancePool:
                 if self.kv_layout == "paged":
                     pending[inst.instance_id] = \
                         pending.get(inst.instance_id, 0) \
-                        + inst.engine.request_blocks(len(req.prompt),
-                                                     req.max_new_tokens)
-                erid = inst.engine.submit(req.prompt, req.max_new_tokens)
+                        + self._request_blocks(inst.engine, req)
+                if req.resume is not None:
+                    erid = inst.engine.submit_resume(req.resume)
+                    req.resume = None
+                else:
+                    erid = inst.engine.submit(req.prompt,
+                                              req.max_new_tokens)
                 req.admit_s = now
                 inst.requests[erid] = req
                 self.admission_log.append((req.request_id,
@@ -662,10 +876,13 @@ class ModelInstancePool:
                     req.slo_ms / 1000.0, max(1, self.m_c(req.model)))
         res = PoolResult(req.request_id, req.model, inst.instance_id,
                          r.tokens, req.submit_s, req.admit_s, now,
-                         req.slo_ms, utility=u,
+                         req.slo_ms, utility=0.0 if r.cancelled else u,
+                         cancelled=bool(r.cancelled),
                          first_token_s=req.first_token_s)
         hist.append(res)
-        if res.first_token_s >= 0:
+        # cancelled results stay out of the client timings: a disconnect
+        # storm's partial timings would drag the percentiles down
+        if res.first_token_s >= 0 and not res.cancelled:
             self.ttft_samples.append(res.ttft_ms)
             if res.tpot_ms >= 0:
                 self.tpot_samples.append(res.tpot_ms)
@@ -673,11 +890,15 @@ class ModelInstancePool:
                 del self.ttft_samples[:-_SAMPLE_WINDOW]
             if len(self.tpot_samples) > 2 * _SAMPLE_WINDOW:
                 del self.tpot_samples[:-_SAMPLE_WINDOW]
+        if res.cancelled:
+            self.n_cancelled += 1
         if req.lifecycle is not None and not req.lifecycle.terminal:
-            req.lifecycle.to(lifecycle.FINISHED, now)
+            req.lifecycle.to(lifecycle.CANCELLED if res.cancelled
+                             else lifecycle.FINISHED, now)
         self._emit(req, "finished", tokens=[int(t) for t in r.tokens],
                    latency_ms=res.latency_ms, utility=u,
-                   truncated=bool(r.truncated))
+                   truncated=bool(r.truncated),
+                   n_preempted=int(r.n_preempted))
         self._listeners.pop(req.request_id, None)
         return res
 
@@ -795,6 +1016,10 @@ class ModelInstancePool:
         self.ttft_samples = []
         self.tpot_samples = []
         self.n_rejected = 0
+        self.n_cancelled = 0
+        self.n_preempted = 0
+        self.preempts_by_model = {m: 0 for m in self.configs}
+        self._last_preempt_step = {}
         self.n_steps = 0
         self._t0 = time.perf_counter()
 
@@ -873,14 +1098,18 @@ class ModelInstancePool:
         """Per-model serving metrics over the pool's lifetime."""
         out: Dict[str, Dict[str, float]] = {}
         for model, results in self._results.items():
-            served = [r for r in results if not r.rejected]
-            viol = sum(1 for r in results if r.violated)
+            # cancelled requests left on their client's initiative: they
+            # are reported, but neither served nor violated
+            considered = [r for r in results if not r.cancelled]
+            served = [r for r in considered if not r.rejected]
+            viol = sum(1 for r in considered if r.violated)
             lats = [r.latency_ms for r in served]
             out[model] = {
                 "served": float(len(served)),
-                "rejected": float(len(results) - len(served)),
+                "rejected": float(len(considered) - len(served)),
+                "cancelled": float(len(results) - len(considered)),
                 "violations": float(viol),
-                "slo_attainment": 1.0 - viol / max(1, len(results)),
+                "slo_attainment": 1.0 - viol / max(1, len(considered)),
                 "mean_latency_ms": float(np.mean(lats)) if lats else 0.0,
                 "mean_utility": float(np.mean(
                     [r.utility for r in served])) if served else 0.0,
@@ -888,6 +1117,7 @@ class ModelInstancePool:
                                               for r in served)),
                 "m_c": float(self.m_c(model)),
                 "queued": float(len(self.queues[model])),
+                "preempted": float(self.preempts_by_model.get(model, 0)),
             }
         return out
 
@@ -899,6 +1129,8 @@ class ModelInstancePool:
             "live_instances": float(self.total_live()),
             "retired_instances": float(len(self.retired)),
             "n_rejected": float(self.n_rejected),
+            "n_cancelled": float(self.n_cancelled),
+            "n_preempted": float(self.n_preempted),
             "prefill_backlog_tokens": float(self.prefill_backlog_tokens()),
             "contention_t1_ms": t1,
             "contention_c": c,

@@ -173,9 +173,18 @@ def test_pad_cache_grows_linear_layers_only():
 
 
 def test_generate_refuses_sampling():
-    _, _, te = _pair("tiny")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        te.generate([np.ones(3, np.int32)], max_new_tokens=2, greedy=False)
+    """Seeded sampling is ported, so ``greedy=False`` no longer refuses:
+    a sampled round keeps the reference's greedy first token, repeats
+    itself for one seed and differs across seeds (the draws match the
+    reference in distribution only; tests/test_torch_sampling.py)."""
+    _, je, te = _pair("tiny")
+    prompts = [np.arange(1, 4, dtype=np.int32), np.ones(5, np.int32)]
+    ref = je.generate(prompts, max_new_tokens=6, greedy=False, seed=3)
+    runs = [te.generate(prompts, max_new_tokens=6, greedy=False,
+                        seed=seed).tokens for seed in (3, 3, 4)]
+    np.testing.assert_array_equal(runs[0][:, 0], ref.tokens[:, 0])
+    np.testing.assert_array_equal(runs[0], runs[1])
+    assert not np.array_equal(runs[0], runs[2])
 
 
 def test_round_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):

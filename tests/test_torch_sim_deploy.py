@@ -416,10 +416,15 @@ def test_cli_refusals():
         serve_cli.main(["--models", "qwen3-0.6b", "--device", "cpu"])
     with pytest.raises(SystemExit):
         serve_cli.main(["--platform", "tpu_v5e", "--device", "cpu"])
-    for flag in (["--preemption"], ["--prefix-cache"], ["--spec-k", "2"],
-                 ["--shared-prefix-tokens", "32"]):  # outside the pool
+    with pytest.raises(SystemExit):  # the reference's ap.error
+        serve_cli.main(["--engine", "--prefix-cache", "--device", "cpu"])
+    # unported engine features raise where the reference would use them:
+    # continuous mode (round mode ignores them, tests/test_torch_cli.py)
+    for flag in (["--prefix-cache", "--kv-layout", "paged"],
+                 ["--spec-k", "2"], ["--shared-prefix-tokens", "32"]):
         with pytest.raises(NotImplementedError, match="Queue A"):
-            serve_cli.main(["--engine", "--device", "cpu", *flag])
+            serve_cli.main(["--engine", "--exec-mode", "continuous",
+                            "--device", "cpu", *flag])
 
 
 def test_cli_passes_shared_prefixes_to_the_pool(monkeypatch):
