@@ -23,8 +23,15 @@ the device cost of one resume's re-prefill) and in the pool
 (``preemption=True``, two SLO tiers 4x apart), push-mode HTTP serving
 (``ServingDriver`` and ``ServingFrontend`` on port 0 in this process:
 streams against the offline pool, a disconnect cancelled and its KV
-freed, 429 with Retry-After, TTFT and TPOT on the host clock), and seeded
-sampling in round mode. Before the models it drives the
+freed, 429 with Retry-After, TTFT and TPOT on the host clock), seeded
+sampling in round mode, and the prefix cache (``phase_prefix``: the
+drains' requests templated on two 500-token prefixes with the cache off
+and on, a fully covering repeat whose copy-on-write leaves the shared
+blocks' bytes alone, ``serve_continuous`` over a template, and the
+paged pool of qwen3-0.6b with recurrentgemma-2b, whose rings and states
+sit beside the pool). At reduced width the TINY-scale windowed,
+recurrent and RWKV stacks and the prefix-cache drains run paged on card
+and CPU alike. Before the models it drives the
 simulator path behind the paper's utility figures at the CLI's defaults
 (``phase_sim``: the edge-serving simulator with SAC and the interference
 predictor guard on the card, each baseline scheduler, the CLI, and a
@@ -984,32 +991,40 @@ def _want(cfg, path, n_iters=0, n_chunks=0, n_rounds=0, n_tokens=0,
           n_slots=8, nb=40):
     """The exact kernel launches of one serving path: per attention layer
     (``attn``/``attn_dense``/``local_attn``) one decode kernel per decode
-    iteration or round token (paged: the unsplit or the split-K kernel,
-    as the dispatch picks for ``n_slots`` slots and ``nb``-column tables)
-    and, paged, one chunk kernel per prefill chunk (dense chunks attend in
-    plain PyTorch), or one flash launch per round; per recurrent layer one
-    scan per prefill chunk or round (decode steps are the one-step
-    formula); per MoE layer three grouped GEMMs (gate, up, down) per
-    forward: every decode iteration, chunk, round and round token."""
+    iteration or round token and, paged, one chunk kernel per prefill
+    chunk where every layer is paged (fused prefill), or one flash launch
+    per round. Under the paged layout a linear attention layer decodes
+    through the unsplit or the split-K paged kernel (as the dispatch
+    picks for ``n_slots`` slots and ``nb``-column tables) and a windowed
+    one through dense decode over its ring; a hybrid stack's chunks run
+    against the staging cache, whose attention is plain PyTorch, as are
+    dense chunks. Per recurrent layer one scan per prefill chunk or round
+    (decode steps are the one-step formula); per MoE layer three grouped
+    GEMMs (gate, up, down) per forward: every decode iteration, chunk,
+    round and round token."""
+    from repro_torch.models.transformer import paged_layer_kind
+
     kinds = cfg.layer_kinds()
-    A = sum(k in ("attn", "attn_dense", "local_attn") for k in kinds)
+    attn = [k for k in kinds if k in ("attn", "attn_dense", "local_attn")]
     M = sum(k != "attn_dense" for k in kinds) if cfg.n_experts else 0
     want = {name: 0 for name in REPLACES}
     if path in ("paged", "dense"):
         want["moe_matmul"] = 3 * M * (n_iters + n_chunks)
+        seqs = n_chunks
     else:
         want["moe_matmul"] = 3 * M * (n_rounds + n_tokens)
-    if path == "paged":
-        want[_paged_decode_kernel(cfg, n_slots, nb)] = A * n_iters
-        want["paged_prefill_attention"] = A * n_chunks
-        return want
-    if path == "dense":
-        want["decode_attention"] = A * n_iters
-        seqs = n_chunks
-    else:  # round
-        want["flash_attention"] = A * n_rounds
-        want["decode_attention"] = A * n_tokens
         seqs = n_rounds
+    if path == "paged":
+        P = sum(paged_layer_kind(cfg, k) for k in attn)
+        want[_paged_decode_kernel(cfg, n_slots, nb)] = P * n_iters
+        if P == len(kinds):  # fused prefill through the table
+            want["paged_prefill_attention"] = P * n_chunks
+        want["decode_attention"] = (len(attn) - P) * n_iters
+    elif path == "dense":
+        want["decode_attention"] = len(attn) * n_iters
+    else:  # round
+        want["flash_attention"] = len(attn) * n_rounds
+        want["decode_attention"] = len(attn) * n_tokens
     want["rglru_scan"] = kinds.count("rglru") * seqs
     want["rwkv6_scan"] = kinds.count("rwkv") * seqs
     return want
@@ -1204,7 +1219,7 @@ def phase_profile(torch, eng, rng, decode_p50_ms, smi, label):
             f"[{smi}]")
 
 
-def phase_split_rule(torch, device, cfg, params, smi, n_slots=8, turns=40,
+def phase_split_rule(torch, device, cfg, params, smi, n_slots=8, turns=24,
                      per_turn=5, seed=3):
     """The decode iteration of ``n_slots`` resident sequences at full
     width over 40-column tables (max_seq 640, the drains' engine) under
@@ -1380,9 +1395,9 @@ def phase_serve_round(torch, device, cfg, smi):
     from repro_torch.launch.engine_serve import serve_round
 
     reset_launches()
-    # 20 s (the reference's default) hold enough rounds for the agent's
+    # 14 s hold about 45 rounds (67 in 20 s, PR 21), past the agent's
     # 32-round mini-batch
-    stats = serve_round(cfg=cfg, duration_s=20.0, device=device)
+    stats = serve_round(cfg=cfg, duration_s=14.0, device=device)
     got = read_launches()
     r = int(stats["rounds"])
     # the entry point's warm-up round decodes 2 tokens, each round 4
@@ -1550,7 +1565,7 @@ def phase_parity(torch, device, cfg, layouts=("paged", "dense"), n_req=8,
 #: launches; `python -m repro_torch.launch.pool_sweep` measures the pool
 POOL_PAGED = dict(shared_prefix_tokens=500, max_instances=4, max_slots=4,
                   max_new_tokens=32, rps=1.5, slo_ms=5000.0,
-                  kv_block_budget=576, duration_s=20.0)
+                  kv_block_budget=576, duration_s=15.0)
 #: the dense pool: the reference CLI's own pair of heterogeneous models at
 #: its 12 requests/s in all
 POOL_DENSE = ("qwen3-0.6b", "recurrentgemma-2b")
@@ -1721,7 +1736,7 @@ def phase_pool(torch, device, smi):
     got, _, _ = _pool_run(torch, device, smi, "dense",
                           models=list(POOL_DENSE),
                           cfgs={m: get_config(m) for m in POOL_DENSE},
-                          kv_layout="dense", duration_s=20.0, rps=12.0,
+                          kv_layout="dense", duration_s=15.0, rps=12.0,
                           slo_ms=2000.0, max_new_tokens=4)
     for name, n in got.items():
         launches[name] += n
@@ -2037,6 +2052,360 @@ def phase_preempt(torch, device, cfg, params, smi):
         launches[k] += n
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------- prefix
+#: the prefix-cache phase's templated prompts: one of two 500-token
+#: shared prefixes plus the fixed 8-token tail (508 tokens: a 512 bucket
+#: of 32 blocks of 16, the first 31 holding padding and prefix only, so a
+#: hit maps 31 blocks and prefills one 16-token chunk at position 496)
+PREFIX_TOKENS = 500
+
+
+def _prefix_prompts(cfg, n, seed, population=2):
+    from repro_torch.launch.engine_serve import _shared_prefix_prompts
+
+    draw = _shared_prefix_prompts(np.random.default_rng(seed),
+                                  cfg.vocab_size, PREFIX_TOKENS, population)
+    return [draw() for _ in range(n)]
+
+
+def _cached_blocks(eng, prompt):
+    """The pool block ids the prefix cache holds for ``prompt``'s full
+    padded blocks, in chain order (stops at the first miss)."""
+    al = eng.allocator
+    out = []
+    for key in eng._chain_keys(eng._padded_seq(prompt)):
+        if key not in al._cache:
+            break
+        out.append(al._cache[key])
+    return out
+
+
+def _prefix_drain(torch, device, cfg, params, smi, prompts, prefix_cache,
+                  max_new):
+    """The drains' paged engine (8 slots, 640-token cache, 512-token
+    budget) over ``prompts`` with the prefix cache on or off: tokens,
+    launches (checked exactly), TTFT and the host time of the steps that
+    prefilled. Then one more prompt of the first family alone, its
+    prefill step profiled. Returns (engine, results, launches, numbers)."""
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+
+    label = f"prefix {'on' if prefix_cache else 'off'}"
+    eng = ContinuousBatchingEngine(cfg, max_slots=8, max_seq=640,
+                                   kv_layout="paged", token_budget=512,
+                                   prefix_cache=prefix_cache, device=device,
+                                   params=params)
+    eng.run([np.arange(1, 10, dtype=np.int32)], max_new_tokens=2)  # warm-up
+    it0, ch0, tok0 = eng.n_iters, eng.n_prefill_chunks, \
+        eng.n_prefill_chunk_tokens
+    bad = []
+    _watch_logits(torch, eng.model, bad, ("decode_step", "prefill_chunk"))
+    reset_launches()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=max_new)
+    # TTFT in engine steps as well as on the host clock: the step count
+    # does not drift with the host
+    first_step, n_steps = {}, [0]
+    eng.on_token = lambda rid, tok, idx: first_step.setdefault(
+        rid, n_steps[0] + 1)
+    results, pre_s, t0 = [], 0.0, time.perf_counter()
+    while eng.waiting or eng.active_slots:
+        before = eng.n_prefill_chunk_tokens
+        ts = time.perf_counter()
+        results += eng.step()
+        torch.cuda.synchronize()
+        n_steps[0] += 1
+        if eng.n_prefill_chunk_tokens != before:
+            pre_s += time.perf_counter() - ts
+    eng.on_token = None
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_iters, n_chunks = eng.n_iters - it0, eng.n_prefill_chunks - ch0
+    want = _want(cfg, "paged", n_iters=n_iters, n_chunks=n_chunks)
+    if launches != want:
+        fail(f"{label}: launches {launches} != {want} ({n_iters} decode "
+             f"iterations, {n_chunks} prefill chunks)")
+    if bool(torch.stack(bad).any()):
+        fail(f"{label}: non-finite logits")
+    results.sort(key=lambda r: r.request_id)
+    if len(results) != len(prompts) or any(len(r.tokens) != max_new
+                                           for r in results):
+        fail(f"{label}: {len(results)} of {len(prompts)} finished")
+    ttft = [r.ttft_s * 1e3 for r in results]
+    steps = [first_step[r.request_id] for r in results]
+    num = {"ttft_p50": float(np.percentile(ttft, 50)),
+           "ttft_p90": float(np.percentile(ttft, 90)),
+           "steps_p50": float(np.percentile(steps, 50)),
+           "steps_p90": float(np.percentile(steps, 90)),
+           "chunks": n_chunks, "chunk_tokens":
+           eng.n_prefill_chunk_tokens - tok0, "prefill_s": pre_s,
+           "wall": wall, "hits": eng.n_prefix_hits,
+           "hit_tokens": eng.n_prefix_hit_tokens}
+    log(f"{label} {cfg.name}: {len(prompts)} requests of a 500-token shared "
+        f"prefix (2 prefixes) + 8-token tail, {max_new} new tokens, 8 slots; "
+        f"{n_iters} decode iterations, {n_chunks} prefill chunks "
+        f"({num['chunk_tokens']} tokens), prefix hits {num['hits']} "
+        f"({num['hit_tokens']} tokens); TTFT ms p50 {num['ttft_p50']:.3f} "
+        f"p90 {num['ttft_p90']:.3f}, per request "
+        f"{[round(x) for x in ttft]}; in engine steps p50 "
+        f"{num['steps_p50']:.1f} p90 {num['steps_p90']:.1f}, per request "
+        f"{steps}; steps with prefill {pre_s:.3f} s of the drain's "
+        f"{wall:.3f} s over {n_steps[0]} steps (host) [{smi}]")
+    log(f"{label}: launches {launches} == {want} (paged prefill: "
+        f"{launches['paged_prefill_attention']} = {cfg.n_layers} layers x "
+        f"{n_chunks} chunks)")
+    # one request alone: the step that prefills it, under the profiler
+    extra = _prefix_prompts(cfg, 1, seed=99)[0]
+    extra[:PREFIX_TOKENS] = prompts[0][:PREFIX_TOKENS]
+    eng.submit(extra, max_new_tokens=2)
+    ch1, tok1 = eng.n_prefill_chunks, eng.n_prefill_chunk_tokens
+    wall1, busy, nk, names = _profiled(torch, eng.step)
+    pre_ms = _kernel_ms(names, PREFILL_KERNELS)
+    num.update(one_busy=busy, one_prefill_ms=pre_ms,
+               one_tokens=eng.n_prefill_chunk_tokens - tok1)
+    log(f"{label}: one request's prefill step ({num['one_tokens']} prompt "
+        f"tokens in {eng.n_prefill_chunks - ch1} chunk(s)): device busy "
+        f"{busy:.3f} ms, paged prefill kernel {pre_ms:.3f} ms, the rest "
+        f"(projections, MLP, norms, the head, one decode) "
+        f"{busy - pre_ms:.3f} ms; {nk} kernels, profiled wall "
+        f"{wall1 * 1e3:.3f} ms [{smi}]")
+    while eng.active_slots or eng.waiting:
+        eng.step()
+    return eng, results, launches, num
+
+
+def _prefix_cow(torch, cfg, params, smi, eng, max_new=8):
+    """One padded prompt served twice on the cache-on engine: the second
+    admission's chain covers the whole prompt, so its tail block is
+    copied (copy-on-write) and only the last token is re-scored. The
+    second run's tokens equal the first's, and no block the cache holds
+    for the prompt changed a byte. Returns the launches."""
+    A = cfg.n_layers
+    prompt = _prefix_prompts(cfg, 1, seed=77)[0]
+    first = eng.run([prompt], max_new_tokens=max_new)[0].tokens
+    bids = _cached_blocks(eng, prompt)
+    if len(bids) != 32:
+        fail(f"prefix cow: {len(bids)} of 32 prompt blocks cached")
+    idx = torch.tensor(bids, device=eng.cache[0]["k"].device)
+    before = [{k: c[k].index_select(0, idx) for k in ("k", "v")}
+              for c in eng.cache]
+    hits, hit_tok, ch0 = eng.n_prefix_hits, eng.n_prefix_hit_tokens, \
+        eng.n_prefill_chunks
+    reset_launches()
+    it0 = eng.n_iters
+    again = eng.run([prompt], max_new_tokens=max_new)[0].tokens
+    launches = read_launches()
+    n_chunks = eng.n_prefill_chunks - ch0
+    want = _want(cfg, "paged", n_iters=eng.n_iters - it0, n_chunks=n_chunks)
+    if launches != want:
+        fail(f"prefix cow: launches {launches} != {want}")
+    if eng.n_prefix_hits != hits + 1 or \
+            eng.n_prefix_hit_tokens - hit_tok != 511 or n_chunks != 1:
+        fail(f"prefix cow: hits {eng.n_prefix_hits - hits}, hit tokens "
+             f"{eng.n_prefix_hit_tokens - hit_tok}, chunks {n_chunks}; "
+             "expected a full-cover hit of 511 tokens and one T = 1 chunk")
+    if not np.array_equal(first, again):
+        fail(f"prefix cow: the repeat's tokens {again.tolist()} differ from "
+             f"the first run's {first.tolist()}")
+    changed = sum(int(not torch.equal(c[k].index_select(0, idx), b[k]))
+                  for c, b in zip(eng.cache, before) for k in ("k", "v"))
+    if changed:
+        fail(f"prefix cow: {changed} of {2 * A} layer pools changed a "
+             "shared block")
+    log(f"prefix cow {cfg.name}: the same 508-token prompt twice; the "
+        f"repeat mapped 31 shared blocks, copied the 32nd and re-scored 1 "
+        f"token in {n_chunks} chunk (paged prefill launches "
+        f"{launches['paged_prefill_attention']}); {max_new} tokens equal "
+        f"the first run's; the 32 cached blocks' bytes unchanged in all "
+        f"{2 * A} K/V pools [{smi}]")
+    return launches
+
+
+def phase_prefix(torch, device, cfg, params, smi, n_req=16, max_new=32,
+                 seed=21):
+    """The prefix cache at full width, paged, fp32: the drains' engine
+    over 16 templated requests with the cache off and on (streams
+    identical, exact paged prefill launches, hits, TTFT, one request's
+    prefill step profiled each way), a fully covering repeat
+    (copy-on-write; the shared blocks' bytes unchanged),
+    ``serve_continuous`` with ``prefix_cache`` over a 500-token template,
+    and the pool pair of qwen3-0.6b and recurrentgemma-2b under the paged
+    layout with the prefix cache (``serve_pool``): qwen3 hits,
+    recurrentgemma-2b serves paged without it through ``rglru_scan`` and
+    dense decode. Returns the summed launches."""
+    from repro_torch.config import get_config
+    from repro_torch.launch.engine_serve import serve_continuous
+
+    launches = {name: 0 for name in REPLACES}
+
+    def add(got):
+        for name, n in got.items():
+            launches[name] += n
+
+    prompts = _prefix_prompts(cfg, n_req, seed)
+    runs = {}
+    for pc in (False, True):
+        eng, res, got, num = _prefix_drain(torch, device, cfg, params, smi,
+                                           prompts, pc, max_new)
+        add(got)
+        runs[pc] = (res, num)
+        if pc:
+            add(_prefix_cow(torch, cfg, params, smi, eng))
+        del eng
+        torch.cuda.empty_cache()
+    exact = 0
+    for p, a, b in zip(prompts, runs[False][0], runs[True][0]):
+        if _hold_tie(torch, cfg, params, f"prefix request {a.request_id}",
+                     p, a.tokens, b.tokens) is None:
+            exact += 1
+    off, on = runs[False][1], runs[True][1]
+    if not on["hits"] > 0:
+        fail("prefix on: no prefix hit in the drain")
+    log(f"prefix {cfg.name}: {exact} of {n_req} streams token-identical with "
+        f"the cache off and on (the rest at a near-tie); prefill chunk "
+        f"tokens {off['chunk_tokens']} -> {on['chunk_tokens']}, chunks "
+        f"{off['chunks']} -> {on['chunks']}; TTFT p50 "
+        f"{off['ttft_p50']:.3f} -> {on['ttft_p50']:.3f} ms, p90 "
+        f"{off['ttft_p90']:.3f} -> {on['ttft_p90']:.3f}; in steps p50 "
+        f"{off['steps_p50']:.1f} -> {on['steps_p50']:.1f}, p90 "
+        f"{off['steps_p90']:.1f} -> {on['steps_p90']:.1f}; one request's "
+        f"prefill step device busy {off['one_busy']:.3f} -> "
+        f"{on['one_busy']:.3f} ms (paged prefill {off['one_prefill_ms']:.3f}"
+        f" -> {on['one_prefill_ms']:.3f}, the rest "
+        f"{off['one_busy'] - off['one_prefill_ms']:.3f} -> "
+        f"{on['one_busy'] - on['one_prefill_ms']:.3f}) [{smi}]")
+    # serve_continuous over the template, cache on
+    reset_launches()
+    stats = serve_continuous(cfg=cfg, kv_layout="paged", duration_s=5.0,
+                             max_slots=4, prefix_cache=True,
+                             shared_prefix_tokens=PREFIX_TOKENS,
+                             device=device)
+    got = read_launches()
+    # _serve_max_seq(500) = 576: 36 table columns of 16
+    want = _want(cfg, "paged", n_iters=int(stats["n_iters"]),
+                 n_chunks=int(stats["n_prefill_chunks"]), n_slots=4, nb=36)
+    if stats["served"] < 1 or got != want or not \
+            stats["prefix_hit_rate"] > 0:
+        fail(f"serve_continuous prefix: served {stats['served']}, hit rate "
+             f"{stats['prefix_hit_rate']}, launches {got} != {want}")
+    add(got)
+    log(f"serve_continuous {cfg.name} paged, prefix cache, 500-token "
+        f"template (4 slots): {stats['served']:.0f} requests in 5 s, "
+        f"prefix_hit_rate {stats['prefix_hit_rate']:.4f}, n_prefix_hits "
+        f"{stats['n_prefix_hits']:.0f}, kv_shared_frac "
+        f"{stats['kv_shared_frac']:.3f}; launches {got} == {want} [{smi}]")
+    torch.cuda.empty_cache()
+    # the verify skill's pool pair, paged, with the prefix cache
+    got, probe, report = _pool_run(
+        torch, device, smi, "paged pair, prefix cache",
+        models=list(POOL_DENSE), cfgs={m: get_config(m) for m in POOL_DENSE},
+        kv_layout="paged", prefix_cache=True,
+        shared_prefix_tokens=PREFIX_TOKENS, duration_s=12.0, rps=2.0,
+        slo_ms=5000.0, max_new_tokens=8)
+    add(got)
+    pool = probe.pool
+    engines = [i.engine.stats() for lst in pool.instances.values()
+               for i in lst] + [i.engine_stats for i in pool.retired]
+    models = [i.model for lst in pool.instances.values() for i in lst] \
+        + [i.model for i in pool.retired]
+    hits = {m: sum(st["n_prefix_hits"] for st, mm in zip(engines, models)
+                   if mm == m) for m in POOL_DENSE}
+    cached = {i.model: i.engine.prefix_cache for i in pool.live()}
+    occ = pool.kv_occupancy()
+    if not (hits[FULL] > 0 and not hits[POOL_DENSE[1]]
+            and not cached.get(POOL_DENSE[1], False)
+            and got["rglru_scan"] > 0 and got["decode_attention"] > 0
+            and occ["committed_blocks"] > 0):
+        fail(f"pool pair prefix: hits {hits}, prefix cache per model "
+             f"{cached}, launches {got}, committed blocks "
+             f"{occ['committed_blocks']}")
+    log(f"pool pair paged with the prefix cache: prefix hits {hits}, cache "
+        f"per model {cached}, kv_committed_blocks "
+        f"{occ['committed_blocks']:.0f}, prefix_hit_rate (live) "
+        f"{occ['prefix_hit_rate']:.4f}; recurrentgemma-2b through "
+        f"rglru_scan ({got['rglru_scan']}) and dense decode "
+        f"({got['decode_attention']}) [{smi}]")
+    del probe, pool
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _tiny_kinds():
+    """The TINY-scale layer families of the repo's tests (windowed,
+    RG-LRU hybrid, RWKV, all-windowed with an 8-slot ring), rebuilt here
+    since the tests' configuration module imports jax."""
+    from repro_torch.config.base import ModelConfig
+
+    r = dataclasses.replace
+    tiny = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=32,
+                       n_heads=2, n_kv_heads=2, d_ff=64, vocab_size=97)
+    return {"windowed": r(tiny, name="tiny-win", sliding_window=16,
+                          block_pattern=("attn", "local_attn")),
+            "rglru": r(tiny, name="tiny-rg", family="hybrid",
+                       block_pattern=("rglru", "attn")),
+            "rwkv": r(tiny, name="tiny-rwkv", family="ssm", d_model=64,
+                      block_pattern=("rwkv",), rwkv_head_size=32),
+            "swa": r(tiny, name="tiny-swa", sliding_window=8,
+                     block_pattern=("local_attn",))}
+
+
+def phase_prefix_parity(torch, device, seed=0):
+    """Card against CPU at reduced width under the paged layout: the
+    TINY-scale hybrid, windowed and RWKV stacks (rings and states beside
+    the pool), and reduced qwen3-0.6b's prefix-cache drains (two waves of
+    same-prefix requests, then a fully covering repeat). Same weights
+    (drawn on the CPU), same requests: greedy tokens identical (a
+    divergence counts only at a logit margin below 1e-5), and the same
+    hits on both."""
+    from repro_torch.config import get_reduced_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import (SEQ_BUCKETS,
+                                            ContinuousBatchingEngine,
+                                            _bucket)
+
+    def serve(cfg, params, dev, waves, **kw):
+        eng = ContinuousBatchingEngine(cfg, max_slots=3, max_seq=96,
+                                       kv_layout="paged", block_size=8,
+                                       token_budget=12, device=dev,
+                                       params=params, **kw)
+        out = [r.tokens for w in waves for r in eng.run(w, max_new_tokens=8)]
+        return out, eng.n_prefix_hits, eng.n_prefix_hit_tokens
+
+    for name, cfg in _tiny_kinds().items():
+        params = init_params(cfg, seed=seed, device="cpu")
+        rng = np.random.default_rng(seed + 5)
+        prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+                   for n in (3, 14, 9, 30, 6, 22)]
+        reset_launches()
+        card = serve(cfg, params, device, [prompts])[0]
+        n = read_launches()
+        cpu = serve(cfg, params, torch.device("cpu"), [prompts])[0]
+        n_tok = _compare(torch, cfg, params, f"paged {name}", prompts,
+                         [_bucket(len(p), buckets=SEQ_BUCKETS)
+                          for p in prompts], card, cpu)
+        log(f"parity paged {name} (kinds {sorted(set(cfg.layer_kinds()))}):"
+            f" {len(prompts)} requests, {n_tok} greedy tokens identical on "
+            f"card and CPU; card launches "
+            f"{ {k: v for k, v in n.items() if v} }")
+    cfg = get_reduced_config(FULL)
+    params = init_params(cfg, seed=seed, device="cpu")
+    rng = np.random.default_rng(seed + 6)
+    head = rng.integers(1, cfg.vocab_size, 40).astype(np.int32)
+    fam = [np.concatenate([head, rng.integers(1, cfg.vocab_size, 4).astype(
+        np.int32)]) for _ in range(4)]
+    waves = [fam[:2], fam[2:], fam[:1]]  # the last one covers fully
+    card, hc, tc = serve(cfg, params, device, waves, prefix_cache=True)
+    cpu, hp, tp = serve(cfg, params, torch.device("cpu"), waves,
+                        prefix_cache=True)
+    flat = [p for w in waves for p in w]
+    n_tok = _compare(torch, cfg, params, "prefix cache", flat, [64] * 5,
+                     card, cpu)
+    if (hc, tc) != (hp, tp) or not hc:
+        fail(f"parity prefix cache: hits card {(hc, tc)}, cpu {(hp, tp)}")
+    log(f"parity prefix cache {cfg.name} reduced: 5 requests in 3 waves of "
+        f"one 40-token prefix, {hc} hits ({tc} tokens) on both, {n_tok} "
+        f"greedy tokens identical on card and CPU")
 
 
 class _Hold:
@@ -2677,11 +3046,11 @@ def phase_sim(torch, device, smi):
 
 def run(torch, device, smi):
     """Every phase after the build: kernels vs plain, timing, the three
-    serving paths of full-width qwen3-0.6b and its online path
-    (preemption, HTTP, seeded sampling), then the dense continuous
-    engine and round mode of each full-width recurrent family and the
-    paged engine and round mode of arctic-480b cut to one layer (one
-    model on the card at a time), and card-vs-CPU parity at reduced
+    serving paths of full-width qwen3-0.6b, its online path (preemption,
+    HTTP, seeded sampling) and its prefix cache, then the dense
+    continuous engine and round mode of each full-width recurrent family
+    and the paged engine and round mode of arctic-480b cut to one layer
+    (one model on the card at a time), and card-vs-CPU parity at reduced
     width.
     Returns the result line's kernel rows, with the launches of every
     main path's run summed."""
@@ -2724,12 +3093,14 @@ def run(torch, device, smi):
     add(phase_preempt(torch, device, full, params, smi))
     add(phase_http(torch, device, full, params, smi))
     add(phase_sampling(torch, device, full, params, smi))
+    add(phase_prefix(torch, device, full, params, smi))
     del params
     torch.cuda.empty_cache()
     phase_serve_round(torch, device, full, smi)
     phase_parity(torch, device, get_reduced_config(FULL))
     add(phase_pool(torch, device, smi))
     phase_pool_parity(torch, device, get_reduced_config(FULL))
+    phase_prefix_parity(torch, device)
     for arch in RECURRENT:
         cfg = get_config(arch)
         t0 = time.perf_counter()
@@ -2742,7 +3113,8 @@ def run(torch, device, smi):
         add(phase_round(torch, device, cfg, params, smi)[0])
         del params
         torch.cuda.empty_cache()
-        phase_parity(torch, device, get_reduced_config(arch), ("dense",))
+        phase_parity(torch, device, get_reduced_config(arch),
+                     ("dense", "paged"))
     add(phase_serve(torch, device, get_config(RECURRENT[-1]), "dense"))
     add(phase_moe(torch, device, smi))
     for arch in MOE:

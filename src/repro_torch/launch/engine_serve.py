@@ -9,7 +9,8 @@ wall-clock and utilities are computed from them (Eq. 3).
   ``InferenceEngine`` runs each round to completion (paper §IV-D);
 * ``continuous`` — arrivals are submitted into the
   ``ContinuousBatchingEngine`` as they land and join the running batch
-  at iteration boundaries (dense or paged KV layout);
+  at iteration boundaries (dense or paged KV layout, optionally with the
+  prefix cache over a templated workload);
 * ``serve_pool`` (``--models a,b``) — N concurrent engine instances
   across heterogeneous models behind the ``ModelInstancePool``, with the
   ``PoolScheduler`` driving the real (b, m_c) action per model
@@ -23,7 +24,11 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.serve --engine
       PYTHONPATH=src python -m repro_torch.launch.serve --engine \
           --exec-mode continuous --kv-layout dense
       PYTHONPATH=src python -m repro_torch.launch.serve --engine \
-          --models qwen3-0.6b,recurrentgemma-2b --exec-mode continuous
+          --exec-mode continuous --kv-layout paged --prefix-cache \
+          --shared-prefix-tokens 500
+      PYTHONPATH=src python -m repro_torch.launch.serve --engine \
+          --models qwen3-0.6b,recurrentgemma-2b --exec-mode continuous \
+          --kv-layout paged --kv-block-budget 64
       PYTHONPATH=src python -m repro_torch.launch.serve --engine \
           --serve-http --port 8907 --models qwen3-0.6b --max-instances 1 \
           --kv-layout paged
@@ -166,6 +171,8 @@ def serve_continuous(arch: str = "qwen3-0.6b", duration_s: float = 20.0,
                      max_slots: int = 4, kv_layout: str = "dense",
                      kv_block_budget: Optional[int] = None,
                      token_budget: Optional[int] = None,
+                     prefix_cache: bool = False,
+                     shared_prefix_tokens: int = 0,
                      cfg: Optional[ModelConfig] = None,
                      device="cuda") -> Dict[str, float]:
     """Continuous mode: arrivals are submitted into the slot engine as
@@ -173,20 +180,32 @@ def serve_continuous(arch: str = "qwen3-0.6b", duration_s: float = 20.0,
     ``kv_layout`` is ``"dense"`` (as the reference's default) or
     ``"paged"``; ``kv_block_budget`` caps the paged engine's block pool
     (default: the dense-equivalent worst case); ``token_budget`` caps
-    per-iteration prefill+decode tokens. ``cfg`` overrides the reduced
-    registry config of ``arch`` (for example with the full-width one).
-    Runs on ``device`` (default ``"cuda"``, which raises without a GPU).
-    Returns the engine's ``stats()`` plus ``served`` and ``violations``."""
+    per-iteration prefill+decode tokens. ``prefix_cache`` shares full
+    prompt blocks between same-prefix sequences (paged, and a stack that
+    pages every layer; else the engine's ``ValueError``);
+    ``shared_prefix_tokens`` templates the prompts (one of four shared
+    prefixes plus an 8-token tail) so the cache has something to hit,
+    and sizes the cache to them. ``cfg`` overrides the reduced registry
+    config of ``arch`` (for example with the full-width one). Runs on
+    ``device`` (default ``"cuda"``, which raises without a GPU). Returns
+    the engine's ``stats()`` plus ``served`` and ``violations``."""
     cfg = cfg if cfg is not None else get_reduced_config(arch)
     print(f"loading {cfg.name} (d={cfg.d_model}, L={cfg.n_layers}), "
           f"{max_slots} slots, {kv_layout} KV, "
-          f"token budget {token_budget or 'uncapped'}, on {device}...")
-    engine = ContinuousBatchingEngine(cfg, max_slots=max_slots, max_seq=128,
+          f"token budget {token_budget or 'uncapped'}, "
+          f"prefix cache {'on' if prefix_cache else 'off'}, on {device}...")
+    engine = ContinuousBatchingEngine(cfg, max_slots=max_slots,
+                                      max_seq=_serve_max_seq(
+                                          shared_prefix_tokens),
                                       kv_layout=kv_layout,
                                       kv_blocks=kv_block_budget,
                                       token_budget=token_budget,
+                                      prefix_cache=prefix_cache,
                                       device=device)
     rng = np.random.default_rng(0)
+    draw_prompt = _shared_prefix_prompts(
+        rng, cfg.vocab_size, shared_prefix_tokens) \
+        if shared_prefix_tokens else None
 
     t0 = time.perf_counter()
     next_arrival = rng.exponential(1.0 / rps)
@@ -196,8 +215,9 @@ def serve_continuous(arch: str = "qwen3-0.6b", duration_s: float = 20.0,
     while time.perf_counter() - t0 < duration_s:
         now = time.perf_counter() - t0
         while next_arrival <= now:
-            prompt = rng.integers(1, cfg.vocab_size,
-                                  rng.integers(4, 24)).astype(np.int32)
+            prompt = draw_prompt() if draw_prompt is not None else \
+                rng.integers(1, cfg.vocab_size,
+                             rng.integers(4, 24)).astype(np.int32)
             rid = engine.submit(prompt, max_new_tokens=4)
             submit_t[rid] = next_arrival
             next_arrival += rng.exponential(1.0 / rps)
@@ -229,6 +249,7 @@ def serve_pool(models: Sequence[str] = ("qwen3-0.6b", "recurrentgemma-2b"),
                preemption: bool = False,
                kv_host_blocks: int = 0,
                preempt_mode: str = "auto",
+               prefix_cache: bool = False,
                shared_prefix_tokens: int = 0,
                cfgs: Optional[Dict[str, ModelConfig]] = None,
                device="cuda",
@@ -243,11 +264,14 @@ def serve_pool(models: Sequence[str] = ("qwen3-0.6b", "recurrentgemma-2b"),
     as a third scheduler axis and ``preemption`` enables SLO-aware
     eviction (recompute on resume; ``kv_host_blocks`` > 0 and
     ``preempt_mode="swap"`` need the host tier, which raises as not
-    ported). ``shared_prefix_tokens`` templates the prompts (a shared
+    ported). ``prefix_cache`` shares full prompt blocks between
+    same-prefix sequences on the models that page every layer (the others
+    serve without it), with the router's prefix affinity; pair it with
+    ``shared_prefix_tokens``, which templates the prompts (a shared
     prefix plus an 8-token tail) and sizes the cache to them. ``cfgs``
     (model -> config) overrides the reduced registry configs (for example
-    with the full-width ones). The reference's prefix cache and
-    speculation arguments are not ported (ROADMAP.md). Runs on
+    with the full-width ones). The reference's speculation argument is
+    not ported (ROADMAP.md). Runs on
     ``device`` (default ``"cuda"``, which raises without a GPU).
     ``pool_out``, a list, receives the pool, for callers that read its
     per-request results. Returns the pool's
@@ -268,6 +292,7 @@ def serve_pool(models: Sequence[str] = ("qwen3-0.6b", "recurrentgemma-2b"),
                              preemption=preemption,
                              kv_host_blocks=max(0, kv_host_blocks),
                              preempt_mode=preempt_mode,
+                             prefix_cache=prefix_cache,
                              device=device)
     if pool_out is not None:
         pool_out.append(pool)
@@ -410,9 +435,7 @@ def serve_http(models: Sequence[str] = ("qwen3-0.6b",),
 def _refuse_unported(**flags) -> None:
     """Raise for an engine feature the port does not serve yet, where the
     reference would use it (continuous mode and the pool)."""
-    items = {"prefix_cache": "item 3, the prefix cache",
-             "shared_prefix_tokens": "item 3, the prefix cache",
-             "spec_k": "item 6, speculation and the host swap tier"}
+    items = {"spec_k": "item 6, speculation and the host swap tier"}
     for name, value in flags.items():
         if value:
             raise NotImplementedError(
@@ -447,20 +470,23 @@ def main(exec_mode: str = "round", arch: str = "qwen3-0.6b",
         if exec_mode != "continuous":
             print("multi-model pool serving is continuous-only; "
                   "running with --exec-mode continuous")
-        _refuse_unported(prefix_cache=prefix_cache, spec_k=spec_k)
+        _refuse_unported(spec_k=spec_k)
         serve_pool(models, duration_s, rps, slo_ms,
                    max_instances=max_instances, kv_layout=kv_layout,
                    kv_block_budget=kv_block_budget,
                    token_budget=token_budget, preemption=preemption,
                    kv_host_blocks=kv_host_blocks, preempt_mode=preempt_mode,
-                   shared_prefix_tokens=shared_prefix_tokens, device=device)
+                   prefix_cache=prefix_cache,
+                   shared_prefix_tokens=int(shared_prefix_tokens),
+                   device=device)
     elif exec_mode == "continuous":
-        _refuse_unported(prefix_cache=prefix_cache,
-                         shared_prefix_tokens=shared_prefix_tokens,
-                         spec_k=spec_k)
+        _refuse_unported(spec_k=spec_k)
         serve_continuous(arch, duration_s, rps, slo_ms, kv_layout=kv_layout,
                          kv_block_budget=kv_block_budget,
-                         token_budget=token_budget, device=device)
+                         token_budget=token_budget,
+                         prefix_cache=prefix_cache,
+                         shared_prefix_tokens=int(shared_prefix_tokens),
+                         device=device)
     else:
         if kv_layout != "dense":
             print("round mode always uses the dense per-round cache; "

@@ -12,8 +12,10 @@ full width, a 500-token shared system prompt plus an 8-token tail, 32
 new tokens, SLO 5 s, b <= 4, m_c <= 4 under a 576-block budget) at 0.125
 to 1.5 requests/s, and the dense pool of qwen3-0.6b with
 recurrentgemma-2b at full width (4 new tokens, SLO 2 s) at 6 and 12
-requests/s. ``--smoke`` runs two short configurations at reduced width
-(``--device cpu`` runs them on the CPU).
+requests/s. ``--prefix-cache`` reruns the grid with the paged pool's
+prefix cache on (every request then shares its system prompt's blocks);
+``--rps 0.25,0.5`` keeps only those rates. ``--smoke`` runs two short
+configurations at reduced width (``--device cpu`` runs them on the CPU).
 """
 from __future__ import annotations
 
@@ -70,7 +72,8 @@ def summarize(pool, report, label: str, rps: float, duration_s: float,
               slo_ms: float) -> Dict:
     """One configuration's line: per model the issued, served and
     rejected requests, tokens, SLO attainment and latency percentiles;
-    for the pool the busy-instance shares and the contention fit."""
+    for the pool the busy-instance shares, the contention fit and the
+    prefix cache's hit rate (0 with the cache off)."""
     models = {}
     every = []
     for m, row in report.items():
@@ -106,14 +109,16 @@ def summarize(pool, report, label: str, rps: float, duration_s: float,
             "instances_spawned": sum(len(v) for v in pool.instances.values())
             + len(pool.retired),
             "contention_t1_ms": t1, "contention_c": c,
+            "prefix_cache": pool.prefix_cache,
+            "prefix_hit_rate": pool.prefix_hit_rate(),
             "pool_steps": pool.n_steps}
 
 
-def run(grid, device="cuda", reduced: bool = False, seed: int = 0
-        ) -> List[Dict]:
+def run(grid, device="cuda", reduced: bool = False, seed: int = 0,
+        prefix_cache: bool = False) -> List[Dict]:
     """Serve every configuration of ``grid`` in turn through
-    ``serve_pool``, at full width unless ``reduced``; returns their
-    lines."""
+    ``serve_pool``, at full width unless ``reduced`` and with the paged
+    pool's prefix cache when ``prefix_cache``; returns their lines."""
     import torch
 
     from repro_torch.config import get_config, get_reduced_config
@@ -127,7 +132,8 @@ def run(grid, device="cuda", reduced: bool = False, seed: int = 0
         report = serve_pool(list(spec["models"]), duration_s=duration_s,
                             rps=rps, seed=seed,
                             cfgs={m: get(m) for m in spec["models"]},
-                            device=device, pool_out=kept, **kw)
+                            prefix_cache=prefix_cache, device=device,
+                            pool_out=kept, **kw)
         line = summarize(kept[0], report, label, rps, duration_s,
                          spec["slo_ms"])
         print("sweep " + json.dumps(line), flush=True)
@@ -145,6 +151,12 @@ def main(argv=None) -> None:
                     help="write the configurations' lines here (JSONL)")
     ap.add_argument("--smoke", action="store_true",
                     help="two short configurations at reduced width")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="serve the paged configurations with the prefix "
+                         "cache on")
+    ap.add_argument("--rps", default=None,
+                    help="comma-separated rates: keep only these "
+                         "configurations of the grid")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.device.startswith("cuda"):
@@ -152,8 +164,12 @@ def main(argv=None) -> None:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True)
         print(f"card: {card.stdout.strip()}", flush=True)
-    lines = run(SMOKE if args.smoke else GRID, device=args.device,
-                reduced=args.smoke)
+    grid = SMOKE if args.smoke else GRID
+    if args.rps:
+        keep = {float(r) for r in args.rps.split(",")}
+        grid = tuple(g for g in grid if g[2] in keep)
+    lines = run(grid, device=args.device, reduced=args.smoke,
+                prefix_cache=args.prefix_cache)
     if args.out:
         with open(args.out, "w") as f:
             for line in lines:
@@ -168,7 +184,8 @@ def main(argv=None) -> None:
                   f"{row['latency_ms_p50']:.0f} p99 "
                   f"{row['latency_ms_p99']:.0f} ms, tpot p50 "
                   f"{row['tpot_ms_p50']:.1f} ms; busy instances "
-                  f"{line['busy_instances_mean']:.2f}")
+                  f"{line['busy_instances_mean']:.2f}, prefix hit rate "
+                  f"{line['prefix_hit_rate']:.3f}")
 
 
 if __name__ == "__main__":

@@ -135,14 +135,17 @@ def main(argv=None) -> None:
                          "prices both (recompute while no host tier)")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="simulator: sessions skip shared prefixes an "
-                         "earlier request already prefilled; engine: "
-                         "needs --kv-layout paged (not ported to the "
-                         "engine yet)")
+                         "earlier request already prefilled; engine and "
+                         "pool (--kv-layout paged): full prompt blocks "
+                         "are shared at refcount+1 (copy-on-write tails, "
+                         "LRU reuse), on every model whose layers all "
+                         "page")
     ap.add_argument("--shared-prefix-tokens", type=float, default=0.0,
                     help="templated workload: every prompt starts with one "
                          "of a small population of shared prefixes of this "
-                         "many tokens (simulator, and the engine's pool). "
-                         "Default: 0 (off)")
+                         "many tokens (simulator, continuous engine and "
+                         "pool; what --prefix-cache exploits). Default: 0 "
+                         "(off)")
     ap.add_argument("--spec-k", type=int, default=0,
                     help="simulator: speculative decoding depth, an added "
                          "action level (continuous only; not ported to the "

@@ -11,9 +11,10 @@ trunk is a plain loop over ``cfg.layer_kinds()``). A decode cache is a
 list with one dict per layer: ``{"k", "v"}`` as a dense ``(B, C, KV,
 hd)`` slab (C = ``cache_len``, or the window for a windowed layer's ring
 buffer) or a paged ``(n_blocks, bs, KV, hd)`` block pool; a recurrent
-layer's per-slot state (``models.rglru``, ``models.rwkv``). Windowed and
-recurrent layers stay dense; under the paged layout they are not ported
-yet (ROADMAP.md).
+layer's per-slot state (``models.rglru``, ``models.rwkv``). Under the
+paged layout only linear attention layers take the block pool
+(``paged_layer_kind``); windowed rings and recurrent states stay per-slot
+dense beside it, as in the reference.
 
 Forward modes (the reference's names):
   * ``prefill(params, batch)``              — logits + dense prefill cache
@@ -66,24 +67,14 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_paged_supported(cfg: ModelConfig) -> None:
-    """``check_supported`` plus the paged layout's limit: every layer's
-    state must live in the block pool, so recurrent layers and windowed
-    layers (per-slot dense state and ring buffers beside the pool in the
-    reference) raise."""
+    """The paged layout's own limit, the reference's (``make_cache``):
+    encoder-decoder models raise; then ``check_supported``. Windowed
+    and recurrent layers keep their per-slot dense state beside the pool
+    (``paged_layer_kind``)."""
+    if cfg.enc_dec:
+        raise NotImplementedError(
+            "paged KV caches do not support encoder-decoder models")
     check_supported(cfg)
-    kinds = cfg.layer_kinds()
-    recurrent = sorted({k for k in kinds if k in RECURRENT})
-    if recurrent:
-        raise NotImplementedError(
-            f"{cfg.name}: recurrent layers {recurrent} under the paged "
-            "layout keep per-slot dense state beside the pool, not ported "
-            "yet (ROADMAP.md, Queue A item 2); serve kv_layout='dense'")
-    windowed = [k for k in kinds if _window_for(cfg, k)]
-    if windowed:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window layers under the paged layout keep "
-            "dense ring buffers beside the pool, not ported yet (ROADMAP.md, "
-            "Queue A item 2); serve kv_layout='dense'")
 
 
 def _window_for(cfg: ModelConfig, kind: str) -> Optional[int]:
@@ -269,23 +260,39 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                               else min(cache_len, window), dtype, device)
 
 
+def paged_layer_kind(cfg: ModelConfig, kind: str) -> bool:
+    """True when ``kind``'s decode cache uses the block pool under a
+    paged cache: linear (non-windowed) attention KV only. Recurrent
+    states are O(1) per sequence and ring buffers are bounded by their
+    window, so both stay per-slot dense."""
+    if kind in RECURRENT or cfg.enc_dec:
+        return False
+    return _window_for(cfg, kind) is None
+
+
 def make_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
                paged: Optional[Tuple[int, int]] = None,
                device="cuda") -> List[Dict]:
     """Decode cache for ``batch`` slots of ``cache_len`` tokens: per layer
     a dense ``(batch, cache_len, KV, hd)`` slab (a windowed layer's ring
     buffer holds ``min(cache_len, window)`` slots; a recurrent layer its
-    per-slot state), or with ``paged=(n_blocks, block_size)`` one block
-    pool ``(n_blocks, block_size, KV, hd)`` shared by all slots."""
+    per-slot state). ``paged=(n_blocks, block_size)`` switches the linear
+    attention layers to one block pool ``(n_blocks, block_size, KV, hd)``
+    each, shared by all slots; rings and recurrent states keep their
+    per-slot dense layout in both modes. The reference stacks its units'
+    caches for ``lax.scan``; the port keeps one entry per layer."""
     if paged is not None:
         check_paged_supported(cfg)
-        n_blocks, block_size = paged
-        return [attn.init_paged_kv_cache(cfg, n_blocks, block_size, dtype,
-                                         device)
-                for _ in range(cfg.n_layers)]
-    check_supported(cfg)
-    return [_layer_cache(cfg, kind, batch, cache_len, dtype, device)
-            for kind in cfg.layer_kinds()]
+    else:
+        check_supported(cfg)
+    out = []
+    for kind in cfg.layer_kinds():
+        if paged is not None and paged_layer_kind(cfg, kind):
+            out.append(attn.init_paged_kv_cache(cfg, *paged, dtype, device))
+        else:
+            out.append(_layer_cache(cfg, kind, batch, cache_len, dtype,
+                                    device))
+    return out
 
 
 def pad_cache(cfg: ModelConfig, cache: List[Dict],
@@ -303,6 +310,46 @@ def pad_cache(cfg: ModelConfig, cache: List[Dict],
             (t.shape[0], extra) + tuple(t.shape[2:]))], dim=1)
             for key, t in c.items()})
     return out
+
+
+# =====================================================================
+# block-granular cache surgery (paged layout)
+# =====================================================================
+# The reference's ``_stacked`` variants address its scan-stacked unit
+# caches; the port keeps a list of per-layer caches, so these two serve
+# every layer.
+def gather_blocks(pool: torch.Tensor, block_ids: torch.Tensor
+                  ) -> torch.Tensor:
+    """Pool (N, bs, ...) and ids (n,) -> (n*bs, ...): the logical rows
+    in block-table order (a copy)."""
+    n, bs = block_ids.shape[0], pool.shape[1]
+    return pool[block_ids.long()].reshape((n * bs,) + tuple(pool.shape[2:]))
+
+
+def _rows_to_blocks(rows: torch.Tensor, n: int, bs: int) -> torch.Tensor:
+    """Fold a token axis (third from last, length T <= n*bs) into (n, bs)
+    blocks, zero-padding the ragged tail of the last block."""
+    pad = n * bs - rows.shape[-3]
+    if pad < 0:
+        raise ValueError(f"{rows.shape[-3]} rows exceed {n} blocks of {bs}")
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros(
+            tuple(rows.shape[:-3]) + (pad,) + tuple(rows.shape[-2:]))],
+            dim=-3)
+    return rows.reshape(tuple(rows.shape[:-3]) + (n, bs)
+                        + tuple(rows.shape[-2:]))
+
+
+def scatter_blocks(pool: torch.Tensor, rows: torch.Tensor,
+                   block_ids: torch.Tensor) -> torch.Tensor:
+    """Write ``rows`` (T, ...) with T <= n*bs into the physical blocks
+    ``block_ids`` (n,) of ``pool`` (N, bs, ...), zero-padding the ragged
+    tail of the last block: the block-granular primitive a prefill graft
+    is built from. In place (the reference returns a new pool); returns
+    ``pool``."""
+    blocks = _rows_to_blocks(rows, block_ids.shape[0], pool.shape[1])
+    pool.index_copy_(0, block_ids.long(), blocks.to(pool.dtype))
+    return pool
 
 
 # =====================================================================
@@ -371,9 +418,10 @@ class Model:
     def init_paged_cache(self, batch: int, cache_len: int, n_blocks: int,
                          block_size: int, dtype=torch.float32,
                          device="cuda") -> List[Dict]:
-        """Paged decode cache: each layer's KV in a shared
-        ``(n_blocks, block_size, KV, hd)`` pool (docs/ARCHITECTURE.md
-        §5)."""
+        """Paged decode cache: each linear attention layer's KV in a
+        shared ``(n_blocks, block_size, KV, hd)`` pool
+        (docs/ARCHITECTURE.md §5); rings and recurrent states per slot,
+        ``batch`` rows of them."""
         return make_cache(self.cfg, batch, cache_len, dtype,
                           paged=(n_blocks, block_size), device=device)
 

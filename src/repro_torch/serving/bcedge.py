@@ -200,11 +200,11 @@ def run_episode(env: EdgeServingEnv, agent,
 #:  log1p(predicted iter ms), log1p(Eq.-1 slot ms),
 #:  KV budget headroom frac (1.0 for dense/unlimited pools),
 #:  log1p(prefill backlog tokens), log1p(preemptions since last decision),
-#:  prefix-cache hit rate, speculative acceptance rate, shared-device-set
-#:  utilization, host-tier occupancy frac]. The last four are features of
-#: parts the port does not have yet (the prefix cache, speculation, a
-#: device budget, the host tier) and read 0, as the reference's do for a
-#: pool without them.
+#:  prefix-cache hit rate (0 for dense or cache-off pools), speculative
+#:  acceptance rate, shared-device-set utilization, host-tier occupancy
+#:  frac]. The last three are features of parts the port does not have
+#:  yet (speculation, a device budget, the host tier) and read 0, as the
+#:  reference's do for a pool without them.
 POOL_STATE_DIM = 13
 
 
@@ -291,7 +291,7 @@ class PoolScheduler:
             headroom,
             np.log1p(max(0, p.prefill_backlog_tokens(model))),
             np.log1p(max(0, new_preempts)),
-            0.0,  # prefix-cache hit rate
+            float(occ.get("prefix_hit_rate", 0.0)),
             0.0,  # speculative acceptance rate
             0.0,  # shared-device-set utilization
             0.0,  # host-tier occupancy

@@ -9,11 +9,15 @@ and the paged KV layout.
 * ``ContinuousBatchingEngine`` — iteration-level batching: a fixed number
   of slots is decoded one token per ``step()``; finished sequences are
   evicted at iteration boundaries and queued prompts are prefilled in
-  budget-bounded chunks. ``kv_layout="paged"`` writes the chunks straight
-  into a shared block pool through each slot's block table
-  (docs/ARCHITECTURE.md §5); ``kv_layout="dense"`` chunks into a per-slot
-  staging cache and grafts it into the slot's row of a dense
-  ``(n_slots, cache_len)`` cache when the prompt is done.
+  budget-bounded chunks. ``kv_layout="paged"`` keeps linear attention
+  K/V in a shared block pool addressed through each slot's block table
+  (docs/ARCHITECTURE.md §5). Where every layer is paged the chunks write
+  the pool straight through the table ("fused" prefill); a hybrid stack
+  (windowed rings, recurrent states beside the pool) and the dense
+  layout chunk into a per-slot staging cache that is grafted into the
+  slot (its blocks, and its row of the dense leaves) when the prompt is
+  done. ``prefix_cache=True`` (paged, every layer paged) shares full
+  prompt blocks between same-prefix sequences at refcount+1.
 
 On the card the attention of every layer runs the hand-written kernels
 (``repro_torch.kernels``); on the CPU their plain versions.
@@ -37,15 +41,18 @@ Preemption (recompute: the snapshot re-prefills the padded prompt plus
 every emitted token on resume) and cancellation at any phase are ported,
 and so is seeded sampling, which draws from its own ``torch.Generator``
 and so matches the reference in distribution, not token for token.
-What is still to port raises (see ROADMAP.md): the prefix cache,
-speculative decoding, the host KV tier (and with it preemption by
-swap), tensor parallelism, windowed and recurrent layers under the paged
-layout, and encoder-decoder and frontend models.
+What is still to port raises (see ROADMAP.md): speculative decoding,
+the host KV tier (and with it preemption by swap and the prefix cache's
+host spill), tensor parallelism, and encoder-decoder and frontend
+models.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import hashlib
 import time
+from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
 import numpy as np
@@ -57,7 +64,9 @@ from repro_torch.kernels import _build
 from repro_torch.models import build_model
 from repro_torch.models.bridge import params_from_jax
 from repro_torch.models.transformer import (check_paged_supported,
-                                            check_supported, pad_cache)
+                                            check_supported, pad_cache,
+                                            paged_layer_kind,
+                                            scatter_blocks)
 
 
 def _bucket(n: int, buckets=(1, 2, 4, 8, 16, 32, 64, 128)) -> int:
@@ -72,6 +81,17 @@ def _bucket(n: int, buckets=(1, 2, 4, 8, 16, 32, 64, 128)) -> int:
 
 
 SEQ_BUCKETS = (16, 32, 64, 128, 256, 512, 640)
+
+
+def supports_prefix_cache(cfg: ModelConfig) -> bool:
+    """Prefix caching shares physical KV blocks, so every layer's decode
+    state must live in the block pool: linear attention KV only
+    (``paged_layer_kind``). Recurrent states and windowed rings are
+    per-slot dense, and a shared-prefix hit would also need the recurrent
+    state at the block boundary, which the cache does not hold."""
+    if cfg.frontend is not None or cfg.enc_dec:
+        return False
+    return all(paged_layer_kind(cfg, k) for k in cfg.layer_kinds())
 
 #: largest chunked-prefill piece; pieces are powers of two up to this
 _MAX_CHUNK = 512
@@ -212,23 +232,35 @@ class InferenceEngine:
 # continuous (iteration-level) batching
 # =====================================================================
 class BlockAllocator:
-    """Free-list allocator over a paged KV block pool: the device tier of
-    the reference's ``BlockAllocator`` without prefix-cache keys or the
-    host tier, so every live block has exactly one owner.
+    """Reference-counted free-list allocator over a paged KV block pool,
+    with a hash-keyed cache of full immutable prefix blocks: the device
+    tier of the reference's ``BlockAllocator`` (its host tier, the spill
+    and revive hooks, is not ported; ROADMAP.md, Queue A item 6).
 
     ``n_blocks`` usable blocks of ``block_size`` tokens; physical ids are
     1..n_blocks (id 0 is the null block inactive batch rows write into,
     never handed out). Admission *reserves* a sequence's worst-case block
     count up front, so the lazy per-decode-boundary ``alloc_reserved``
-    can never fail mid-sequence; eviction frees the blocks and cancels
-    the unfilled remainder of the reservation.
+    can never fail mid-sequence; eviction drops one reference per block
+    and cancels the unfilled remainder of the reservation.
 
-    Invariants (checked after every step in tests/test_torch_engine.py):
-      * ``n_free + n_live == n_blocks`` (disjoint id sets);
-      * ``n_available = n_free - n_reserved >= 0``;
-      * the null block 0 is never allocated.
+    Prefix cache: the engine ``register``s a full, immutable prompt block
+    under its token-chain key; ``acquire`` maps that block into another
+    sequence at refcount+1. A block whose refcount reaches zero returns
+    to the free list when it is unregistered, or parks in an LRU pool
+    when it is cached; parked blocks are reclaimed (oldest first, their
+    key invalidated) when an allocation finds the free list empty.
+
+    Invariants (checked after every step in
+    tests/test_torch_engine_fuzz.py):
+      * ``n_free + n_cached + n_live == n_blocks`` (disjoint id sets);
+      * ``n_available = n_free + n_cached - n_reserved >= 0``;
+      * a block mapped by k sequences has refcount k;
+      * the null block 0 is never allocated;
+      * LRU reclaim only takes refcount-0 blocks.
     ``free`` raises on an out-of-range id, a duplicate within one call or
-    a double free: any of them would hand one block to two sequences.
+    a double free (more frees than references): any of them would hand
+    one block to two sequences.
     """
 
     def __init__(self, n_blocks: int, block_size: int):
@@ -238,23 +270,42 @@ class BlockAllocator:
         self.block_size = block_size
         self._free = list(range(n_blocks, 0, -1))  # pop() -> low ids first
         self._outstanding: Set[int] = set()
+        self._refcount: Dict[int, int] = {}
+        #: prefix cache: chain key -> block id, the reverse map, and the
+        #: LRU pool of refcount-0 cached (reclaimable) blocks
+        self._cache: Dict[str, int] = {}
+        self._block_key: Dict[int, str] = {}
+        self._lru: "OrderedDict[int, None]" = OrderedDict()
         self.n_reserved = 0
+        self.n_reclaimed = 0    # cached blocks evicted under pressure
 
     @property
     def n_free(self) -> int:
         return len(self._free)
 
     @property
+    def n_cached(self) -> int:
+        """Refcount-0 blocks parked in the prefix cache's LRU pool:
+        reclaimable, so they count toward ``n_available``."""
+        return len(self._lru)
+
+    @property
     def n_live(self) -> int:
+        """Distinct physical blocks with refcount >= 1 (a shared block
+        counts once)."""
         return len(self._outstanding)
 
     @property
     def n_available(self) -> int:
-        """Blocks neither live nor promised to an admitted slot."""
-        return len(self._free) - self.n_reserved
+        """Blocks neither live nor promised to an admitted slot (parked
+        LRU blocks are reclaimable, so they count)."""
+        return len(self._free) + len(self._lru) - self.n_reserved
 
     def blocks_for(self, n_tokens: int) -> int:
         return -(-max(0, n_tokens) // self.block_size)
+
+    def refcount(self, bid: int) -> int:
+        return self._refcount.get(bid, 0)
 
     def reserve(self, n: int) -> bool:
         """Promise ``n`` blocks to a sequence; False when they are not
@@ -268,15 +319,31 @@ class BlockAllocator:
         assert 0 <= n <= self.n_reserved
         self.n_reserved -= n
 
+    def _reclaim_lru(self) -> int:
+        """Evict the least recently parked cached block: its key is
+        invalidated and the id serves as a fresh free block."""
+        bid, _ = self._lru.popitem(last=False)
+        del self._cache[self._block_key.pop(bid)]
+        self.n_reclaimed += 1
+        return bid
+
     def alloc_reserved(self) -> int:
-        """Convert one previously reserved block into a physical id."""
+        """Convert one previously reserved block into a physical id,
+        reclaiming from the LRU pool when the free list is empty (never a
+        block with live references: the pool holds refcount-0 blocks
+        only)."""
         assert self.n_reserved > 0, "alloc without reservation"
         self.n_reserved -= 1
-        bid = self._free.pop()
+        bid = self._free.pop() if self._free else self._reclaim_lru()
         self._outstanding.add(bid)
+        self._refcount[bid] = 1
         return bid
 
     def free(self, ids: List[int]) -> None:
+        """Drop one reference per id. A block reaching refcount 0 returns
+        to the free list, or parks in the LRU pool when it is registered
+        in the prefix cache, so a later same-prefix admission can revive
+        it."""
         if len(set(ids)) != len(ids):
             raise ValueError(f"duplicate block ids in free(): {ids}")
         for i in ids:
@@ -287,8 +354,55 @@ class BlockAllocator:
                 raise ValueError(
                     f"double free of block {i}: not currently allocated")
         for i in ids:
+            self._refcount[i] -= 1
+            if self._refcount[i] > 0:
+                continue  # still referenced by another sequence
+            del self._refcount[i]
             self._outstanding.discard(i)
-            self._free.append(i)
+            if i in self._block_key:
+                self._lru[i] = None  # evicted but cached (reclaimable)
+            else:
+                self._free.append(i)
+
+    # ---- prefix cache ----------------------------------------------------
+    def cached(self, key: str) -> bool:
+        """True when the cache holds ``key`` (live or parked)."""
+        return key in self._cache
+
+    def cached_live(self, key: str) -> bool:
+        """True when ``key``'s block is mapped by a live sequence: sharing
+        it costs no extra capacity."""
+        bid = self._cache.get(key)
+        return bid is not None and bid in self._outstanding
+
+    def register(self, key: str, bid: int) -> None:
+        """Publish a full immutable block under its chain key. The block
+        must be live (its writer still owns it); the first writer wins on
+        a key collision, and a block carries at most one key."""
+        assert bid in self._outstanding, f"register of non-live block {bid}"
+        if key in self._cache or bid in self._block_key:
+            return
+        self._cache[key] = bid
+        self._block_key[bid] = key
+
+    def acquire(self, key: str) -> Optional[int]:
+        """Map the cached block for ``key`` into another sequence:
+        refcount+1 for a live block (costs nothing), revival for a parked
+        one (consumes one available block, so it is refused when every
+        remaining block is promised to a reservation). Returns the block
+        id, or None on a miss or a refused revival."""
+        bid = self._cache.get(key)
+        if bid is None:
+            return None
+        if bid in self._outstanding:
+            self._refcount[bid] += 1
+            return bid
+        if self.n_available < 1:
+            return None
+        del self._lru[bid]
+        self._outstanding.add(bid)
+        self._refcount[bid] = 1
+        return bid
 
 
 @dataclasses.dataclass
@@ -307,11 +421,15 @@ class _Slot:
     # remain unallocated (alloc-on-decode-boundary)
     blocks: List[int] = dataclasses.field(default_factory=list)
     n_outstanding: int = 0
+    #: leading blocks of ``blocks`` mapped from the prefix cache at
+    #: refcount+1: immutable, so graft and decode write past them
+    n_shared: int = 0
     # chunked prefill state machine
     seq_tokens: Optional[np.ndarray] = None  # padded prompt (+ resume ctx)
     base_len: int = 0           # padded-prompt length at first admission
     prefill_pos: int = 0        # tokens of seq_tokens processed so far
-    #: dense layout: the one-slot cache the chunks prefill into
+    #: unfused layouts (dense, hybrid paged): the one-slot cache the
+    #: chunks prefill into
     staging: Optional[List[Dict]] = None
     requested_new: int = 0      # caller-requested max_new (pre-clamp)
     truncated: bool = False
@@ -442,13 +560,26 @@ class ContinuousBatchingEngine:
     their chunked prefills under the per-iteration token budget, then
     runs ONE decode iteration over all ``n_slots`` rows.
 
-    ``kv_layout="paged"``: each chunk attends the block pool through the
-    slot's block table (``paged_prefill_attention``) and decode reads it
-    the same way (``paged_decode_attention`` or its split-K form). A slot
-    only holds the blocks its sequence needs (prompt bucket + requested
-    decode tokens); admission is gated on reservable blocks, blocks are
+    ``kv_layout="paged"``: linear attention layers keep K/V in a block
+    pool that decode reads through the slot's block table
+    (``paged_decode_attention`` or its split-K form). A slot only holds
+    the blocks its sequence needs (prompt bucket + requested decode
+    tokens); admission is gated on reservable blocks, blocks are
     allocated when decode crosses a block boundary, and eviction returns
-    them.
+    them. Where every layer is paged, each chunk attends the pool through
+    a table row (``paged_prefill_attention``); a hybrid stack's windowed
+    rings and recurrent states stay per-slot dense beside the pool, and
+    its chunks prefill a one-slot staging cache grafted into the slot's
+    blocks and rows when the prompt is done.
+
+    ``prefix_cache=True`` (paged, and every layer paged, else
+    ``ValueError`` as in the reference): full prompt blocks are published
+    under a chain key over the model name and the padded tokens; a later
+    admission maps the longest cached prefix at refcount+1, reserves only
+    the rest and prefills from the first uncached token. A chain that
+    covers the whole padded prompt copies its tail block into the slot's
+    own (copy-on-write), so the last token is re-scored without writing a
+    shared block.
 
     ``kv_layout="dense"`` (the default, as in the reference): one
     ``(n_slots, cache_len)`` cache row per slot (a ``window``-slot ring
@@ -477,20 +608,37 @@ class ContinuousBatchingEngine:
                  share_from: Optional["ContinuousBatchingEngine"] = None):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
-        for flag, what in ((prefix_cache, "prefix_cache"),
-                           (spec_k > 0, "spec_k > 0"),
-                           (kv_host_blocks > 0, "kv_host_blocks > 0"),
-                           (mesh is not None, "mesh (tensor parallelism)")):
+        for flag, what in (
+                (spec_k > 0, "spec_k > 0 (Queue A item 6, speculation)"),
+                (kv_host_blocks > 0,
+                 "kv_host_blocks > 0 (Queue A item 6, the host tier)"),
+                (mesh is not None,
+                 "mesh (Queue A item 8, tensor parallelism)")):
             if flag:
                 raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP.md, Queue A items "
-                    "5 and 10)")
+                    f"{what} is not ported yet (ROADMAP.md)")
         if kv_layout == "paged":
             check_paged_supported(cfg)
         else:
             check_supported(cfg)
         if token_budget is not None and token_budget < 1:
             raise ValueError(f"token_budget must be >= 1, got {token_budget}")
+        if prefix_cache:
+            if kv_layout != "paged":
+                raise ValueError(
+                    "prefix_cache needs kv_layout='paged' (sharing is "
+                    "block-granular)")
+            if not supports_prefix_cache(cfg):
+                raise ValueError(
+                    f"{cfg.name}: prefix_cache needs every layer's decode "
+                    "state in the block pool (linear attention only); "
+                    "recurrent/windowed/frontend layers keep per-slot "
+                    "dense state the cache cannot share")
+        self.prefix_cache = prefix_cache
+        #: chunks run straight against the pool where every layer is
+        #: paged; dense and hybrid layouts go through a staging cache
+        self.fused_prefill = kv_layout == "paged" \
+            and supports_prefix_cache(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.n_slots = max(1, max_slots)
@@ -544,6 +692,10 @@ class ContinuousBatchingEngine:
         self.n_preempted = 0
         self.n_cancelled = 0
         self.n_prefill_chunk_tokens = 0
+        #: prefix-cache accounting (tokens; rate = hit / (hit + chunked))
+        self.n_prefix_lookups = 0
+        self.n_prefix_hits = 0
+        self.n_prefix_hit_tokens = 0
         self.prefill_shapes: Set[Tuple[int, int]] = set()
         #: lifecycle hooks, fired synchronously inside engine calls (keep
         #: them cheap; they must not reenter the engine):
@@ -607,25 +759,119 @@ class ContinuousBatchingEngine:
 
     def admissible(self, prompt_len: int, max_new: int,
                    pending_blocks: int = 0,
-                   resume: Optional[PreemptedRequest] = None) -> bool:
+                   resume: Optional[PreemptedRequest] = None,
+                   prompt: Optional[np.ndarray] = None) -> bool:
         """Could a request of this shape be admitted right now? Dense: a
         free slot. Paged: a free slot and enough unreserved blocks, less
         ``pending_blocks`` a caller has promised to requests it routed
         here but the engine has not reserved yet. With ``resume`` the
         need is the preempted sequence's padded context instead of the
-        fresh prompt's shape."""
+        fresh prompt's shape. With the prefix cache on, blocks the cache
+        holds LIVE for this sequence (the ``prompt`` tokens, or the
+        resumed context) are discounted: sharing them costs no
+        capacity."""
         if not self.free_slots:
             return False
         if self.kv_layout != "paged":
             return True
-        need = self.resume_blocks(resume) if resume is not None \
-            else self.request_blocks(prompt_len, max_new)
-        return self.allocator.n_available - pending_blocks >= need
+        if resume is not None:
+            need = self.resume_blocks(resume)
+            if self.prefix_cache:
+                need -= self._live_shared_blocks(resume.seq_tokens)
+        else:
+            need = self.request_blocks(prompt_len, max_new)
+            if self.prefix_cache and prompt is not None:
+                need -= self._live_shared_blocks(
+                    self._padded_seq(np.asarray(prompt, np.int32)))
+        return self.allocator.n_available - pending_blocks >= max(0, need)
+
+    # ---- prefix cache ----------------------------------------------------
+    @staticmethod
+    @functools.lru_cache(maxsize=4096)
+    def _chain_keys_cached(model: str, block_size: int,
+                           seq_bytes: bytes) -> Tuple[str, ...]:
+        """Memoized: the router hashes one prompt once per candidate
+        instance per pass otherwise; keys depend only on (model, block
+        size, padded tokens)."""
+        seq = np.frombuffer(seq_bytes, np.int32)
+        keys: List[str] = []
+        h = hashlib.sha1(model.encode())
+        for i in range(len(seq) // block_size):
+            h.update(seq[i * block_size:(i + 1) * block_size].tobytes())
+            keys.append(h.hexdigest())
+        return tuple(keys)
+
+    def _chain_keys(self, seq: np.ndarray) -> Tuple[str, ...]:
+        """One chain key per FULL block of ``seq``: an incremental sha1
+        over the model name and the token ids up to and including that
+        block, so a key matches iff the whole padded prefix matches (the
+        left-pad rows are attended, so they are content)."""
+        return self._chain_keys_cached(
+            self.cfg.name, self.block_size,
+            np.ascontiguousarray(seq, np.int32).tobytes())
+
+    def _prefix_lookup(self, seq: np.ndarray
+                       ) -> Tuple[List[str], int, Optional[str]]:
+        """Longest cached block-aligned prefix of ``seq``: (keys of the
+        full blocks to map shared, first uncached token position, the
+        copy-on-write source key or None). When the chain covers the
+        whole sequence the last block is not mapped shared: its final
+        token is re-scored (the first decode step needs its logits), so
+        the cached block is copied into the slot's private tail block and
+        writes only ever land in unshared blocks."""
+        keys = self._chain_keys(seq)
+        n_hit = 0
+        for k in keys:
+            if not self.allocator.cached(k):
+                break
+            n_hit += 1
+        bs = self.block_size
+        if n_hit and n_hit * bs >= len(seq):
+            return list(keys[:n_hit - 1]), len(seq) - 1, keys[n_hit - 1]
+        return list(keys[:n_hit]), n_hit * bs, None
+
+    @staticmethod
+    def _padded_seq(prompt: np.ndarray) -> np.ndarray:
+        S = _bucket(len(prompt), buckets=SEQ_BUCKETS)
+        seq = np.zeros((S,), np.int32)
+        seq[S - len(prompt):] = prompt
+        return seq
+
+    def cached_prefix_tokens(self, prompt: np.ndarray,
+                             prepadded: bool = False) -> int:
+        """Tokens of ``prompt`` (a resumed context when ``prepadded``) the
+        prefix cache holds now: the router's prefix-affinity signal.
+        Read-only: nothing is acquired."""
+        if not self.prefix_cache:
+            return 0
+        seq = np.asarray(prompt, np.int32) if prepadded \
+            else self._padded_seq(np.asarray(prompt, np.int32))
+        return self._prefix_lookup(seq)[1]
+
+    def _live_shared_blocks(self, seq: np.ndarray) -> int:
+        """Blocks an admission of the padded sequence ``seq`` would map
+        from LIVE cached blocks (refcount >= 1); a parked hit is left out,
+        since reviving it consumes an available block anyway."""
+        n = 0
+        for k in self._chain_keys(np.asarray(seq, np.int32)):
+            if not self.allocator.cached_live(k):
+                break
+            n += 1
+        if n and n * self.block_size >= len(seq):
+            n -= 1  # the last block stays private (copy-on-write)
+        return n
+
+    def _copy_pool_block(self, dst: int, src: int) -> None:
+        """Copy one physical block across every paged layer's K and V, in
+        place (the copy-on-write of a fully covering chain's tail block;
+        every layer is paged wherever the prefix cache is on)."""
+        for c in self.cache:
+            for key in ("k", "v"):
+                c[key][dst].copy_(c[key][src])
 
     def kv_block_mapping(self) -> Tuple[int, int]:
         """(logical block mappings, distinct physical blocks) over the
-        active slots. Without a prefix cache every block has one owner,
-        so the two are equal."""
+        active slots: the pool sums these across instances."""
         mapped = [b for s in self.slots if s.active for b in s.blocks]
         return len(mapped), len(set(mapped))
 
@@ -721,8 +967,11 @@ class ContinuousBatchingEngine:
     def admit(self) -> int:
         """Move waiting prompts into free slots, FIFO; under the paged
         layout only while the head request's worst-case block count is
-        reservable. Admission only ASSIGNS the slot (reserves blocks and
-        allocates the prompt's blocks, or makes the dense staging cache;
+        reservable. With the prefix cache on, the longest cached prefix
+        is mapped at refcount+1 first and only the rest is reserved (an
+        ``acquire`` that would break a reservation ends the chain there).
+        Admission only ASSIGNS the slot (maps and reserves blocks and
+        allocates the prompt's uncached ones, or makes the staging cache;
         builds the left-padded token sequence); the prefill itself
         advances in budget-bounded chunks inside ``step()``. Returns
         #admissions."""
@@ -734,35 +983,69 @@ class ContinuousBatchingEngine:
                 seq = w.prompt
                 base_len = w.base_len
             else:
-                S = _bucket(len(w.prompt), buckets=SEQ_BUCKETS)
-                seq = np.zeros((S,), np.int32)
-                seq[S - len(w.prompt):] = w.prompt
-                base_len = S
-            reserved = n0 = 0
-            ids: List[int] = []
-            staging = None
+                seq = self._padded_seq(w.prompt)
+                base_len = len(seq)
+            reserved = n0 = pos0 = 0
+            shared: List[int] = []
+            cow_key: Optional[str] = None
             if self.kv_layout == "paged":
-                reserved = self.allocator.blocks_for(len(seq) + w.max_new)
+                need = self.allocator.blocks_for(len(seq) + w.max_new)
+                if self.prefix_cache:
+                    self.n_prefix_lookups += 1
+                    hit_keys, pos0, cow_key = self._prefix_lookup(seq)
+                    for k in hit_keys:
+                        bid = self.allocator.acquire(k)
+                        if bid is None:
+                            break
+                        shared.append(bid)
+                    if len(shared) < len(hit_keys):
+                        pos0 = len(shared) * self.block_size
+                        cow_key = None
+                reserved = need - len(shared)
                 if not self.allocator.reserve(reserved):
+                    if shared:
+                        self.allocator.free(shared)
                     break  # FIFO: head of queue blocks on memory
-                # allocate the prompt's blocks now; the decode tail of the
-                # reservation is claimed lazily at block boundaries in
-                # step(). block_tables stays on the null block until the
-                # prefill lands (the decode batch's dummy writes for this
-                # row keep sinking into the null block); chunks carry
-                # their own table row.
-                n0 = self.allocator.blocks_for(len(seq))
-                ids = [self.allocator.alloc_reserved() for _ in range(n0)]
-            else:
-                staging = self.model.init_cache(1, self.cache_len,
-                                                device=self.device)
             self.waiting.pop(0)
             slot = free.pop(0)
+            ids = list(shared)
+            staging = None
+            if self.kv_layout == "paged":
+                # allocate the uncached prompt blocks now; the decode tail
+                # of the reservation is claimed lazily at block boundaries
+                # in step(). block_tables stays on the null block until
+                # the prefill lands (the decode batch's dummy writes for
+                # this row keep sinking into the null block); chunks carry
+                # their own table row.
+                n0 = self.allocator.blocks_for(len(seq))
+                ids += [self.allocator.alloc_reserved()
+                        for _ in range(n0 - len(shared))]
+            if self.fused_prefill:
+                if pos0 and cow_key is not None:
+                    # the chain covers the whole padded prompt: copy its
+                    # tail block into the slot's own, so re-scoring the
+                    # last token writes no shared block
+                    src = self.allocator.acquire(cow_key)
+                    if src is None:  # revival refused: shrink the hit
+                        pos0 = len(shared) * self.block_size
+                    else:
+                        self._copy_pool_block(ids[-1], src)
+                        self.allocator.free([src])
+            else:
+                # dense and hybrid layouts never hit (the cache needs the
+                # same layer gate as fused prefill): the staging cache
+                # starts empty
+                staging = self.model.init_cache(1, self.cache_len,
+                                                device=self.device)
+            if pos0:
+                self.n_prefix_hits += 1
+                self.n_prefix_hit_tokens += pos0
             self.slots[slot] = _Slot(
                 request_id=w.request_id, remaining=w.max_new,
                 submit_s=w.submit_s, admit_s=self._now(), blocks=ids,
-                n_outstanding=reserved - n0, seq_tokens=seq,
-                base_len=base_len, staging=staging,
+                n_outstanding=reserved - (n0 - len(shared)),
+                n_shared=len(shared), seq_tokens=seq, base_len=base_len,
+                prefill_pos=pos0, staging=staging,
                 requested_new=w.requested_new, truncated=w.truncated,
                 n_preempted=w.n_preempted, first_token_s=w.first_token_s)
             self.pos[slot] = 0
@@ -779,12 +1062,12 @@ class ContinuousBatchingEngine:
 
     def _prefill_step(self, budget_left: int) -> int:
         """Advance in-slot chunked prefills by at most ``budget_left``
-        tokens, in power-of-two pieces of at most ``_MAX_CHUNK``. Paged:
+        tokens, in power-of-two pieces of at most ``_MAX_CHUNK``. Fused:
         each chunk runs directly against the pool through a table row
-        built from the slot's allocated blocks. Dense: each chunk runs
-        against the slot's staging cache. A slot whose last chunk lands
-        joins the decode batch of this same iteration. Returns tokens
-        processed."""
+        built from the slot's blocks, attending shared prefix blocks in
+        place. Otherwise each chunk runs against the slot's staging
+        cache. A slot whose last chunk lands joins the decode batch of
+        this same iteration. Returns tokens processed."""
         done_tokens = 0
         for i in list(self.prefilling_slots):
             s = self.slots[i]
@@ -797,7 +1080,7 @@ class ContinuousBatchingEngine:
                 self.prefill_shapes.add((c, self.cache_len))
                 batch = {"tokens": self._int_tensor(toks[None, :]),
                          "pos": self._int_tensor([s.prefill_pos])}
-                if self.kv_layout == "paged":
+                if self.fused_prefill:
                     tbl = np.zeros((1, self.blocks_per_slot), np.int32)
                     tbl[0, :len(s.blocks)] = s.blocks
                     batch["block_tables"] = self._int_tensor(tbl)
@@ -817,28 +1100,49 @@ class ContinuousBatchingEngine:
 
     def _finish_prefill(self, slot: int, logits: torch.Tensor) -> None:
         """Last chunk landed: point the block table at the prompt's blocks
-        (paged) or graft the staging cache into the slot's row (dense),
-        and hand the slot to the decode loop."""
+        (paged), graft the staging cache into the slot (unfused layouts;
+        shared blocks are skipped), publish the full prompt blocks under
+        their chain keys (prefix cache), and hand the slot to the decode
+        loop."""
         s = self.slots[slot]
         if self.kv_layout == "paged":
             self.block_tables[slot, :len(s.blocks)] = s.blocks
+            if not self.fused_prefill:
+                self._graft(s.staging, slot, block_ids=s.blocks,
+                            skip_blocks=s.n_shared)
+            if self.prefix_cache:
+                for i, key in enumerate(self._chain_keys(s.seq_tokens)):
+                    if i >= s.n_shared:
+                        self.allocator.register(key, s.blocks[i])
         else:
             self._graft(s.staging, slot)
-            s.staging = None
+        s.staging = None
         self.pos[slot] = s.prefill_pos
         self.pending_tok[slot] = int(sample_tokens(logits[0, -1, :]))
         if self.on_state is not None:
             self.on_state(s.request_id, "decode")
 
-    def _graft(self, one_cache: List[Dict], slot: int) -> None:
-        """Copy a prefilled one-slot dense cache into row ``slot`` of every
-        leaf of every layer's cache, in place (the reference's
-        ``graft_layer`` maps over every leaf): K/V rows, and a recurrent
-        layer's state (``h`` and ``conv``; ``att_state``, ``att_shift``
-        and ``ffn_shift``). The staging cache has the slot row's shape
-        (``cache_len`` long, rings ``window``), so the whole row is
-        replaced: prefill wrote [0, S), the rest is zeros."""
-        for full, one in zip(self.cache, one_cache):
+    def _graft(self, one_cache: List[Dict], slot: int,
+               block_ids: Optional[List[int]] = None,
+               skip_blocks: int = 0) -> None:
+        """Copy a prefilled one-slot staging cache into the engine's
+        cache, in place. A paged layer (``block_ids`` given) scatters the
+        staging rows its blocks cover into those blocks, past the first
+        ``skip_blocks`` (prefix-cache blocks mapped shared, which already
+        hold the right content); the rows past the prompt are zeros.
+        Every other leaf (dense K/V rows, rings, and a recurrent layer's
+        state: ``h`` and ``conv``; ``att_state``, ``att_shift`` and
+        ``ffn_shift``) replaces row ``slot`` whole: the staging cache has
+        the row's shape, prefill wrote [0, S) and the rest is zeros."""
+        kinds = self.cfg.layer_kinds()
+        for kind, full, one in zip(kinds, self.cache, one_cache):
+            if block_ids is not None and paged_layer_kind(self.cfg, kind):
+                ids = self._int_tensor(block_ids[skip_blocks:])
+                start = skip_blocks * self.block_size
+                cap = len(block_ids) * self.block_size
+                for key in ("k", "v"):
+                    scatter_blocks(full[key], one[key][0, start:cap], ids)
+                continue
             for key, t in full.items():
                 t[slot].copy_(one[key][0])
 
@@ -846,12 +1150,20 @@ class ContinuousBatchingEngine:
     def preemption_candidates(self) -> List[Tuple[int, int, int]]:
         """(slot, request_id, freeable blocks) for every preemptible
         resident: decoding slots only, never a mid-chunk prefill (its
-        chunks would be thrown away and bought again at once). Every block
-        has one owner here (no prefix cache), so all of a slot's blocks
-        and the unconsumed rest of its reservation free on eviction."""
-        return [(i, s.request_id, s.n_outstanding + len(s.blocks))
-                for i, s in enumerate(self.slots)
-                if s.active and not s.prefilling]
+        chunks would be thrown away and bought again at once). A block
+        other sequences also map (refcount > 1) frees no capacity when
+        this slot drops its reference, so only sole-reference blocks and
+        the unconsumed rest of the reservation count as freeable."""
+        out = []
+        for i, s in enumerate(self.slots):
+            if not s.active or s.prefilling:
+                continue
+            freeable = s.n_outstanding
+            if self.kv_layout == "paged":
+                freeable += sum(1 for b in s.blocks
+                                if self.allocator.refcount(b) == 1)
+            out.append((i, s.request_id, freeable))
+        return out
 
     def can_swap(self, slot: int) -> bool:
         """Could ``slot`` be preempted with ``mode="swap"``? Never: the
@@ -865,15 +1177,17 @@ class ContinuousBatchingEngine:
             return [int(t) for t in s.seq_tokens[s.base_len:]] + s.tokens
         return s.tokens
 
-    def _free_slot(self, i: int) -> None:
-        """Return slot ``i``'s blocks and the unconsumed rest of its
-        reservation (paged) and empty the slot."""
+    def _free_slot(self, i: int, reset_pos: bool = True) -> None:
+        """Drop slot ``i``'s block references (a registered block parks in
+        the prefix cache's LRU pool at refcount 0) and the unconsumed rest
+        of its reservation (paged), and empty the slot."""
         s = self.slots[i]
         if self.kv_layout == "paged":
             self.allocator.free(s.blocks)
             self.allocator.unreserve(s.n_outstanding)
             self.block_tables[i, :] = 0
-        self.pos[i] = 0
+        if reset_pos:
+            self.pos[i] = 0
         self.slots[i] = _Slot()
 
     def preempt(self, slot: int, requeue: bool = True,
@@ -929,9 +1243,11 @@ class ContinuousBatchingEngine:
     def cancel(self, request_id: int) -> Optional[ContinuousResult]:
         """Tear ``request_id`` down at whatever phase it is in (queued,
         mid-chunk prefill, decoding, or queued again after a preemption)
-        and free its memory before returning: its blocks go back to the
-        allocator and the unconsumed rest of its reservation is
-        cancelled. Returns a ``ContinuousResult`` with ``cancelled=True``
+        and free its memory before returning: its block references
+        (shared prefix blocks included) go back to the allocator and the
+        unconsumed rest of its reservation is cancelled. Nothing of a
+        mid-prefill sequence was registered yet, so no key can reference
+        its partly written blocks. Returns a ``ContinuousResult`` with ``cancelled=True``
         carrying the partial completion, or ``None`` when the id is not
         live here (finished already, or resident elsewhere in a pool)."""
         for qi, w in enumerate(self.waiting):
@@ -966,9 +1282,12 @@ class ContinuousBatchingEngine:
 
     # ---- iteration -------------------------------------------------------
     def _release(self, i: int) -> None:
-        """Evict slot ``i``. Paged: free-on-evict, blocks return to the
-        pool and the unconsumed tail of the reservation is cancelled."""
-        self._free_slot(i)
+        """Evict the finished slot ``i``. Paged: free-on-evict, blocks
+        return to the pool and the unconsumed tail of the reservation is
+        cancelled. A dense slot keeps its position, as in the reference:
+        its idle row's dummy decode writes stay where the reference's do
+        (the next admission's graft overwrites the row)."""
+        self._free_slot(i, reset_pos=self.kv_layout == "paged")
         self.n_evicted += 1
 
     def step(self) -> List[ContinuousResult]:
@@ -1073,24 +1392,52 @@ class ContinuousBatchingEngine:
 
     @property
     def kv_unique_used_tokens(self) -> int:
-        """Physical cache positions live sequences occupy: per block
-        under the paged layout (positions past a slot's allocated blocks
-        do not count), ``kv_used_tokens`` under the dense one."""
+        """Distinct physical cache positions live sequences occupy: per
+        block under the paged layout, a shared block counted once
+        (``kv_used_tokens`` stays per sequence, so under sharing it can
+        exceed this). A mid-prefill slot of an unfused (hybrid) layout
+        holds nothing in the pool until its graft."""
         if self.kv_layout != "paged":
             return self.kv_used_tokens
         bs = self.block_size
-        total = 0
+        cov: Dict[int, int] = {}
         for i, s in enumerate(self.slots):
             if not s.active:
                 continue
-            c = s.prefill_pos if s.prefilling else int(self.pos[i]) + 1
-            total += sum(max(0, min(bs, c - idx * bs))
-                         for idx in range(len(s.blocks)))
-        return total
+            if s.prefilling:
+                c = s.prefill_pos if self.fused_prefill \
+                    else min(s.prefill_pos, s.n_shared * bs)
+            else:
+                c = int(self.pos[i]) + 1
+            for idx, bid in enumerate(s.blocks):
+                t = min(bs, c - idx * bs)
+                if t <= 0:
+                    break
+                cov[bid] = max(cov.get(bid, 0), t)
+        return sum(cov.values())
+
+    @property
+    def kv_shared_frac(self) -> float:
+        """Fraction of live block mappings backed by a physical block some
+        other sequence also maps: 1 - distinct/logical (0 without
+        sharing)."""
+        logical, distinct = self.kv_block_mapping()
+        return 1.0 - distinct / logical if logical else 0.0
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Prompt tokens served from the prefix cache as a fraction of all
+        prompt tokens processed (hit + chunked prefill) over the engine's
+        lifetime."""
+        total = self.n_prefix_hit_tokens + self.n_prefill_chunk_tokens
+        return self.n_prefix_hit_tokens / total if total else 0.0
 
     def stats(self) -> Dict[str, float]:
         """Counters + KV occupancy metrics (the reference's keys for the
-        features the port has, plus ``n_prefill_chunks``)."""
+        features the port has, plus ``n_prefill_chunks``).
+        ``kv_waste_frac`` counts a shared block once; ``kv_used_tokens``
+        stays per sequence, so used over allocated can pass 1 under
+        sharing: the capacity the prefix cache buys."""
         used = float(self.kv_used_tokens)
         uniq = float(self.kv_unique_used_tokens)
         alloc = float(self.kv_allocated_tokens)
@@ -1107,6 +1454,12 @@ class ContinuousBatchingEngine:
             "kv_reserved_tokens": float(
                 self.allocator.n_reserved * self.block_size
                 if self.kv_layout == "paged" else 0),
+            "kv_cached_tokens": float(
+                self.allocator.n_cached * self.block_size
+                if self.kv_layout == "paged" else 0),
+            "kv_shared_frac": self.kv_shared_frac,
+            "prefix_hit_rate": self.prefix_hit_rate,
+            "n_prefix_hits": float(self.n_prefix_hits),
             "queue_depth": float(len(self.waiting)),
             "n_preempted": float(self.n_preempted),
             "n_cancelled": float(self.n_cancelled),

@@ -28,6 +28,12 @@ pure-decode iteration records occupancy samples
 (``latency_model.fit_occupancy``) that the ``PoolScheduler``'s memory
 guard prices (b, m_c) against.
 
+With ``prefix_cache=True`` (paged) every instance whose model pages all
+its layers shares full prompt blocks between same-prefix sequences, and
+the router prefers the instance whose cache already holds a request's
+prefix; a model with windowed or recurrent layers serves without the
+cache.
+
 With ``preemption=True`` the router evicts the largest-slack resident
 (never a mid-chunk prefill) when the most urgent waiting request cannot be
 admitted and its slack no longer covers its predicted service time; the
@@ -37,9 +43,8 @@ victim resumes through ``submit_resume`` by recomputing its context.
 Every instance runs on the pool's ``device`` (default ``"cuda"``, which
 raises without a GPU; ``device="cpu"`` runs the kernels' plain versions).
 What the port's engine cannot serve yet raises ``NotImplementedError``:
-the host KV tier and with it ``preempt_mode="swap"``, the prefix cache,
-speculative decoding, tensor parallelism and a device budget
-(ROADMAP.md).
+the host KV tier and with it ``preempt_mode="swap"``, speculative
+decoding, tensor parallelism and a device budget (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -59,7 +64,8 @@ from repro_torch.models.bridge import params_from_jax
 from repro_torch.serving import latency_model as lm
 from repro_torch.serving import request as lifecycle
 from repro_torch.serving.engine import (ContinuousBatchingEngine,
-                                        ContinuousResult, PreemptedRequest)
+                                        ContinuousResult, PreemptedRequest,
+                                        supports_prefix_cache)
 from repro_torch.serving.request import RequestLifecycle
 
 # instance lifecycle states (docs/RUNTIME.md state machine)
@@ -220,12 +226,15 @@ class ModelInstancePool:
                 f"preempt_mode must be 'recompute', 'swap' or 'auto', "
                 f"got {preempt_mode!r}")
         for flag, what, item in (
-                (kv_host_blocks > 0, "kv_host_blocks > 0", "item 5"),
-                (preempt_mode == "swap", 'preempt_mode="swap"', "item 5"),
-                (prefix_cache, "prefix_cache", "item 5"),
-                (spec_k > 0, "spec_k > 0", "item 5"),
-                (tp_degree > 1, "tp_degree > 1", "item 10"),
-                (n_devices is not None, "n_devices", "item 10")):
+                (kv_host_blocks > 0, "kv_host_blocks > 0",
+                 "item 6, the host tier"),
+                (preempt_mode == "swap", 'preempt_mode="swap"',
+                 "item 6, the host tier"),
+                (spec_k > 0, "spec_k > 0", "item 6, speculation"),
+                (tp_degree > 1, "tp_degree > 1",
+                 "item 8, tensor parallelism"),
+                (n_devices is not None, "n_devices",
+                 "item 8, tensor parallelism")):
             if flag:
                 raise _unported(what, item)
         if kv_layout not in ("dense", "paged"):
@@ -244,6 +253,11 @@ class ModelInstancePool:
         self.block_size = block_size
         self.kv_block_budget = kv_block_budget
         self.kv_blocks_free = kv_block_budget
+        #: prefix caching: paged engines share full immutable prompt
+        #: blocks at refcount+1 and the router gains prefix affinity; a
+        #: model whose stack cannot page every decode state serves
+        #: without it (per-model capability, one flag)
+        self.prefix_cache = prefix_cache and kv_layout == "paged"
         #: target grant for a paged instance; default = dense-equivalent
         #: worst case
         self.blocks_per_instance = blocks_per_instance
@@ -450,7 +464,9 @@ class ModelInstancePool:
             grant = charge = 0  # unlimited dense pool: nothing to account
         kw = {}
         if self.kv_layout == "paged":
-            kw = {"block_size": self.block_size, "kv_blocks": grant}
+            kw = {"block_size": self.block_size, "kv_blocks": grant,
+                  "prefix_cache": self.prefix_cache
+                  and supports_prefix_cache(self.configs[model])}
         tmpl = self._templates.get(model)
         eng = ContinuousBatchingEngine(
             self.configs[model], max_slots=self.max_slots,
@@ -766,7 +782,7 @@ class ModelInstancePool:
         ("auto", "recompute") recomputes."""
         if self.preempt_mode == "recompute" or not eng.can_swap(slot):
             return "recompute"
-        raise _unported("preemption by swap", "item 5")
+        raise _unported("preemption by swap", "item 6, the host tier")
 
     def _reject(self, req: PoolRequest) -> PoolResult:
         now = self.now()
@@ -823,7 +839,7 @@ class ModelInstancePool:
                             if i.engine.admissible(
                                 len(req.prompt), req.max_new_tokens,
                                 pending.get(i.instance_id, 0),
-                                resume=req.resume)]
+                                resume=req.resume, prompt=req.prompt)]
 
                 cands = _cands() if open_insts else []
                 if not cands and self.preemption and \
@@ -840,7 +856,19 @@ class ModelInstancePool:
                         rejected.append(self._reject(req))
                         continue
                     break
-                inst = max(cands, key=lambda i: cap - i.n_resident)
+                if self.prefix_cache:
+                    # prefix affinity: prefer the instance whose cache
+                    # holds the request's prefix (hit tokens first, the
+                    # least loaded as the tie-break), so shared prompts
+                    # concentrate instead of prefilling on every instance
+                    inst = max(cands, key=lambda i: (
+                        i.engine.cached_prefix_tokens(
+                            req.resume.seq_tokens if req.resume is not None
+                            else req.prompt,
+                            prepadded=req.resume is not None),
+                        cap - i.n_resident))
+                else:
+                    inst = max(cands, key=lambda i: cap - i.n_resident)
                 heapq.heappop(q)
                 if self.kv_layout == "paged":
                     pending[inst.instance_id] = \
@@ -1050,9 +1078,20 @@ class ModelInstancePool:
             return 0.0
         return lm.fit_occupancy(self.occupancy_samples[-_SAMPLE_WINDOW:])
 
+    def prefix_hit_rate(self) -> float:
+        """Prompt tokens served from prefix caches as a fraction of all
+        prompt tokens processed, over the live instances: a scheduler
+        state feature."""
+        live = self.live()
+        hit = sum(i.engine.n_prefix_hit_tokens for i in live)
+        total = hit + sum(i.engine.n_prefill_chunk_tokens for i in live)
+        return hit / total if total else 0.0
+
     def kv_shared_frac(self) -> float:
         """Fraction of live block mappings backed by a block another
-        resident sequence also maps: 0 without a prefix cache."""
+        resident sequence also maps: 0 without a prefix cache. The guard
+        prices effective blocks with it (a shared block charges the
+        budget once)."""
         logical = distinct = 0
         for i in self.live():
             if i.engine.kv_layout != "paged":
@@ -1077,6 +1116,7 @@ class ModelInstancePool:
                                           for i in self.live())),
             "tokens_per_seq": self.occupancy_tokens_per_seq(),
             "shared_frac": self.kv_shared_frac(),
+            "prefix_hit_rate": self.prefix_hit_rate(),
         }
 
     def slot_ms(self, model: str) -> float:

@@ -1,6 +1,7 @@
 """The port's serving CLI against the reference's, on the CPU, for the
-engine flags of preemption, speculation, the prefix cache, the host tier
-and push-mode HTTP serving.
+engine flags of preemption, speculation, the prefix cache and its
+templated workload, the host tier, the paged pool and push-mode HTTP
+serving.
 
 Both CLIs parse the same command line with their serving functions
 replaced by recorders: the same outcome follows (the same serving mode
@@ -21,9 +22,10 @@ from repro_torch.launch import serve as serve_cli
 #: the arguments each serving function's outcome is compared on
 KEYS = {
     "serve_round": ("arch",),
-    "serve_continuous": ("arch", "kv_layout"),
+    "serve_continuous": ("arch", "kv_layout", "prefix_cache",
+                         "shared_prefix_tokens"),
     "serve_pool": ("models", "kv_layout", "preemption", "kv_host_blocks",
-                   "preempt_mode"),
+                   "preempt_mode", "prefix_cache", "shared_prefix_tokens"),
     "serve_http": ("models", "port", "kv_layout", "backpressure",
                    "max_queue_depth", "max_instances"),
 }
@@ -53,6 +55,17 @@ CASES = {
                         "--kv-host-blocks", "8"],
     "swap-without-host-tier": ["--engine", "--models", "qwen3-0.6b",
                                "--preempt-mode", "swap"],
+    "continuous-prefix-cache-paged": [
+        "--engine", "--exec-mode", "continuous", "--kv-layout", "paged",
+        "--prefix-cache", "--shared-prefix-tokens", "32"],
+    "pool-pair-paged": ["--engine", "--models",
+                        "qwen3-0.6b,recurrentgemma-2b", "--exec-mode",
+                        "continuous", "--kv-layout", "paged",
+                        "--kv-block-budget", "64"],
+    "pool-pair-paged-prefix-cache": [
+        "--engine", "--models", "qwen3-0.6b,recurrentgemma-2b",
+        "--kv-layout", "paged", "--prefix-cache", "--shared-prefix-tokens",
+        "500"],
 }
 
 

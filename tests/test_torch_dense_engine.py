@@ -172,14 +172,33 @@ def test_ring_write_keeps_the_last_position_per_slot():
 
 
 def test_paged_engine_still_refuses_windowed_stacks():
-    """Windowed layers keep dense rings beside the pool in the reference;
-    the port's paged layout does not cover them yet."""
+    """Windowed layers keep their dense rings beside the pool under the
+    paged layout, as in the reference: the paged engine serves the
+    reference's paged tokens, its rings equal the reference's to 1e-5,
+    and what it still refuses is the prefix cache (the reference's
+    ValueError: a ring cannot be shared)."""
+    from repro_torch.models.bridge import unstack_layers
+
     for name in ("windowed", "swa"):
-        with pytest.raises(NotImplementedError, match="kv_layout='dense'"):
-            ContinuousBatchingEngine(_torch_cfg(KIND_CFGS[name]),
-                                     kv_layout="paged", device="cpu")
-        ContinuousBatchingEngine(_torch_cfg(KIND_CFGS[name]),
-                                 kv_layout="dense", device="cpu")
+        cfg = KIND_CFGS[name]
+        with pytest.raises(ValueError, match="prefix_cache"):
+            ContinuousBatchingEngine(_torch_cfg(cfg), kv_layout="paged",
+                                     prefix_cache=True, device="cpu")
+        kw = dict(max_slots=2, max_seq=96, kv_layout="paged", block_size=8,
+                  token_budget=12)
+        je = JaxEngine(cfg, **kw)
+        te = ContinuousBatchingEngine(_torch_cfg(cfg), device="cpu", **kw)
+        te.load_jax_params(jax.tree.map(np.asarray, je.params))
+        rng = np.random.default_rng(len(name))
+        prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+                   for n in (25, 6, 40)]
+        want = [r.tokens.tolist() for r in je.run(prompts, 6)]
+        assert [r.tokens.tolist() for r in te.run(prompts, 6)] == want
+        ref = unstack_layers(jax.tree.map(np.asarray, je.cache), cfg)
+        for got, exp in zip(te.cache, ref):
+            for key, t in got.items():
+                np.testing.assert_allclose(t.numpy(), exp[key],
+                                           atol=CACHE_ATOL, err_msg=name)
 
 
 def test_serve_continuous_dense_serves_on_the_cpu_when_asked():

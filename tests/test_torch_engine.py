@@ -10,7 +10,8 @@ tests/test_engine_fuzz.py checks for the reference.
 
 Also here: the no-jax import guard (in a subprocess, since this
 process imported jax through conftest.py), the device policy (no GPU and
-no ``device`` argument raises), the features this slice refuses, and
+no ``device`` argument raises), the features the port still refuses, the
+prefix cache's gate, hybrid stacks under the paged layout, and
 ``chip_smoke.py``'s refusal to run without a GPU or outside a checkout.
 """
 import dataclasses
@@ -159,7 +160,7 @@ def test_submit_validates_prompt_bounds():
 
 
 @pytest.mark.parametrize("kw", [
-    {"kv_layout": "dense", "spec_k": 2}, {"prefix_cache": True},
+    {"kv_layout": "dense", "spec_k": 2},
     {"spec_k": 2}, {"kv_host_blocks": 4}, {"mesh": object()}])
 def test_unported_engine_features_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -167,11 +168,71 @@ def test_unported_engine_features_raise(kw):
                                  **{"kv_layout": "paged", **kw})
 
 
+@pytest.mark.parametrize("kind,kw", [
+    ("global", {"kv_layout": "dense"}), ("global", {"kv_layout": "paged"}),
+    ("tail", {"kv_layout": "paged", "token_budget": 8})])
+def test_prefix_cache_gate_is_the_references(kind, kw):
+    """The prefix cache needs the paged layout (else the reference's
+    ValueError); on a stack that pages every layer it builds and serves
+    the reference's tokens with its hits."""
+    cfg = KIND_CFGS[kind]
+    if kw["kv_layout"] == "dense":
+        for ctor, c in ((JaxEngine, cfg), (ContinuousBatchingEngine,
+                                           _torch_cfg(cfg))):
+            with pytest.raises(ValueError, match="kv_layout='paged'"):
+                ctor(c, max_seq=64, prefix_cache=True,
+                     **({"device": "cpu"} if c is not cfg else {}))
+        return
+    rng = np.random.default_rng(9)
+    head = rng.integers(1, cfg.vocab_size, 20).astype(np.int32)
+    prompts = [np.concatenate([head, rng.integers(
+        1, cfg.vocab_size, 5).astype(np.int32)]) for _ in range(3)]
+    got, want = _serve_pair(cfg, prompts, prefix_cache=True, block_size=8,
+                            sequential=True, **kw)
+    assert got == want
+    assert want[1]["n_prefix_hits"] == 1.0
+
+
+def _serve_pair(cfg, prompts, sequential=False, max_new=4, **kw):
+    """The reference's and the port's engine (bridged weights, ``kw``)
+    over ``prompts``, all at once or one run after another: (the port's
+    [tokens..., stats subset], the reference's)."""
+    je = JaxEngine(cfg, max_slots=2, max_seq=64, **kw)
+    te = ContinuousBatchingEngine(_torch_cfg(cfg), max_slots=2, max_seq=64,
+                                  device="cpu", **kw)
+    te.load_jax_params(jax.tree.map(np.asarray, je.params))
+    keys = ("n_prefix_hits", "prefix_hit_rate", "kv_allocated_tokens",
+            "kv_cached_tokens")
+    out = []
+    for eng in (te, je):
+        runs = [[p] for p in prompts] if sequential else [prompts]
+        rows = []
+        for batch in runs:
+            res = eng.run(batch, max_new_tokens=max_new)
+            st = eng.stats()
+            rows.append({"tokens": [r.tokens.tolist() for r in res],
+                         **{k: st[k] for k in keys}})
+        out.append(rows)
+    return out[0], out[1]
+
+
 @pytest.mark.parametrize("kind", ["windowed", "rglru", "rwkv", "swa"])
 def test_non_attention_layer_kinds_raise(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ContinuousBatchingEngine(_torch_cfg(KIND_CFGS[kind]),
-                                 kv_layout="paged", device="cpu")
+    """Under the paged layout a windowed or recurrent stack keeps its
+    rings and per-slot states beside the (empty or partial) block pool:
+    it builds and serves the reference's paged engine's tokens with the
+    same block accounting. What still raises is the prefix cache on it,
+    the reference's ValueError, since it cannot share per-slot state."""
+    cfg = KIND_CFGS[kind]
+    with pytest.raises(ValueError, match="prefix_cache needs every layer"):
+        ContinuousBatchingEngine(_torch_cfg(cfg), kv_layout="paged",
+                                 prefix_cache=True, device="cpu")
+    rng = np.random.default_rng(len(kind))
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 19, 11)]
+    got, want = _serve_pair(cfg, prompts, kv_layout="paged", block_size=8,
+                            token_budget=10)
+    assert got == want
 
 
 def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):

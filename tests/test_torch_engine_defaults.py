@@ -1,7 +1,7 @@
 """The port's ``ContinuousBatchingEngine`` constructor against the
 reference's: every parameter the two share has the same default (the
 KV layout defaults to dense on both), and a default-constructed engine of
-a family the paged layout does not cover builds, as the reference's does.
+a recurrent family builds, as the reference's does.
 """
 import dataclasses
 import inspect
@@ -35,9 +35,8 @@ def test_constructor_defaults_match_the_reference():
 
 @pytest.mark.parametrize("kind", ["rglru", "rwkv"])
 def test_default_engine_builds_for_a_recurrent_family(kind):
-    """The paged layout refuses recurrent stacks; the default (dense)
-    engine builds on the CPU and serves a request, as the reference's
-    default engine does."""
+    """The default (dense) engine of a recurrent stack builds on the CPU
+    and serves a request, as the reference's default engine does."""
     cfg = KIND_CFGS[kind]
     eng = ContinuousBatchingEngine(_torch_cfg(cfg), max_seq=32,
                                    device="cpu")

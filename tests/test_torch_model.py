@@ -210,9 +210,11 @@ def test_embedding_rejects_out_of_range_ids():
 
 def test_unported_variants_raise():
     """Rotary variants and model families still to port (encoder-decoder)
-    raise, and so do windowed and recurrent layers under the paged layout
-    (their dense rings and per-slot states are ported, the
-    state-beside-pool layout is not)."""
+    raise. Windowed and recurrent layers under the paged layout keep
+    their rings and per-slot states beside the block pool: the paged
+    cache has the reference's layer shapes."""
+    from repro.models.transformer import make_cache as jax_make_cache
+
     x = torch.zeros(1, 2, 1, 4)
     pos = torch.zeros(1, 2, dtype=torch.int32)
     for variant in ("rope2d", "mrope"):
@@ -222,16 +224,21 @@ def test_unported_variants_raise():
         init_params(_torch_cfg(dataclasses.replace(
             TINY, name="tiny-encdec", enc_dec=True, n_enc_layers=2)),
             device="cpu")
-    for name in ("rglru", "rwkv"):
-        cfg = _torch_cfg(KIND_CFGS[name])
+    for name in ("rglru", "rwkv", "windowed", "swa"):
+        jcfg = KIND_CFGS[name]
+        cfg = _torch_cfg(jcfg)
         init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_cache(cfg, 1, 8, torch.float32, paged=(4, 8), device="cpu")
+        got = make_cache(cfg, 2, 40, torch.float32, paged=(4, 8),
+                         device="cpu")
+        want = unstack_layers(jax_make_cache(jcfg, 2, 40, jnp.float32,
+                                             paged=(4, 8)), jcfg)
+        assert [sorted(c) for c in got] == [sorted(c) for c in want], name
+        for g, w in zip(got, want):
+            for key, t in g.items():
+                assert tuple(t.shape) == w[key].shape, (name, key)
+                assert not t.any()
     for name in ("windowed", "swa"):
         cfg = _torch_cfg(KIND_CFGS[name])
-        init_params(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_cache(cfg, 1, 8, torch.float32, paged=(4, 8), device="cpu")
         dense = make_cache(cfg, 2, 40, torch.float32, device="cpu")
         assert [c["k"].shape[1] for c in dense] == [cfg.sliding_window] * 2
 

@@ -335,7 +335,6 @@ def test_lifecycle_events_and_hooks():
 @pytest.mark.parametrize("kw,what", [
     ({"preemption": True, "preempt_mode": "swap"}, "preempt_mode"),
     ({"kv_host_blocks": 4, "kv_layout": "paged"}, "kv_host_blocks"),
-    ({"prefix_cache": True, "kv_layout": "paged"}, "prefix_cache"),
     ({"spec_k": 2}, "spec_k"), ({"tp_degree": 2}, "tp_degree"),
     ({"n_devices": 2}, "n_devices")])
 def test_unported_pool_arguments_raise(kw, what):
@@ -355,15 +354,20 @@ def test_cancel_raises_and_the_default_device_is_the_gpu(monkeypatch):
 
 
 # ------------------------------------------------- parity with the JAX pool
-@pytest.mark.parametrize("kv_layout", ["dense", "paged"])
+@pytest.mark.parametrize("kv_layout", ["dense", "paged", "paged-prefix"])
 def test_pool_matches_the_jax_pool(kv_layout, monkeypatch):
     """Two models, two instances of one, slot caps below the engines'
     slots, a block budget (paged) and requests submitted between steps
     with deadlines out of submission order: the same instance per
     request and the same greedy tokens, with both pools' clocks held at
-    one instant (routing reads the clock) and SLOs far past it."""
+    one instant (routing reads the clock) and SLOs far past it. With
+    "paged-prefix" the prompts share prefixes and the prefix cache is on:
+    the router's affinity picks the same instances and the hit rates
+    agree."""
+    prefix = kv_layout == "paged-prefix"
+    kv_layout = kv_layout.split("-")[0]
     kw = dict(max_instances=3, max_slots=3, max_seq=64, seed=0,
-              kv_layout=kv_layout, block_size=8,
+              kv_layout=kv_layout, block_size=8, prefix_cache=prefix,
               kv_block_budget=64 if kv_layout == "paged" else None)
     cfgs = {"tiny-a": SPEC_A, "tiny-b": SPEC_B}
     ref = JaxPool({m: JaxModelConfig(**s) for m, s in cfgs.items()}, **kw)
@@ -378,12 +382,19 @@ def test_pool_matches_the_jax_pool(kv_layout, monkeypatch):
         port.load_jax_params(m, jax.tree.map(
             np.asarray, ref.running(m)[0].engine.params))
     rng = np.random.default_rng(10)
+    heads = {m: [np.random.default_rng(i).integers(
+        1, s["vocab_size"], 20).astype(np.int32) for i in range(2)]
+        for m, s in cfgs.items()}
     schedule = []  # (step, model, prompt, slo_ms, max_new)
     for step in range(6):
         for _ in range(int(rng.integers(1, 4))):
             m = ("tiny-a", "tiny-b")[int(rng.integers(2))]
             vocab = cfgs[m]["vocab_size"]
-            schedule.append((step, m, _prompt(rng, vocab),
+            p = _prompt(rng, vocab)
+            if prefix:  # one of two shared 20-token heads, tail of 4
+                p = np.concatenate([heads[m][int(rng.integers(2))],
+                                    p[:4] % vocab])
+            schedule.append((step, m, p,
                              float(rng.integers(10, 100)) * 1000.0,
                              int(rng.integers(2, 7))))
     out = {}
@@ -398,8 +409,11 @@ def test_pool_matches_the_jax_pool(kv_layout, monkeypatch):
         res += pool.run_until_drained()
         out[name] = ({r.request_id: (r.model, r.instance_id,
                                      list(r.tokens)) for r in res},
-                     list(pool.admission_log))
+                     list(pool.admission_log),
+                     pool.prefix_hit_rate() if prefix else 0.0)
     assert len(out["ref"][0]) == len(schedule)
     assert out["port"][1] == out["ref"][1]
     assert out["port"][0] == out["ref"][0]
     assert len({iid for _, iid in out["ref"][1]}) == 3
+    assert out["port"][2] == out["ref"][2]
+    assert (out["ref"][2] > 0) == prefix

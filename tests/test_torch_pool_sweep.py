@@ -55,3 +55,19 @@ def test_smoke_grid_serves_and_accounts_for_every_request(capsys):
             assert row["served_tokens"] >= row["served"]
             assert row["latency_ms_p50"] <= row["latency_ms_p99"]
     assert capsys.readouterr().out.count("sweep {") == 2
+
+
+def test_prefix_cache_switch_and_rate_filter(capsys):
+    """``--prefix-cache`` serves the paged smoke configuration with the
+    cache on (its templated prompts then hit) and ``--rps`` keeps only
+    the named rates of the grid."""
+    pool_sweep.main(["--smoke", "--device", "cpu", "--prefix-cache",
+                     "--rps", "4"])
+    out = capsys.readouterr().out
+    lines = [ln for ln in out.splitlines() if ln.startswith("sweep ")]
+    assert len(lines) == 1
+    import json
+
+    line = json.loads(lines[0][len("sweep "):])
+    assert line["pool"] == "paged" and line["prefix_cache"]
+    assert line["prefix_hit_rate"] > 0.0

@@ -143,9 +143,27 @@ def test_graft_copies_every_state_leaf():
 
 @pytest.mark.parametrize("cfg", [RG2B, RWKV3B], ids=lambda c: c.name)
 def test_paged_layout_refuses_recurrent_families(cfg):
-    with pytest.raises(NotImplementedError, match="kv_layout='dense'"):
+    """Under the paged layout a recurrent family keeps its per-slot
+    states (and recurrentgemma-2b its MQA rings) beside the pool, whose
+    linear-attention part is empty here: the paged engine serves the
+    reference's paged tokens over chunked prompts with the same block
+    accounting. The prefix cache still refuses it with the reference's
+    ValueError (per-slot state cannot be shared)."""
+    with pytest.raises(ValueError, match="prefix_cache"):
         ContinuousBatchingEngine(_torch_cfg(cfg), kv_layout="paged",
-                                 device="cpu")
+                                 prefix_cache=True, device="cpu")
+    kw = dict(max_slots=2, max_seq=160, kv_layout="paged", token_budget=32)
+    je = JaxEngine(cfg, **kw)
+    te = ContinuousBatchingEngine(_torch_cfg(cfg), device="cpu", **kw)
+    te.load_jax_params(jax.tree.map(np.asarray, je.params))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (70, 9, 33)]
+    want = [r.tokens.tolist() for r in je.run(prompts, 5)]
+    assert [r.tokens.tolist() for r in te.run(prompts, 5)] == want
+    assert te.stats()["kv_allocated_tokens"] == \
+        je.stats()["kv_allocated_tokens"] == 0
+    assert te.allocator.n_free == te.allocator.n_blocks
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b"])

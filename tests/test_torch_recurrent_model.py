@@ -279,8 +279,10 @@ def test_chunked_prefill_equals_one_shot(name):
 
 def test_recurrent_caches_and_paged_refusal():
     """Dense caches of the recurrent kinds are per-slot zero states
-    (``h`` f32 whatever the dtype), rings for the local layers; the paged
-    layout refuses both families, naming ROADMAP.md."""
+    (``h`` f32 whatever the dtype), rings for the local layers. Under the
+    paged layout both families keep them beside the pool (neither has a
+    linear attention layer, so the pool is empty): the reference's paged
+    cache, layer for layer, in shape."""
     rg = _torch_cfg(CFGS["recurrentgemma-2b"])
     c = make_cache(rg, 3, 100, torch.float32, device="cpu")
     assert [sorted(x) for x in c] == [["conv", "h"], ["conv", "h"],
@@ -294,6 +296,13 @@ def test_recurrent_caches_and_paged_refusal():
     assert c[0]["att_state"].shape == (2, H, 64, 64)
     assert c[0]["att_shift"].shape == c[0]["ffn_shift"].shape == (2, 256)
     assert not any(t.any() for layer in c for t in layer.values())
-    for cfg in (rg, rw):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_cache(cfg, 1, 8, torch.float32, paged=(4, 8), device="cpu")
+    from repro.models.transformer import make_cache as jax_make_cache
+
+    for name in ("recurrentgemma-2b", "rwkv6-3b"):
+        jcfg = CFGS[name]
+        got = make_cache(_torch_cfg(jcfg), 2, 100, torch.float32,
+                         paged=(4, 8), device="cpu")
+        want = unstack_layers(jax_make_cache(jcfg, 2, 100, jnp.float32,
+                                             paged=(4, 8)), jcfg)
+        assert [{k: tuple(t.shape) for k, t in g.items()} for g in got] \
+            == [{k: w[k].shape for k in w} for w in want], name

@@ -411,20 +411,36 @@ def test_cli_passes_the_simulator_flags_to_the_config(monkeypatch):
     assert seen["guard"] is True
 
 
-def test_cli_refusals():
+def test_cli_refusals(monkeypatch):
     with pytest.raises(SystemExit):  # the reference's error
         serve_cli.main(["--models", "qwen3-0.6b", "--device", "cpu"])
     with pytest.raises(SystemExit):
         serve_cli.main(["--platform", "tpu_v5e", "--device", "cpu"])
     with pytest.raises(SystemExit):  # the reference's ap.error
         serve_cli.main(["--engine", "--prefix-cache", "--device", "cpu"])
-    # unported engine features raise where the reference would use them:
-    # continuous mode (round mode ignores them, tests/test_torch_cli.py)
-    for flag in (["--prefix-cache", "--kv-layout", "paged"],
-                 ["--spec-k", "2"], ["--shared-prefix-tokens", "32"]):
-        with pytest.raises(NotImplementedError, match="Queue A"):
-            serve_cli.main(["--engine", "--exec-mode", "continuous",
-                            "--device", "cpu", *flag])
+    # an unported engine feature raises where the reference would use it:
+    # continuous mode (round mode ignores it, tests/test_torch_cli.py)
+    with pytest.raises(NotImplementedError, match="Queue A"):
+        serve_cli.main(["--engine", "--exec-mode", "continuous",
+                        "--device", "cpu", "--spec-k", "2"])
+    # the prefix cache and the templated workload are ported: continuous
+    # mode passes them to serve_continuous
+    from repro_torch.launch import engine_serve
+
+    seen = {}
+    monkeypatch.setattr(engine_serve, "serve_continuous",
+                        lambda *a, **kw: seen.update(kw))
+    for flag, want in (
+            (["--prefix-cache", "--kv-layout", "paged"],
+             {"prefix_cache": True, "shared_prefix_tokens": 0,
+              "kv_layout": "paged"}),
+            (["--shared-prefix-tokens", "32"],
+             {"prefix_cache": False, "shared_prefix_tokens": 32,
+              "kv_layout": "dense"})):
+        seen.clear()
+        serve_cli.main(["--engine", "--exec-mode", "continuous",
+                        "--device", "cpu", *flag])
+        assert {k: seen[k] for k in want} == want
 
 
 def test_cli_passes_shared_prefixes_to_the_pool(monkeypatch):
