@@ -29,7 +29,15 @@ drains' requests templated on two 500-token prefixes with the cache off
 and on, a fully covering repeat whose copy-on-write leaves the shared
 blocks' bytes alone, ``serve_continuous`` over a template, and the
 paged pool of qwen3-0.6b with recurrentgemma-2b, whose rings and states
-sit beside the pool). At reduced width the TINY-scale windowed,
+sit beside the pool), speculative decoding (``phase_spec``: the drains'
+engine paged and dense built for k = 4, its depth toggled 4, 2, 0, 4
+mid-drain, every stream against the k = 0 drain; the verify forward and a
+decode iteration profiled; a draft-model run; paged prefill is also held
+and timed at the verify shape) and the host KV tier (``phase_swap``: two
+decoding slots swapped out and back in the drains beside a recompute
+resume of the same context, prefix spill and revival with the revived
+bytes checked, a pool with ``preempt_mode="auto"``). At reduced width
+the TINY-scale windowed,
 recurrent and RWKV stacks and the prefix-cache drains run paged on card
 and CPU alike. Before the models it drives the
 simulator path behind the paper's utility figures at the CLI's defaults
@@ -280,6 +288,53 @@ def paged_prefill_case(torch, device, T, pos, H=16, KV=8, hd=128, bs=16,
                 scale=hd ** -0.5)
 
 
+#: the verify forward at the drains' engine: 8 slots of W = 1 + k rows
+#: (k = 4), each at its own position over 40 columns (max_seq 640) plus
+#: the ceil(4 / 16) = 1 null column the engine widens the table by; the
+#: last slot sits 3 tokens from the cache's end, so its cap k_i is 2 and
+#: rows 3 and 4 fall in the null column. VERIFY_TIMING_POS: every cap 4.
+VERIFY_POS = (16, 47, 100, 255, 333, 480, 600, 637)
+VERIFY_TIMING_POS = (31, 47, 100, 140, 270, 290, 530, 540)
+VERIFY_W = 5
+
+
+def verify_caps(pos, W=VERIFY_W, cap=640):
+    """Each row's speculation cap k_i, as ``_step_speculative`` takes it
+    (the cache's end only: every slot owes more than W tokens here)."""
+    return [max(0, min(W - 1, cap - 1 - p)) for p in pos]
+
+
+def paged_verify_case(torch, device, H=16, KV=8, hd=128, bs=16, nb=40,
+                      pad=1, pos=VERIFY_POS, W=VERIFY_W, seed=7):
+    """q (B,W,H,hd) of a verify forward: row b's slots 0..pos[b]+k_i live
+    in its shuffled blocks, and so do the slots its rows past the cap
+    write before they attend (the verify writes every row's K/V first:
+    in its own blocks, or in the null block past its mapped columns);
+    every other slot of the pools is NaN, the null block's included. The
+    table's dead columns hold garbage ids and its ``pad`` widening
+    columns the null block, as the engine's."""
+    rng = np.random.default_rng(seed)
+    B = len(pos)
+    caps = verify_caps(pos, W, nb * bs)
+    lens = [p + k + 1 for p, k in zip(pos, caps)]
+    n_pool = B * nb + 1
+    tables, live = _tables(rng, lens, nb, bs, n_pool)
+    for b, (p0, k) in enumerate(zip(pos, caps)):
+        for t in range(p0 + k + 1, p0 + W):
+            col = t // bs
+            mapped = col < -(-lens[b] // bs)
+            live.add((int(tables[b, col]) if mapped else 0, t % bs))
+    kp, vp = _poisoned_pools(torch, rng, n_pool, bs, KV, hd, live, device)
+    wide = np.zeros((B, nb + pad), np.int32)
+    wide[:, :nb] = tables
+    q = torch.from_numpy(rng.standard_normal((B, W, H, hd)).astype(
+        np.float32)).to(device)
+    return dict(q=q, k_pool=kp, v_pool=vp,
+                block_tables=torch.from_numpy(wide).to(device),
+                pos=torch.tensor(pos, dtype=torch.int32, device=device),
+                scale=hd ** -0.5)
+
+
 def _nan_headed(torch, a, device, extra_rows=64):
     """``a`` on the card as a contiguous tensor at the head of a flat
     buffer followed by ``extra_rows`` rows' worth (of axis 1) of NaN: a
@@ -510,6 +565,25 @@ def phase_kernels(torch, device):
         want = plain(**(plain_args or kern_args))
         errs[name] = max(errs[name], _check(torch, name, got, want, what))
 
+    def run_verify(heads):
+        """The verify shape: rows j <= k_i of each slot against the plain
+        version (rows past the cap read the poisoned null block, and
+        their logits are ignored by the engine)."""
+        name = "paged_prefill_attention"
+        c = paged_verify_case(torch, device, **heads)
+        caps = verify_caps(VERIFY_POS)
+        got, want = w[name][0](**c), w[name][1](**c)
+        keep = torch.zeros(got.shape[:2], dtype=torch.bool, device=device)
+        for b, k in enumerate(caps):
+            keep[b, :k + 1] = True
+        H, hd = c["q"].shape[2], c["q"].shape[3]
+        errs[name] = max(errs[name], _check(
+            torch, name, got[keep], want[keep],
+            f"verify q ({len(VERIFY_POS)},{VERIFY_W},{H},{hd}) KV "
+            f"{c['k_pool'].shape[2]} pos {list(VERIFY_POS)} tables "
+            f"{tuple(c['block_tables'].shape)} (one null column), rows "
+            f"<= k_i {caps}"))
+
     split, split_plain = w["paged_decode_attention_splitk"]
     for heads in PAGED_HEADS:
         c = paged_decode_case(torch, device, **heads)
@@ -540,6 +614,7 @@ def phase_kernels(torch, device):
         for T, pos in PREFILL_CASES:
             run("paged_prefill_attention", f"q (1,{T},{H},128) pos {pos}",
                 paged_prefill_case(torch, device, T, pos, **heads))
+        run_verify(heads)
     # MQA at hd 256 (recurrentgemma-2b's local heads): no paged path
     # sends it, and the kernels stay right for it
     c = paged_decode_case(torch, device, **RG_HEADS)
@@ -550,6 +625,7 @@ def phase_kernels(torch, device):
     for T, pos in ((512, 0), (100, 37)):
         run("paged_prefill_attention", f"q (1,{T},10,256) KV 1 (MQA) pos "
             f"{pos}", paged_prefill_case(torch, device, T, pos, **RG_HEADS))
+    run_verify(RG_HEADS)
     del c
     torch.cuda.empty_cache()
     # flash and dense decode run the same bodies at the same groups
@@ -617,7 +693,7 @@ def phase_kernels(torch, device):
 
 
 # ---------------------------------------------------------------- phase 4
-def _time_ms(torch, fn, n_args, iters=50):
+def _time_ms(torch, fn, n_args, iters=30):
     """Mean device ms per call over ``iters`` calls cycling through
     ``n_args`` input copies (together larger than the 50 MB L2, so each
     call finds its inputs cold, as a layer of the model does)."""
@@ -857,11 +933,11 @@ def _moe_job(torch, device, E, C, D, F):
 
 #: (B, nb) of the paged decode dispatch grid in ``phase_timing``: the
 #: pool's B = 4 on 36 columns first (the split-K row of the result line),
-#: then B = 1..32 on 36 and the drains' 40 columns, the 8 columns of
-#: ``serve_continuous`` at 4 and 32 slots, and 4096-token tables
-DECODE_GRID = tuple((B, nb) for nb in (36, 40)
-                    for B in (4, 1, 2, 5, 6, 8, 16, 32)) \
-    + ((4, 8), (32, 8), (4, 256), (2, 256), (1, 256))
+#: then B = 1..32 on the drains' 40 columns, the 8 columns of
+#: ``serve_continuous`` at 4 and 32 slots, and a 4096-token table (PRs
+#: 15-22 swept B = 1..32 on 36 columns too, and B = 1, 2 at 4096)
+DECODE_GRID = ((4, 36),) + tuple((B, 40) for B in (1, 4, 8, 16, 32)) \
+    + ((4, 8), (32, 8), (4, 256))
 
 
 def phase_timing(torch, device, smi):
@@ -887,6 +963,9 @@ def phase_timing(torch, device, smi):
     jobs += [("paged_prefill_attention", lambda T=T, pos=pos: _paged_job(
         torch, device, paged_prefill_case, {"T": T, "pos": pos}))
         for T, pos in ((512, 0), (128, 200), (16, 8))]
+    # the verify forward's shape: 8 slots of 5 rows at their own positions
+    jobs += [("paged_prefill_attention", lambda: _paged_job(
+        torch, device, paged_verify_case, {"pos": VERIFY_TIMING_POS}))]
     jobs += [("flash_attention", lambda a=a: _flash_job(torch, device, *a))
              for a in ((8, 512, 512, True, None), (1, 100, 100, True, None),
                        (8, 512, 512, True, 64))]
@@ -988,12 +1067,15 @@ def _paged_decode_kernel(cfg, n_slots, nb):
 
 
 def _want(cfg, path, n_iters=0, n_chunks=0, n_rounds=0, n_tokens=0,
-          n_slots=8, nb=40):
+          n_slots=8, nb=40, n_spec=0):
     """The exact kernel launches of one serving path: per attention layer
     (``attn``/``attn_dense``/``local_attn``) one decode kernel per decode
     iteration or round token and, paged, one chunk kernel per prefill
     chunk where every layer is paged (fused prefill), or one flash launch
-    per round. Under the paged layout a linear attention layer decodes
+    per round. ``n_spec`` of the ``n_iters`` iterations speculated: each
+    runs one verify forward instead of a decode, through the paged chunk
+    kernel (paged) or plain PyTorch (dense, as the reference has no
+    kernel there). Under the paged layout a linear attention layer decodes
     through the unsplit or the split-K paged kernel (as the dispatch
     picks for ``n_slots`` slots and ``nb``-column tables) and a windowed
     one through dense decode over its ring; a hybrid stack's chunks run
@@ -1014,14 +1096,15 @@ def _want(cfg, path, n_iters=0, n_chunks=0, n_rounds=0, n_tokens=0,
     else:
         want["moe_matmul"] = 3 * M * (n_rounds + n_tokens)
         seqs = n_rounds
+    n_dec = n_iters - n_spec
     if path == "paged":
         P = sum(paged_layer_kind(cfg, k) for k in attn)
-        want[_paged_decode_kernel(cfg, n_slots, nb)] = P * n_iters
-        if P == len(kinds):  # fused prefill through the table
-            want["paged_prefill_attention"] = P * n_chunks
-        want["decode_attention"] = (len(attn) - P) * n_iters
+        want[_paged_decode_kernel(cfg, n_slots, nb)] = P * n_dec
+        if P == len(kinds):  # fused prefill (and verify) through the table
+            want["paged_prefill_attention"] = P * (n_chunks + n_spec)
+        want["decode_attention"] = (len(attn) - P) * n_dec
     elif path == "dense":
-        want["decode_attention"] = len(attn) * n_iters
+        want["decode_attention"] = len(attn) * n_dec
     else:  # round
         want["flash_attention"] = len(attn) * n_rounds
         want["decode_attention"] = len(attn) * n_tokens
@@ -1090,7 +1173,9 @@ def phase_e2e(torch, device, cfg, params, smi, kv_layout, n_req=16,
         fail(f"e2e {cfg.name} {kv_layout}: launches {launches} != {want} ("
              f"{n_iters} decode iterations, {n_chunks} prefill chunks)")
     gen = sum(len(r.tokens) for r in results)
-    res = {"tokens_per_s": gen / wall,
+    results.sort(key=lambda r: r.request_id)
+    res = {"tokens": [r.tokens for r in results],
+           "tokens_per_s": gen / wall,
            "p50": float(np.percentile(decode_ms, 50)),
            "p99": float(np.percentile(decode_ms, 99)),
            "prefill_tokens_per_s": n_pre / max(prefill_s, 1e-9)}
@@ -1219,7 +1304,7 @@ def phase_profile(torch, eng, rng, decode_p50_ms, smi, label):
             f"[{smi}]")
 
 
-def phase_split_rule(torch, device, cfg, params, smi, n_slots=8, turns=24,
+def phase_split_rule(torch, device, cfg, params, smi, n_slots=8, turns=8,
                      per_turn=5, seed=3):
     """The decode iteration of ``n_slots`` resident sequences at full
     width over 40-column tables (max_seq 640, the drains' engine) under
@@ -1309,7 +1394,7 @@ def phase_serve(torch, device, cfg, kv_layout, max_slots=4):
     from repro_torch.launch.engine_serve import serve_continuous
 
     reset_launches()
-    stats = serve_continuous(cfg=cfg, kv_layout=kv_layout, duration_s=5.0,
+    stats = serve_continuous(cfg=cfg, kv_layout=kv_layout, duration_s=3.0,
                              max_slots=max_slots, device=device)
     got = read_launches()
     # serve_continuous: max_seq 128 (8 blocks of 16)
@@ -1320,7 +1405,7 @@ def phase_serve(torch, device, cfg, kv_layout, max_slots=4):
         fail(f"serve_continuous {cfg.name} {kv_layout} ({max_slots} slots): "
              f"served {stats['served']}, launches {got} != {want}")
     log(f"serve_continuous {cfg.name} {kv_layout} ({max_slots} slots): "
-        f"{stats['served']:.0f} requests in 5 s, launches {got} == {want}")
+        f"{stats['served']:.0f} requests in 3 s, launches {got} == {want}")
     torch.cuda.empty_cache()
     return got
 
@@ -1395,8 +1480,8 @@ def phase_serve_round(torch, device, cfg, smi):
     from repro_torch.launch.engine_serve import serve_round
 
     reset_launches()
-    # 14 s hold about 45 rounds (67 in 20 s, PR 21), past the agent's
-    # 32-round mini-batch
+    # 14 s hold 38 to 69 rounds (host speed varies), past the agent's
+    # 32-round mini-batch (10 s held 27 on a slow host, PR 23)
     stats = serve_round(cfg=cfg, duration_s=14.0, device=device)
     got = read_launches()
     r = int(stats["rounds"])
@@ -1565,7 +1650,7 @@ def phase_parity(torch, device, cfg, layouts=("paged", "dense"), n_req=8,
 #: launches; `python -m repro_torch.launch.pool_sweep` measures the pool
 POOL_PAGED = dict(shared_prefix_tokens=500, max_instances=4, max_slots=4,
                   max_new_tokens=32, rps=1.5, slo_ms=5000.0,
-                  kv_block_budget=576, duration_s=15.0)
+                  kv_block_budget=576, duration_s=10.0)
 #: the dense pool: the reference CLI's own pair of heterogeneous models at
 #: its 12 requests/s in all
 POOL_DENSE = ("qwen3-0.6b", "recurrentgemma-2b")
@@ -1736,7 +1821,7 @@ def phase_pool(torch, device, smi):
     got, _, _ = _pool_run(torch, device, smi, "dense",
                           models=list(POOL_DENSE),
                           cfgs={m: get_config(m) for m in POOL_DENSE},
-                          kv_layout="dense", duration_s=15.0, rps=12.0,
+                          kv_layout="dense", duration_s=10.0, rps=12.0,
                           slo_ms=2000.0, max_new_tokens=4)
     for name, n in got.items():
         launches[name] += n
@@ -1837,10 +1922,10 @@ def _drain_prompts(cfg, n_req=16, seed=0):
             for n in lens]
 
 
-def _preempt_engine(torch, device, cfg, params, smi, max_new=32):
+def _preempt_engine(torch, device, cfg, params, smi, ref, max_new=32):
     """The paged engine of the drains (8 slots, 640-token cache, 512-token
-    budget) over the drains' 16 requests, run uninterrupted, then again
-    with two preemptions: a decoding slot right after its first token and,
+    budget) over the drains' 16 requests (``ref``: their uninterrupted
+    streams, the paged drain's) with two preemptions: a decoding slot right after its first token and,
     after 60 iterations, of the slots 8 or fewer tokens from their end the
     one with the longest context. Each resumes by recomputing its
     context (the padded prompt plus its tokens) through paged prefill.
@@ -1850,18 +1935,11 @@ def _preempt_engine(torch, device, cfg, params, smi, max_new=32):
     launches."""
     from repro_torch.serving.engine import ContinuousBatchingEngine
 
-    def engine():
-        return ContinuousBatchingEngine(cfg, max_slots=8, max_seq=640,
-                                        kv_layout="paged", token_budget=512,
-                                        device=device, params=params)
-
     prompts = _drain_prompts(cfg)
-    eng = engine()
+    eng = ContinuousBatchingEngine(cfg, max_slots=8, max_seq=640,
+                                   kv_layout="paged", token_budget=512,
+                                   device=device, params=params)
     eng.run(prompts[:1], max_new_tokens=2)  # warm-up
-    ref = [r.tokens for r in eng.run(prompts, max_new_tokens=max_new)]
-    del eng
-    eng = engine()
-    eng.run(prompts[:1], max_new_tokens=2)
     it0, ch0 = eng.n_iters, eng.n_prefill_chunks
     reset_launches()
     rids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
@@ -1955,7 +2033,8 @@ def _pool_tokens(pool, rids):
     return [by_id[i] for i in rids]
 
 
-def _preempt_pool(torch, device, cfg, params, smi, seed=11):
+def _preempt_pool(torch, device, cfg, params, smi, seed=11,
+                  label="preempt pool", **pool_kw):
     """The instance pool with ``preemption=True``: one paged instance of 4
     slots, its contention fit calibrated by a drain, then four lax-tier
     hogs fill the slots and two tight-tier requests arrive, the tight
@@ -1963,14 +2042,15 @@ def _preempt_pool(torch, device, cfg, params, smi, seed=11):
     the tight. Checks at least one preemption, every request finished in
     full (none rejected or cancelled), the resumed tokens against one
     uninterrupted engine run of the same prompts, and the launches.
-    Returns the launches."""
+    ``pool_kw`` adds pool arguments (a host tier and its preemption
+    mode). Returns (the launches, the pool)."""
     from repro_torch.serving import latency_model as lm
     from repro_torch.serving.engine import ContinuousBatchingEngine
     from repro_torch.serving.runtime import ModelInstancePool
 
     pool = ModelInstancePool({cfg.name: cfg}, max_instances=1, max_slots=4,
                              max_seq=640, kv_layout="paged", preemption=True,
-                             device=device)
+                             device=device, **pool_kw)
     pool.load_params(cfg.name, params)
     pool.scale_to(cfg.name, 1)
     pool.warmup(seed=seed)
@@ -1981,7 +2061,7 @@ def _preempt_pool(torch, device, cfg, params, smi, seed=11):
     pool.run_until_drained()
     t1, c = pool.contention()
     if not t1 > 0:
-        fail(f"preempt pool: contention uncalibrated after the drain "
+        fail(f"{label}: contention uncalibrated after the drain "
              f"({len(pool.contention_samples)} samples)")
     it_ms = lm.predicted_iter_ms(t1, c, 1)
     tight_new, hog_new = 16, 64
@@ -2009,15 +2089,15 @@ def _preempt_pool(torch, device, cfg, params, smi, seed=11):
     want = _want(cfg, "paged", n_iters=n_iters, n_chunks=n_chunks, n_slots=4,
                  nb=40)
     if launches != want:
-        fail(f"preempt pool: launches {launches} != {want}")
+        fail(f"{label}: launches {launches} != {want}")
     n_pre = pool.n_preempted - n0
     if n_pre < 1:
-        fail(f"preempt pool: no preemption (fit {t1:.3f} ms + {c:.3f}, "
+        fail(f"{label}: no preemption (fit {t1:.3f} ms + {c:.3f}, "
              f"SLOs {tight:.1f} / {lax:.1f} ms)")
     res = _pool_tokens(pool, rids)
     if any(r.rejected or r.cancelled for r in res) or [
             len(r.tokens) for r in res] != [hog_new] * 4 + [tight_new] * 2:
-        fail("preempt pool: requests not conserved: " + str(
+        fail(f"{label}: requests not conserved: " + str(
             [(r.request_id, len(r.tokens), r.rejected, r.cancelled)
              for r in res]))
     solo = ContinuousBatchingEngine(cfg, max_slots=4, max_seq=640,
@@ -2028,28 +2108,498 @@ def _preempt_pool(torch, device, cfg, params, smi, seed=11):
     resumed = [rid for rid in rids if pool.admission_log.count(
         (rid, pool.running(cfg.name)[0].instance_id)) > 1]
     for rid, p, r, a in zip(rids, hogs + urgent, res, alone):
-        _hold_tie(torch, cfg, params, f"preempt pool request {rid}", p, a,
+        _hold_tie(torch, cfg, params, f"{label} request {rid}", p, a,
                   r.tokens)
     tiers = {"tight": [r.latency_ms for r in res[4:]],
              "lax": [r.latency_ms for r in res[:4]]}
-    log(f"preempt pool {cfg.name}: fit t1 {t1:.3f} ms c {c:.3f} (predicted "
+    log(f"{label} {cfg.name}: fit t1 {t1:.3f} ms c {c:.3f} (predicted "
         f"iteration {it_ms:.3f} ms), SLOs tight {tight:.1f} ms, lax "
         f"{lax:.1f} ms; {n_pre} preemption(s), resumed {resumed}; latency "
         f"ms tight {[round(x, 1) for x in tiers['tight']]}, lax "
         f"{[round(x, 1) for x in tiers['lax']]}; all 6 requests finished "
         f"in full, tokens equal the uninterrupted run; {n_iters} decode "
         f"iterations, {n_chunks} prefill chunks in {wall:.3f} s [{smi}]")
-    log(f"preempt pool: report {pool.report()[cfg.name]}")
-    log(f"preempt pool: launches {launches} == {want}")
+    log(f"{label}: report {pool.report()[cfg.name]}")
+    log(f"{label}: launches {launches} == {want}")
+    return launches, pool
+
+
+def phase_preempt(torch, device, cfg, params, smi, ref_tokens):
+    """Recompute preemption at full width: the engine (its streams held
+    to ``ref_tokens``, the paged drain's) and the pool. Returns the
+    summed launches."""
+    launches = _preempt_engine(torch, device, cfg, params, smi, ref_tokens)
+    for k, n in _preempt_pool(torch, device, cfg, params, smi)[0].items():
+        launches[k] += n
+    torch.cuda.empty_cache()
     return launches
 
 
-def phase_preempt(torch, device, cfg, params, smi):
-    """Recompute preemption at full width: the engine and the pool.
-    Returns the summed launches."""
-    launches = _preempt_engine(torch, device, cfg, params, smi)
-    for k, n in _preempt_pool(torch, device, cfg, params, smi).items():
+# ---------------------------------------------------------------- spec
+#: the depth the speculative engines are built for, and the live depth
+#: through a drain: each entry for SPEC_TOGGLE_STEPS steps, the last to
+#: the end
+SPEC_K = 4
+SPEC_TOGGLE = (4, 2, 0, 4)
+SPEC_TOGGLE_STEPS = 12
+
+
+def _spec_drain(torch, device, cfg, params, smi, kv_layout, prompts,
+                ref_tokens, max_new=32):
+    """The drains' engine (8 slots, 640-token cache, 512-token budget)
+    built for ``SPEC_K`` over the drains' requests, its live depth
+    toggled through ``SPEC_TOGGLE``: every stream against the k = 0
+    drain's (``ref_tokens``, any gap held to a tie), launches exact (a
+    verify forward is one paged chunk launch per layer, paged; plain
+    PyTorch, dense). Then the verify forward and a decode iteration of
+    eight resident sequences, one step each under the profiler.
+    Returns (launches, numbers)."""
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+
+    label = f"spec {kv_layout}"
+    eng = ContinuousBatchingEngine(cfg, max_slots=8, max_seq=640,
+                                   kv_layout=kv_layout, token_budget=512,
+                                   spec_k=SPEC_K, device=device,
+                                   params=params)
+    eng.run([np.arange(1, 10, dtype=np.int32)], max_new_tokens=6)
+    bad = []
+    _watch_logits(torch, eng.model, bad,
+                  ("decode_step", "prefill_chunk", "verify_step"))
+    it0, ch0, sp0 = eng.n_iters, eng.n_prefill_chunks, eng.n_spec_steps
+    pr0, ac0 = eng.n_spec_proposed, eng.n_spec_accepted
+    reset_launches()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=max_new)
+    results, steps, spec_ms, dec_ms = [], 0, [], []
+    t0 = time.perf_counter()
+    while eng.waiting or eng.active_slots:
+        eng.spec_k = SPEC_TOGGLE[min(steps // SPEC_TOGGLE_STEPS,
+                                     len(SPEC_TOGGLE) - 1)]
+        before, sp = eng.n_prefill_chunk_tokens, eng.n_spec_steps
+        ts = time.perf_counter()
+        results += eng.step()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - ts) * 1e3
+        steps += 1
+        if eng.n_prefill_chunk_tokens == before:
+            (spec_ms if eng.n_spec_steps > sp else dec_ms).append(dt)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_iters, n_chunks = eng.n_iters - it0, eng.n_prefill_chunks - ch0
+    n_spec = eng.n_spec_steps - sp0
+    want = _want(cfg, kv_layout, n_iters=n_iters, n_chunks=n_chunks,
+                 n_spec=n_spec)
+    if launches != want:
+        fail(f"{label}: launches {launches} != {want} ({n_iters} "
+             f"iterations, {n_spec} speculative, {n_chunks} chunks)")
+    if bool(torch.stack(bad).any()):
+        fail(f"{label}: non-finite logits")
+    results.sort(key=lambda r: r.request_id)
+    if len(results) != len(prompts) or any(len(r.tokens) != max_new
+                                           for r in results):
+        fail(f"{label}: {len(results)} of {len(prompts)} finished in full")
+    ties = [m for r, p, want_tokens in zip(results, prompts, ref_tokens)
+            if (m := _hold_tie(torch, cfg, params, f"{label} request "
+                               f"{r.request_id}", p, want_tokens,
+                               r.tokens)) is not None]
+    proposed = eng.n_spec_proposed - pr0
+    accepted = eng.n_spec_accepted - ac0
+    gen = sum(len(r.tokens) for r in results)
+    num = {"accept_rate": accepted / max(proposed, 1), "n_spec": n_spec,
+           "n_iters": n_iters, "tokens_per_iter": gen / n_iters,
+           "spec_p50": float(np.percentile(spec_ms, 50)) if spec_ms else 0,
+           "dec_p50": float(np.percentile(dec_ms, 50)) if dec_ms else 0,
+           "wall": wall}
+    log(f"{label} {cfg.name}: 16 drain requests, {max_new} new tokens, 8 "
+        f"slots, depth {SPEC_TOGGLE} for {SPEC_TOGGLE_STEPS} steps each; "
+        f"{n_iters} iterations ({n_spec} speculative), {n_chunks} prefill "
+        f"chunks; drafts accepted {accepted} of {proposed} "
+        f"({num['accept_rate']:.3f}); {num['tokens_per_iter']:.3f} tokens "
+        f"per iteration ({gen} over {n_iters}); decode-only step wall ms "
+        f"p50: verify "
+        f"{num['spec_p50']:.3f} (n={len(spec_ms)}), plain decode "
+        f"{num['dec_p50']:.3f} (n={len(dec_ms)}); drain wall {wall:.3f} s; "
+        f"every stream equals the k = 0 drain's"
+        f"{f' up to {len(ties)} tie(s)' if ties else ''} [{smi}]")
+    log(f"{label}: launches {launches} == {want}")
+    # the verify forward and a decode iteration of 8 resident sequences
+    rng = np.random.default_rng(5)
+    eng.spec_k = 0
+    for n in (100, 200, 300, 400, 30, 60, 90, 120):
+        eng.submit(rng.integers(1, cfg.vocab_size, n).astype(np.int32),
+                   max_new_tokens=48)
+    while eng.waiting or eng.prefill_backlog_tokens:
+        eng.step()
+
+    report = {}
+    for k in (SPEC_K, 0):
+        eng.spec_k = k
+        sp = eng.n_spec_steps
+        _, busy, nk, names = _profiled(torch, eng.step)
+        if (eng.n_spec_steps - sp == 1) != (k > 0) or \
+                len(eng.decoding_slots) != 8:
+            fail(f"{label}: the profiled step at k={k} ran "
+                 f"{eng.n_spec_steps - sp} verify forwards with "
+                 f"{len(eng.decoding_slots)} slots")
+        report[k] = (busy, nk, _kernel_ms(names, PREFILL_KERNELS),
+                     _kernel_ms(names, DECODE_KERNELS if kv_layout == "paged"
+                                else DENSE_DECODE_KERNELS))
+    num.update(verify_busy=report[SPEC_K][0], verify_attn=report[SPEC_K][2],
+               decode_busy=report[0][0], decode_attn=report[0][3])
+    attn = (f"paged prefill kernel {report[SPEC_K][2]:.3f} ms"
+            if kv_layout == "paged" else "its attention plain PyTorch")
+    log(f"{label}: 8 resident sequences, per step: verify forward (W = "
+        f"{1 + SPEC_K}) device busy {report[SPEC_K][0]:.3f} ms over "
+        f"{report[SPEC_K][1]} kernels, {attn}; decode iteration device busy "
+        f"{report[0][0]:.3f} ms over {report[0][1]} kernels, "
+        f"{'paged' if kv_layout == 'paged' else 'dense'} decode kernels "
+        f"{report[0][3]:.3f} ms [{smi}]")
+    while eng.active_slots:
+        eng.step()
+    del eng
+    torch.cuda.empty_cache()
+    return launches, num
+
+
+def _draft_drain(torch, device, cfg, params, smi, prompts, ref_tokens,
+                 max_new=16):
+    """The paged drains' engine with a ``DraftModelProposer`` whose draft
+    is the target itself (the same params), over ``prompts``: streams
+    against the k = 0 drain's first ``max_new`` tokens (held to a tie),
+    launches exact (the draft's round mode adds one flash launch per
+    layer and proposal and one dense decode launch per layer and drafted
+    token), and the acceptance rate. Returns the launches."""
+    from repro_torch.serving.engine import (ContinuousBatchingEngine,
+                                            DraftModelProposer)
+
+    draft = DraftModelProposer(cfg, device=device, params=params)
+    calls = [0, 0]
+    propose = draft.propose
+
+    def counted(context, k):
+        calls[0] += 1
+        calls[1] += k
+        return propose(context, k)
+    draft.propose = counted
+    eng = ContinuousBatchingEngine(cfg, max_slots=8, max_seq=640,
+                                   kv_layout="paged", token_budget=512,
+                                   spec_k=SPEC_K, proposer=draft,
+                                   device=device, params=params)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run(prompts, max_new_tokens=max_new)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    A = cfg.n_layers
+    want = _want(cfg, "paged", n_iters=eng.n_iters,
+                 n_chunks=eng.n_prefill_chunks, n_spec=eng.n_spec_steps)
+    want["flash_attention"] += A * calls[0]
+    want["decode_attention"] += A * calls[1]
+    if launches != want:
+        fail(f"spec draft: launches {launches} != {want}")
+    for r, p, w in zip(res, prompts, ref_tokens):
+        _hold_tie(torch, cfg, params, f"spec draft request {r.request_id}",
+                  p, w[:max_new], r.tokens)
+    log(f"spec draft {cfg.name}: DraftModelProposer with the target's own "
+        f"weights, {len(prompts)} requests, {max_new} new tokens, k = "
+        f"{SPEC_K}; {eng.n_spec_steps} verify forwards, {calls[0]} "
+        f"proposals of {calls[1]} drafts, accepted {eng.n_spec_accepted} of "
+        f"{eng.n_spec_proposed} (rate {eng.spec_accept_rate:.3f}); "
+        f"{sum(len(r.tokens) for r in res)} tokens in {eng.n_iters} "
+        f"iterations, wall {wall:.3f} s; streams equal the k = 0 drain's "
+        f"[{smi}]")
+    log(f"spec draft: launches {launches} == {want}")
+    del eng, draft
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_spec(torch, device, cfg, params, smi, ref_tokens):
+    """Speculative decoding at full width: the drains' engine paged and
+    dense built for k = 4 with its depth toggled mid-drain, streams held
+    to the k = 0 drains' (``ref_tokens``: layout -> tokens per request),
+    then a draft-model run. Returns the summed launches."""
+    prompts = _drain_prompts(cfg)
+    launches = {name: 0 for name in REPLACES}
+    nums = {}
+    for layout in ("paged", "dense"):
+        got, nums[layout] = _spec_drain(torch, device, cfg, params, smi,
+                                        layout, prompts, ref_tokens[layout])
+        for k, n in got.items():
+            launches[k] += n
+    for k, n in _draft_drain(torch, device, cfg, params, smi, prompts[:2],
+                             ref_tokens["paged"][:2]).items():
         launches[k] += n
+    return launches, nums
+
+
+# ---------------------------------------------------------------- swap
+#: host blocks of the swap drain's engine: two victims of up to 34
+#: blocks each (a 539-token context) with room to spare
+SWAP_HOST_BLOCKS = 80
+
+
+def _block_bytes(torch, eng, bids):
+    """Every paged pool's rows of blocks ``bids`` (copies)."""
+    idx = torch.tensor(bids, device=eng.cache[0]["k"].device)
+    return [{k: c[k].index_select(0, idx) for k in ("k", "v")}
+            for c in eng.cache]
+
+
+def _pinned_mib(eng):
+    """The engine's pinned host memory: its host pool (one dead block
+    included) and its staging area, in MiB."""
+    pool = sum(t.numel() * t.element_size() for h in eng.host_pool
+               for t in h.values())
+    stage = sum(t.numel() * t.element_size() for h in eng._staging or ()
+                for t in h.values())
+    return f"{pool / 2**20:.1f} + {stage / 2**20:.1f} (pool + staging)"
+
+
+def _swap_drain(torch, device, cfg, params, smi, ref_tokens, max_new=32):
+    """The drains' paged engine with a host tier over the drains'
+    requests: once nothing waits, the two decoding slots with the longest
+    contexts are swapped out (requeue off), and resumed two steps later,
+    each admission timed to the end of its copy. Every stream equals the
+    k = 0 drain's (the swapped ones up to a tie), every block comes back,
+    launches exact. Then a recompute resume of the longer victim's same
+    context on the same engine, timed and profiled. Returns (engine,
+    launches, numbers)."""
+    from repro_torch.serving.engine import (ContinuousBatchingEngine,
+                                            to_recompute)
+
+    eng = ContinuousBatchingEngine(cfg, max_slots=8, max_seq=640,
+                                   kv_layout="paged", token_budget=512,
+                                   kv_host_blocks=SWAP_HOST_BLOCKS,
+                                   device=device, params=params)
+    bpb = eng.swap_bytes_per_block
+    log(f"swap {cfg.name}: host tier of {SWAP_HOST_BLOCKS} blocks of {bpb} "
+        f"bytes (every layer's K and V): {_pinned_mib(eng)} MiB pinned")
+    prompts = _drain_prompts(cfg)
+    eng.run(prompts[:1], max_new_tokens=2)  # warm-up
+    it0, ch0 = eng.n_iters, eng.n_prefill_chunks
+    reset_launches()
+    rids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    done, snaps, outs, ins, resumed = {}, [], [], [], {}
+    steps, resume_at = 0, None
+    t0 = time.perf_counter()
+    while eng.waiting or eng.active_slots or (snaps and not resumed):
+        for r in eng.step():
+            done[r.request_id] = r
+        steps += 1
+        if not snaps and not eng.waiting:
+            dec = [i for i in eng.decoding_slots
+                   if len(eng.slots[i].tokens) >= 2
+                   and eng.slots[i].remaining >= 8]
+            if len(dec) >= 2:
+                for i in sorted(dec, key=lambda i: -int(eng.pos[i]))[:2]:
+                    s = eng.slots[i]
+                    held = len(s.blocks) + s.n_outstanding
+                    avail = eng.allocator.n_available
+                    snap = eng.preempt(i, requeue=False, mode="swap")
+                    if eng.allocator.n_available != avail + held:
+                        fail(f"swap: blocks not returned at preemption "
+                             f"({eng.allocator.n_available} != {avail} + "
+                             f"{held})")
+                    outs.append(eng.swap_samples[-1])
+                    snaps.append(snap)
+                resume_at = steps + 2
+        if snaps and not resumed and steps >= resume_at:
+            for snap in snaps:
+                rid = eng.submit_resume(snap)
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                eng.admit()
+                torch.cuda.synchronize()
+                ins.append((eng.swap_samples[-1][0],
+                            (time.perf_counter() - ts) * 1e3,
+                            eng.swap_samples[-1][1]))
+                resumed[rid] = snap.request_id
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_iters, n_chunks = eng.n_iters - it0, eng.n_prefill_chunks - ch0
+    want = _want(cfg, "paged", n_iters=n_iters, n_chunks=n_chunks)
+    if launches != want:
+        fail(f"swap: launches {launches} != {want}")
+    if len(snaps) != 2 or eng.n_swap_preempts != 2 \
+            or eng.n_swap_resumes != 2:
+        fail(f"swap: {len(snaps)} snapshots, {eng.n_swap_preempts} swap "
+             f"preempts, {eng.n_swap_resumes} swap resumes; expected 2")
+    al = eng.allocator
+    if al.n_live or al.n_reserved or al.n_host_live or \
+            al.n_host_free != al.n_host_blocks:
+        fail(f"swap: after the drain {al.n_live} blocks live, "
+             f"{al.n_reserved} reserved, {al.n_host_live} host blocks held")
+    by_orig = {resumed.get(rid, rid): r for rid, r in done.items()}
+    if sorted(by_orig) != rids:
+        fail(f"swap: finished {sorted(by_orig)}, submitted {rids}")
+    victims = {s.request_id for s in snaps}
+    for rid, p, w in zip(rids, prompts, ref_tokens):
+        r = by_orig[rid]
+        if rid in victims:
+            _hold_tie(torch, cfg, params, f"swap request {rid}", p, w,
+                      r.tokens)
+        elif not np.array_equal(r.tokens, w):
+            fail(f"swap: request {rid}, never preempted, differs from "
+                 "the uninterrupted run")
+    num = {"out": outs, "in": ins, "contexts": [s.pos for s in snaps],
+           "blocks": [len(s.host_blocks) for s in snaps]}
+    log(f"swap {cfg.name}: 16 requests on 8 slots, swapped out "
+        f"{[(s.request_id, s.pos, len(s.host_blocks)) for s in snaps]} "
+        f"((request, context tokens, blocks)) and resumed 2 steps later; "
+        f"{n_iters} decode iterations, {n_chunks} prefill chunks, drain "
+        f"wall {wall:.3f} s; every stream equals the uninterrupted drain; "
+        f"both tiers conserved [{smi}]")
+    for (b, ms), (bi, ms_in, disp), s in zip(outs, ins, snaps):
+        log(f"swap {cfg.name}: a {s.pos}-token context, {b / 1e6:.3f} MB: "
+            f"swap-out {ms:.3f} ms (gather, copy to pinned host, "
+            f"synchronize; {b / 1e6 / ms:.2f} GB/s), swap-in "
+            f"{ms_in:.3f} ms (admission to the end of the copy; "
+            f"{bi / 1e6 / ms_in:.2f} GB/s; dispatch {disp:.3f} ms) [{smi}]")
+    log(f"swap: launches {launches} == {want}")
+    # the longer victim's same context, recomputed on the same engine:
+    # once timed to its first decode step, once under the profiler
+    snap = max(snaps, key=lambda x: x.pos)
+    vi = rids.index(snap.request_id)
+    for profile in (False, True):
+        rec = to_recompute(snap)
+        rid = eng.submit_resume(rec)
+        ch1, tok1, steps = eng.n_prefill_chunks, eng.n_prefill_chunk_tokens, [0]
+
+        def reprefill():
+            while eng.prefilling_slots or eng.waiting:
+                eng.step()
+                steps[0] += 1
+        torch.cuda.synchronize()
+        if profile:
+            rw, busy, _, names = _profiled(torch, reprefill)
+            num.update(rec_busy=busy,
+                       rec_prefill=_kernel_ms(names, PREFILL_KERNELS))
+        else:
+            ts = time.perf_counter()
+            reprefill()
+            torch.cuda.synchronize()
+            rw = time.perf_counter() - ts
+            num.update(rec_wall=rw * 1e3)
+        out = []
+        while eng.active_slots:
+            out += eng.step()
+        [r] = [x for x in out if x.request_id == rid]
+        _hold_tie(torch, cfg, params, f"swap recompute resume ({profile=})",
+                  prompts[vi], ref_tokens[vi], r.tokens)
+        log(f"swap recompute resume: the same {len(rec.seq_tokens)}-token "
+            f"context re-prefilled in {eng.n_prefill_chunks - ch1} chunks "
+            f"({eng.n_prefill_chunk_tokens - tok1} tokens) over {steps[0]} "
+            f"steps: "
+            + (f"device busy {num['rec_busy']:.3f} ms, paged prefill "
+               f"{num['rec_prefill']:.3f} ms, profiled wall {rw * 1e3:.3f}"
+               f" ms" if profile else f"wall {rw * 1e3:.3f} ms to its "
+               "first decode step (unprofiled)")
+            + f"; tokens equal the uninterrupted run [{smi}]")
+    return eng, launches, num
+
+
+def _spill_revive(torch, device, cfg, params, smi, ref_eng, max_new=8):
+    """Prefix spill and revival under a tight device budget: one slot,
+    70 blocks (two 508-token prompts' worth), 40 host blocks, the prefix
+    cache on. A prompt's cached blocks are reclaimed by two fillers and
+    spill to the host tier; a prompt of the same 500-token prefix then
+    revives them, and every revived block's bytes equal the original's.
+    Its tokens are held to ``ref_eng``'s run of it (no cache). Returns
+    the launches."""
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(cfg, max_slots=1, max_seq=640,
+                                   kv_layout="paged", token_budget=512,
+                                   kv_blocks=70, kv_host_blocks=40,
+                                   prefix_cache=True, device=device,
+                                   params=params)
+    rng = np.random.default_rng(31)
+    pa = _prefix_prompts(cfg, 1, seed=5)[0]
+    pb = pa.copy()
+    pb[-8:] = rng.integers(1, cfg.vocab_size, 8)
+    fillers = [rng.integers(1, cfg.vocab_size, 508).astype(np.int32)
+               for _ in range(2)]
+    reset_launches()
+    eng.run([pa], max_new_tokens=max_new)
+    al = eng.allocator
+    keys = eng._chain_keys(eng._padded_seq(pa))[:31]  # prefix-only blocks
+    orig = _block_bytes(torch, eng, [al._cache[k] for k in keys])
+    for f in fillers:
+        eng.run([f], max_new_tokens=max_new)
+    spilled = [k for k in keys if k in al._host_cache]
+    if not spilled or al.n_spilled < len(spilled):
+        fail(f"spill: {al.n_spilled} spills, {len(spilled)} of the "
+             "prompt's blocks on the host")
+    hits = eng.n_prefix_hit_tokens
+    tb = eng.run([pb], max_new_tokens=max_new)[0].tokens
+    launches = read_launches()
+    want = _want(cfg, "paged", n_iters=eng.n_iters,
+                 n_chunks=eng.n_prefill_chunks)
+    if launches != want:
+        fail(f"spill: launches {launches} != {want}")
+    if al.n_unspilled < len(spilled) or \
+            eng.n_prefix_hit_tokens - hits != 31 * eng.block_size:
+        fail(f"spill: {al.n_unspilled} revivals of {len(spilled)} spilled "
+             f"blocks, {eng.n_prefix_hit_tokens - hits} hit tokens")
+    now = _block_bytes(torch, eng, [al._cache[k] for k in keys])
+    changed = sum(int(not torch.equal(a[k], b[k]))
+                  for a, b in zip(now, orig) for k in ("k", "v"))
+    if changed:
+        fail(f"spill: {changed} of {2 * cfg.n_layers} pools' revived "
+             "blocks differ from the originals")
+    if al.n_host_free + al.n_host_cached + al.n_host_live \
+            != al.n_host_blocks:
+        fail("spill: host tier not conserved")
+    want_b = ref_eng.run([pb], max_new_tokens=max_new)[0].tokens
+    m = _hold_tie(torch, cfg, params, "spill revived prompt", pb, want_b, tb)
+    log(f"spill {cfg.name}: 1 slot, 70 device and 40 host blocks "
+        f"({_pinned_mib(eng)} MiB pinned); two "
+        f"fillers spilled {len(spilled)} of a 508-token prompt's 31 prefix "
+        f"blocks ({al.n_spilled} spills in all), a prompt of the same "
+        f"prefix revived them ({al.n_unspilled} revivals, 496 hit tokens): "
+        f"every revived block's bytes equal the original's in all "
+        f"{2 * cfg.n_layers} pools; its tokens equal a run without the "
+        f"cache{' up to a tie' if m is not None else ''}; transfer samples "
+        f"(bytes, ms) {[(b, round(t, 3)) for b, t in eng.swap_samples[:3]]}"
+        f"... [{smi}]")
+    log(f"spill: launches {launches} == {want}")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_swap(torch, device, cfg, params, smi, ref_tokens):
+    """The host KV tier at full width, paged: swap preemption and resume
+    in the drains (beside a recompute resume of the same context), prefix
+    spill and revival under a tight budget, and the 4-slot pool with
+    ``preempt_mode="auto"`` under two SLO tiers 4x apart, its picks and
+    its swap-cost fit logged. Returns the summed launches."""
+    from repro_torch.serving import latency_model as lm
+
+    eng, launches, _ = _swap_drain(torch, device, cfg, params, smi,
+                                   ref_tokens)
+    for k, n in _spill_revive(torch, device, cfg, params, smi,
+                              eng).items():
+        launches[k] += n
+    del eng
+    torch.cuda.empty_cache()
+    got, pool = _preempt_pool(torch, device, cfg, params, smi, seed=13,
+                              label="swap pool", kv_host_blocks=64,
+                              preempt_mode="auto")
+    for k, n in got.items():
+        launches[k] += n
+    samples = [x for i in pool.live() for x in i.engine.swap_samples]
+    st = pool.stats()
+    log(f"swap pool: preempt_mode auto, 64 host blocks per instance "
+        f"({_pinned_mib(pool.live()[0].engine)} MiB pinned); "
+        f"{pool.n_preempted} preemption(s), {pool.n_swap_preempted} by swap "
+        f"and {pool.n_preempted - pool.n_swap_preempted} by recompute; "
+        f"swap-cost fit (base_ms, ms_per_mb) {pool.swap_cost()} (the "
+        f"pool's, after 4 samples), {lm.fit_swap_cost(samples)} over the "
+        f"{len(samples)} samples {[(b, round(t, 3)) for b, t in samples]}; "
+        f"token-cost fit {pool.token_cost()}; kv_host_frac "
+        f"{st['kv_host_frac']:.3f} [{smi}]")
     torch.cuda.empty_cache()
     return launches
 
@@ -2277,7 +2827,7 @@ def phase_prefix(torch, device, cfg, params, smi, n_req=16, max_new=32,
         f"{on['one_busy'] - on['one_prefill_ms']:.3f}) [{smi}]")
     # serve_continuous over the template, cache on
     reset_launches()
-    stats = serve_continuous(cfg=cfg, kv_layout="paged", duration_s=5.0,
+    stats = serve_continuous(cfg=cfg, kv_layout="paged", duration_s=3.0,
                              max_slots=4, prefix_cache=True,
                              shared_prefix_tokens=PREFIX_TOKENS,
                              device=device)
@@ -2291,7 +2841,7 @@ def phase_prefix(torch, device, cfg, params, smi, n_req=16, max_new=32,
              f"{stats['prefix_hit_rate']}, launches {got} != {want}")
     add(got)
     log(f"serve_continuous {cfg.name} paged, prefix cache, 500-token "
-        f"template (4 slots): {stats['served']:.0f} requests in 5 s, "
+        f"template (4 slots): {stats['served']:.0f} requests in 3 s, "
         f"prefix_hit_rate {stats['prefix_hit_rate']:.4f}, n_prefix_hits "
         f"{stats['n_prefix_hits']:.0f}, kv_shared_frac "
         f"{stats['kv_shared_frac']:.3f}; launches {got} == {want} [{smi}]")
@@ -2301,7 +2851,7 @@ def phase_prefix(torch, device, cfg, params, smi, n_req=16, max_new=32,
         torch, device, smi, "paged pair, prefix cache",
         models=list(POOL_DENSE), cfgs={m: get_config(m) for m in POOL_DENSE},
         kv_layout="paged", prefix_cache=True,
-        shared_prefix_tokens=PREFIX_TOKENS, duration_s=12.0, rps=2.0,
+        shared_prefix_tokens=PREFIX_TOKENS, duration_s=8.0, rps=2.0,
         slo_ms=5000.0, max_new_tokens=8)
     add(got)
     pool = probe.pool
@@ -3047,7 +3597,8 @@ def phase_sim(torch, device, smi):
 def run(torch, device, smi):
     """Every phase after the build: kernels vs plain, timing, the three
     serving paths of full-width qwen3-0.6b, its online path (preemption,
-    HTTP, seeded sampling) and its prefix cache, then the dense
+    HTTP, seeded sampling), its prefix cache, speculative decoding and
+    the host KV tier, then the dense
     continuous engine and round mode of each full-width recurrent family
     and the paged engine and round mode of arctic-480b cut to one layer
     (one model on the card at a time), and card-vs-CPU parity at reduced
@@ -3057,8 +3608,19 @@ def run(torch, device, smi):
     from repro_torch.config import get_config, get_reduced_config
     from repro_torch.models.transformer import init_params
 
+    t_mark = [time.perf_counter()]
+
+    def mark(what):
+        """Log the seconds since the last mark: where the run's time
+        goes, for keeping it inside its budget."""
+        now = time.perf_counter()
+        log(f"time: {what} {now - t_mark[0]:.1f} s")
+        t_mark[0] = now
+
     errs = phase_kernels(torch, device)
+    mark("kernels")
     times = phase_timing(torch, device, smi)
+    mark("timing")
     launches = {name: 0 for name in REPLACES}
 
     def add(got):
@@ -3066,41 +3628,46 @@ def run(torch, device, smi):
             launches[name] += n
 
     add(phase_sim(torch, device, smi))
+    mark("sim")
 
     full = get_config(FULL)
     params = init_params(full, seed=0, device=device)
-    # the two layouts' drains in turns (paged, dense, dense, paged): host
-    # time on a shared machine drifts, so only alternated runs compare
-    runs = {"paged": [], "dense": []}
-    for i, layout in enumerate(("paged", "dense", "dense", "paged")):
-        got, res = phase_e2e(torch, device, full, params, smi, layout,
-                             profile=i < 2)
-        if i < 2:
-            add(got)
-        runs[layout].append(res)
-    for key, what in (("tokens_per_s", "generated tokens/s"),
-                      ("p50", "decode iteration p50 ms"),
-                      ("p99", "decode iteration p99 ms")):
-        log(f"e2e paged vs dense, {what}: {[r[key] for r in runs['paged']]}"
-            f" vs {[r[key] for r in runs['dense']]} [{smi}]")
+    # one drain per layout (the k = 0 streams phase_spec and phase_swap
+    # are held to); PRs 18-22 also ran a second pair in turns
+    drained = {}
+    for layout in ("paged", "dense"):
+        got, res = phase_e2e(torch, device, full, params, smi, layout)
+        add(got)
+        drained[layout] = res["tokens"]
+    mark("e2e")
     for n_slots in (8, 4):
         phase_split_rule(torch, device, full, params, smi, n_slots)
+    mark("split rule")
     add(phase_serve(torch, device, full, "paged"))
     # 32 slots (B.KV = 256 > the SM count): decode takes the one-split
     # kernel, the only engine here that does
     add(phase_serve(torch, device, full, "paged", max_slots=32))
     add(phase_round(torch, device, full, params, smi)[0])
-    add(phase_preempt(torch, device, full, params, smi))
+    mark("serve_continuous, round")
+    add(phase_preempt(torch, device, full, params, smi, drained["paged"]))
     add(phase_http(torch, device, full, params, smi))
     add(phase_sampling(torch, device, full, params, smi))
+    mark("preempt, http, sampling")
     add(phase_prefix(torch, device, full, params, smi))
+    mark("prefix")
+    add(phase_spec(torch, device, full, params, smi, drained)[0])
+    mark("spec")
+    add(phase_swap(torch, device, full, params, smi, drained["paged"]))
+    mark("swap")
     del params
     torch.cuda.empty_cache()
     phase_serve_round(torch, device, full, smi)
     phase_parity(torch, device, get_reduced_config(FULL))
+    mark("serve_round, parity")
     add(phase_pool(torch, device, smi))
     phase_pool_parity(torch, device, get_reduced_config(FULL))
     phase_prefix_parity(torch, device)
+    mark("pool, pool parity, prefix parity")
     for arch in RECURRENT:
         cfg = get_config(arch)
         t0 = time.perf_counter()
@@ -3115,14 +3682,17 @@ def run(torch, device, smi):
         torch.cuda.empty_cache()
         phase_parity(torch, device, get_reduced_config(arch),
                      ("dense", "paged"))
+        mark(arch)
     add(phase_serve(torch, device, get_config(RECURRENT[-1]), "dense"))
     add(phase_moe(torch, device, smi))
+    mark("moe")
     for arch in MOE:
         phase_parity(torch, device, get_reduced_config(arch))
     # the published capacity factor is 1.25; at 1.0 prefill chunks and
     # rounds drop entries on the card
     phase_parity(torch, device, dataclasses.replace(
         get_reduced_config(MOE[0]), capacity_factor=1.0), need_drops=True)
+    mark("moe parity")
     idle = [name for name, n in launches.items() if n == 0]
     if idle:
         fail(f"kernels never launched on a main path: {idle}")

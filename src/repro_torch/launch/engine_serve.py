@@ -10,11 +10,12 @@ wall-clock and utilities are computed from them (Eq. 3).
 * ``continuous`` — arrivals are submitted into the
   ``ContinuousBatchingEngine`` as they land and join the running batch
   at iteration boundaries (dense or paged KV layout, optionally with the
-  prefix cache over a templated workload);
+  prefix cache over a templated workload and speculative decoding);
 * ``serve_pool`` (``--models a,b``) — N concurrent engine instances
   across heterogeneous models behind the ``ModelInstancePool``, with the
   ``PoolScheduler`` driving the real (b, m_c) action per model
-  (continuous only), optionally with SLO-aware preemption;
+  (continuous only), optionally with SLO-aware preemption by recompute
+  or into a host KV tier, and speculation as a fourth axis;
 * ``serve_http`` (``--serve-http``) — push-mode serving: the pool steps
   on a background ``ServingDriver`` thread with the scheduler re-deciding
   on a wall-clock tick, and an asyncio ``ServingFrontend`` streams
@@ -27,8 +28,13 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.serve --engine
           --exec-mode continuous --kv-layout paged --prefix-cache \
           --shared-prefix-tokens 500
       PYTHONPATH=src python -m repro_torch.launch.serve --engine \
+          --exec-mode continuous --kv-layout paged --spec-k 4
+      PYTHONPATH=src python -m repro_torch.launch.serve --engine \
           --models qwen3-0.6b,recurrentgemma-2b --exec-mode continuous \
           --kv-layout paged --kv-block-budget 64
+      PYTHONPATH=src python -m repro_torch.launch.serve --engine \
+          --models qwen3-0.6b --kv-layout paged --kv-block-budget 256 \
+          --preemption --kv-host-blocks 64 --preempt-mode auto --spec-k 4
       PYTHONPATH=src python -m repro_torch.launch.serve --engine \
           --serve-http --port 8907 --models qwen3-0.6b --max-instances 1 \
           --kv-layout paged
@@ -48,7 +54,8 @@ from repro_torch.core.utility import utility
 from repro_torch.serving.bcedge import PoolScheduler
 from repro_torch.serving.engine import (SEQ_BUCKETS,
                                         ContinuousBatchingEngine,
-                                        InferenceEngine, _bucket)
+                                        InferenceEngine, _bucket,
+                                        supports_speculation)
 from repro_torch.serving.runtime import ModelInstancePool
 
 #: unique-tail length _shared_prefix_prompts appends to every prefix
@@ -172,7 +179,7 @@ def serve_continuous(arch: str = "qwen3-0.6b", duration_s: float = 20.0,
                      kv_block_budget: Optional[int] = None,
                      token_budget: Optional[int] = None,
                      prefix_cache: bool = False,
-                     shared_prefix_tokens: int = 0,
+                     shared_prefix_tokens: int = 0, spec_k: int = 0,
                      cfg: Optional[ModelConfig] = None,
                      device="cuda") -> Dict[str, float]:
     """Continuous mode: arrivals are submitted into the slot engine as
@@ -185,15 +192,23 @@ def serve_continuous(arch: str = "qwen3-0.6b", duration_s: float = 20.0,
     pages every layer; else the engine's ``ValueError``);
     ``shared_prefix_tokens`` templates the prompts (one of four shared
     prefixes plus an 8-token tail) so the cache has something to hit,
-    and sizes the cache to them. ``cfg`` overrides the reduced registry
-    config of ``arch`` (for example with the full-width one). Runs on
-    ``device`` (default ``"cuda"``, which raises without a GPU). Returns
-    the engine's ``stats()`` plus ``served`` and ``violations``."""
+    and sizes the cache to them. ``spec_k`` turns on self-speculative
+    decoding (up to k n-gram drafts per slot, checked in one verify
+    forward); a model whose cache cannot rewind serves with it off, as
+    in the reference. ``cfg`` overrides the reduced registry config of
+    ``arch`` (for example with the full-width one). Runs on ``device``
+    (default ``"cuda"``, which raises without a GPU). Returns the
+    engine's ``stats()`` plus ``served`` and ``violations``."""
     cfg = cfg if cfg is not None else get_reduced_config(arch)
+    if spec_k > 0 and not supports_speculation(cfg):
+        print(f"{cfg.name}: cache not rewindable "
+              f"(recurrent/windowed layers); serving with spec_k=0")
+        spec_k = 0
     print(f"loading {cfg.name} (d={cfg.d_model}, L={cfg.n_layers}), "
           f"{max_slots} slots, {kv_layout} KV, "
           f"token budget {token_budget or 'uncapped'}, "
-          f"prefix cache {'on' if prefix_cache else 'off'}, on {device}...")
+          f"prefix cache {'on' if prefix_cache else 'off'}, "
+          f"spec_k {spec_k or 'off'}, on {device}...")
     engine = ContinuousBatchingEngine(cfg, max_slots=max_slots,
                                       max_seq=_serve_max_seq(
                                           shared_prefix_tokens),
@@ -201,7 +216,7 @@ def serve_continuous(arch: str = "qwen3-0.6b", duration_s: float = 20.0,
                                       kv_blocks=kv_block_budget,
                                       token_budget=token_budget,
                                       prefix_cache=prefix_cache,
-                                      device=device)
+                                      spec_k=spec_k, device=device)
     rng = np.random.default_rng(0)
     draw_prompt = _shared_prefix_prompts(
         rng, cfg.vocab_size, shared_prefix_tokens) \
@@ -250,7 +265,7 @@ def serve_pool(models: Sequence[str] = ("qwen3-0.6b", "recurrentgemma-2b"),
                kv_host_blocks: int = 0,
                preempt_mode: str = "auto",
                prefix_cache: bool = False,
-               shared_prefix_tokens: int = 0,
+               shared_prefix_tokens: int = 0, spec_k: int = 0,
                cfgs: Optional[Dict[str, ModelConfig]] = None,
                device="cuda",
                pool_out: Optional[list] = None
@@ -262,17 +277,19 @@ def serve_pool(models: Sequence[str] = ("qwen3-0.6b", "recurrentgemma-2b"),
     every instance from the block-pool KV layout under a shared
     ``kv_block_budget``; ``token_budget`` adds the per-iteration token cap
     as a third scheduler axis and ``preemption`` enables SLO-aware
-    eviction (recompute on resume; ``kv_host_blocks`` > 0 and
-    ``preempt_mode="swap"`` need the host tier, which raises as not
-    ported). ``prefix_cache`` shares full prompt blocks between
-    same-prefix sequences on the models that page every layer (the others
-    serve without it), with the router's prefix affinity; pair it with
-    ``shared_prefix_tokens``, which templates the prompts (a shared
-    prefix plus an 8-token tail) and sizes the cache to them. ``cfgs``
-    (model -> config) overrides the reduced registry configs (for example
-    with the full-width ones). The reference's speculation argument is
-    not ported (ROADMAP.md). Runs on
-    ``device`` (default ``"cuda"``, which raises without a GPU).
+    eviction. ``kv_host_blocks`` gives every paged instance a pinned host
+    KV tier, so eviction can swap instead of recompute; ``preempt_mode``
+    picks recompute, swap or auto (priced per victim). ``prefix_cache``
+    shares full prompt blocks between same-prefix sequences on the models
+    that page every layer (the others serve without it), with the
+    router's prefix affinity; pair it with ``shared_prefix_tokens``,
+    which templates the prompts (a shared prefix plus an 8-token tail)
+    and sizes the cache to them. ``spec_k`` caps self-speculative
+    decoding and adds the depth as the scheduler's fourth axis (k in {0,
+    k/2, k}; models whose cache can rewind). ``cfgs`` (model -> config)
+    overrides the reduced registry configs (for example with the
+    full-width ones). Runs on ``device`` (default ``"cuda"``, which
+    raises without a GPU).
     ``pool_out``, a list, receives the pool, for callers that read its
     per-request results. Returns the pool's
     per-model report."""
@@ -292,7 +309,7 @@ def serve_pool(models: Sequence[str] = ("qwen3-0.6b", "recurrentgemma-2b"),
                              preemption=preemption,
                              kv_host_blocks=max(0, kv_host_blocks),
                              preempt_mode=preempt_mode,
-                             prefix_cache=prefix_cache,
+                             prefix_cache=prefix_cache, spec_k=spec_k,
                              device=device)
     if pool_out is not None:
         pool_out.append(pool)
@@ -301,7 +318,9 @@ def serve_pool(models: Sequence[str] = ("qwen3-0.6b", "recurrentgemma-2b"),
         batch_sizes=tuple(b for b in (1, 2, 4, 8) if b <= max_slots),
         concurrency_levels=tuple(range(1, per_model_mc + 1)),
         token_budgets=(0,) if not token_budget
-        else (0, 2 * token_budget, token_budget))
+        else (0, 2 * token_budget, token_budget),
+        spec_depths=(0,) if not spec_k
+        else tuple(sorted({0, max(1, spec_k // 2), spec_k})))
     sched = PoolScheduler(pool, scfg, slo_ms={m: slo_ms for m in cfgs},
                           decode_steps_mean=max_new_tokens, seed=seed)
     sched.control()  # initial allocation (spawns the first instances)
@@ -432,17 +451,6 @@ def serve_http(models: Sequence[str] = ("qwen3-0.6b",),
         print("[http] interrupted")
 
 
-def _refuse_unported(**flags) -> None:
-    """Raise for an engine feature the port does not serve yet, where the
-    reference would use it (continuous mode and the pool)."""
-    items = {"spec_k": "item 6, speculation and the host swap tier"}
-    for name, value in flags.items():
-        if value:
-            raise NotImplementedError(
-                f"{name} on the engine is not ported yet (ROADMAP.md, "
-                f"Queue A {items[name]})")
-
-
 def main(exec_mode: str = "round", arch: str = "qwen3-0.6b",
          duration_s: float = 20.0, rps: float = 12.0,
          slo_ms: float = 1500.0, models: Optional[Sequence[str]] = None,
@@ -456,8 +464,7 @@ def main(exec_mode: str = "round", arch: str = "qwen3-0.6b",
          backpressure: bool = True, max_queue_depth: int = 8,
          device="cuda") -> None:
     """Dispatch as the reference's ``main`` does: HTTP serving, the pool,
-    continuous mode or round mode. A flag is refused only where the
-    reference would use it; round mode prints that the
+    continuous mode or round mode. Round mode prints that the
     continuous-engine features are ignored and serves."""
     if serve_http_port is not None:
         serve_http(models or [arch], port=serve_http_port, slo_ms=slo_ms,
@@ -470,7 +477,6 @@ def main(exec_mode: str = "round", arch: str = "qwen3-0.6b",
         if exec_mode != "continuous":
             print("multi-model pool serving is continuous-only; "
                   "running with --exec-mode continuous")
-        _refuse_unported(spec_k=spec_k)
         serve_pool(models, duration_s, rps, slo_ms,
                    max_instances=max_instances, kv_layout=kv_layout,
                    kv_block_budget=kv_block_budget,
@@ -478,15 +484,14 @@ def main(exec_mode: str = "round", arch: str = "qwen3-0.6b",
                    kv_host_blocks=kv_host_blocks, preempt_mode=preempt_mode,
                    prefix_cache=prefix_cache,
                    shared_prefix_tokens=int(shared_prefix_tokens),
-                   device=device)
+                   spec_k=spec_k, device=device)
     elif exec_mode == "continuous":
-        _refuse_unported(spec_k=spec_k)
         serve_continuous(arch, duration_s, rps, slo_ms, kv_layout=kv_layout,
                          kv_block_budget=kv_block_budget,
                          token_budget=token_budget,
                          prefix_cache=prefix_cache,
                          shared_prefix_tokens=int(shared_prefix_tokens),
-                         device=device)
+                         spec_k=spec_k, device=device)
     else:
         if kv_layout != "dense":
             print("round mode always uses the dense per-round cache; "

@@ -3,10 +3,8 @@ simulator (the default, as in ``repro.launch.serve``), or the real engine
 (``--engine``) in round or continuous mode, or the multi-model instance
 pool (``--models``), or push-mode HTTP serving (``--serve-http``). The
 agents, the interference predictor and the engines run on the GPU unless
-``--device cpu``; the simulator itself is numpy on the host. A flag of an
-engine feature the port does not serve yet raises only where the
-reference would use it (continuous mode or the pool); round mode ignores
-them, as the reference's does.
+``--device cpu``; the simulator itself is numpy on the host. Round mode
+ignores the continuous-engine flags, as the reference's does.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --episodes 1 \
         --episode-ms 3000
@@ -17,8 +15,11 @@ them, as the reference's does.
         --exec-mode continuous --kv-layout paged --token-budget 64 \
         --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --engine \
+        --exec-mode continuous --kv-layout paged --spec-k 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine \
         --models qwen3-0.6b --exec-mode continuous --kv-layout paged \
-        --kv-block-budget 256 --preemption
+        --kv-block-budget 256 --preemption --kv-host-blocks 64 \
+        --preempt-mode auto --spec-k 4
     PYTHONPATH=src python -m repro_torch.launch.serve --engine \
         --serve-http --port 8907 --models qwen3-0.6b --max-instances 1 \
         --kv-layout paged
@@ -122,17 +123,21 @@ def main(argv=None) -> None:
     ap.add_argument("--preemption", action="store_true",
                     help="SLO-aware preemption: the pool evicts the "
                          "largest-slack resident when an urgent request "
-                         "cannot be admitted (recompute on resume); "
-                         "simulator: in continuous sessions")
+                         "cannot be admitted; simulator: in continuous "
+                         "sessions")
     ap.add_argument("--kv-host-blocks", type=int, default=0,
-                    help="host-memory KV block tier per paged pool "
-                         "instance (the reference's swap tier; not ported "
-                         "to the engine yet). Default: 0")
+                    help="pinned host-memory KV block tier per paged "
+                         "engine instance: preempted sequences can swap "
+                         "their blocks there instead of recomputing, and "
+                         "the prefix cache spills cold blocks there before "
+                         "invalidating them. Default: 0 (no host tier)")
     ap.add_argument("--preempt-mode", default="auto",
                     choices=["auto", "recompute", "swap"],
                     help="the pool's eviction mode: recompute re-prefills "
-                         "on resume; swap needs --kv-host-blocks; auto "
-                         "prices both (recompute while no host tier)")
+                         "on resume; swap moves the KV to the host tier "
+                         "(needs --kv-host-blocks); auto prices both with "
+                         "the calibrated token-cost and swap-cost fits, "
+                         "per victim")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="simulator: sessions skip shared prefixes an "
                          "earlier request already prefilled; engine and "
@@ -147,10 +152,11 @@ def main(argv=None) -> None:
                          "pool; what --prefix-cache exploits). Default: 0 "
                          "(off)")
     ap.add_argument("--spec-k", type=int, default=0,
-                    help="simulator: speculative decoding depth, an added "
-                         "action level (continuous only; not ported to the "
-                         "engine yet, whose round mode ignores it). "
-                         "Default: 0 (off)")
+                    help="self-speculative decoding depth: up to k n-gram "
+                         "drafts per slot, checked in one verify forward; "
+                         "engine and pool: the cap, and the pool "
+                         "scheduler's fourth axis; simulator: an added "
+                         "action level. Continuous only. Default: 0 (off)")
     ap.add_argument("--serve-http", action="store_true",
                     help="push-mode HTTP serving: a background driver "
                          "steps the pool, an asyncio front-end streams "

@@ -399,6 +399,26 @@ class Model:
         return _lm_logits(params, x[:, -1:, :], self.cfg), cache
 
     @torch.no_grad()
+    def verify_step(self, params: Dict, cache: List[Dict], batch: Dict
+                    ) -> Tuple[torch.Tensor, List[Dict]]:
+        """Speculative verification: ``batch = {"tokens": (B,W), "pos":
+        (B,)}`` plus, for a paged cache, ``"block_tables": (B,nb)``
+        scores W candidate tokens per sequence, row ``j`` of sequence
+        ``b`` at position ``pos[b] + j``, in one forward through the
+        chunk trunk (paged layers: ``paged_prefill_attention``), and
+        writes their K/V. The logits at column ``j`` are what a
+        sequential ``decode_step`` of ``tokens[:, j]`` would give.
+        Returns (logits at every position (B,W,V), cache), the cache
+        updated in place. The caller masks or rolls back rejected rows,
+        sound only where every layer can rewind
+        (``serving.engine.supports_speculation``); a paged caller widens
+        the table by null columns so rows past ``cache_len`` land in the
+        null block."""
+        x = apply_embed(params["embed"], batch["tokens"])
+        x = _trunk_step(params, x, self.cfg, cache, batch, decode=False)
+        return _lm_logits(params, x, self.cfg), cache
+
+    @torch.no_grad()
     def decode_step(self, params: Dict, cache: List[Dict], batch: Dict
                     ) -> Tuple[torch.Tensor, List[Dict]]:
         """``batch = {"tokens": (B,1), "pos": (B,)}`` int tensors, plus

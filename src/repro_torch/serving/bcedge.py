@@ -14,17 +14,19 @@ Two drivers live here:
   each ``act`` and each guard ``predict`` reads one value back from it, a
   device synchronisation per call.
 * ``PoolScheduler`` — the real runtime path: one discrete SAC agent per
-  model picks (b, m_c, token budget) over the instance pool; b caps the
-  active slots per instance, m_c is applied through ``pool.scale_to`` so
-  the action really spawns or drains engine instances, and the token
-  budget caps each iteration's prefill + decode tokens. Its guard checks
-  an action against the models the pool calibrates from its own measured
-  iterations (contention, token cost, KV occupancy).
+  model picks (b, m_c, token budget, speculation depth) over the instance
+  pool; b caps the active slots per instance, m_c is applied through
+  ``pool.scale_to`` so the action really spawns or drains engine
+  instances, the token budget caps each iteration's prefill + decode
+  tokens and the depth is each instance's live ``spec_k``. Its guard
+  checks an action against the models the pool calibrates from its own
+  measured iterations (contention, token cost with the verify surcharge,
+  KV occupancy).
 
-The reference's pool action also carries a speculation depth and a TP
-degree; the port's pool serves neither yet, so ``PoolScheduler`` refuses
-a ``ServingConfig`` that offers more than ``spec_depths=(0,)`` and
-``tp_degrees=(1,)`` (ROADMAP.md). The TP collective surcharge
+The reference's pool action also carries a TP degree; the port's pool
+serves one device per instance, so ``PoolScheduler`` refuses a
+``ServingConfig`` that offers more than ``tp_degrees=(1,)`` (ROADMAP.md,
+Queue A item 8). The TP collective surcharge
 (``tp_collective_ms_per_token``) comes with tensor parallelism.
 """
 from __future__ import annotations
@@ -202,29 +204,32 @@ def run_episode(env: EdgeServingEnv, agent,
 #:  log1p(prefill backlog tokens), log1p(preemptions since last decision),
 #:  prefix-cache hit rate (0 for dense or cache-off pools), speculative
 #:  acceptance rate, shared-device-set utilization, host-tier occupancy
-#:  frac]. The last three are features of parts the port does not have
-#:  yet (speculation, a device budget, the host tier) and read 0, as the
-#:  reference's do for a pool without them.
+#:  frac]. The device-set feature reads 0: the port's pool has no device
+#:  budget until tensor parallelism (ROADMAP.md, Queue A item 8), as the
+#:  reference's reads for a pool without one.
 POOL_STATE_DIM = 13
 
 
 class PoolScheduler:
     """(b, m_c) scheduler over a REAL ``ModelInstancePool``: b caps the
-    active slots per instance, m_c is applied through ``pool.scale_to``.
-    One agent per model (the port's ``SACAgent`` on the pool's device
-    unless ``agents`` are given); the SLO guard degrades infeasible
-    actions using the contention model the pool calibrates from its own
-    measured iteration latencies."""
+    active slots per instance, m_c is applied through ``pool.scale_to``,
+    and the token budget and speculation depth (``cfg.token_budgets``,
+    ``cfg.spec_depths``) are the third and fourth axes. One agent per
+    model (the port's ``SACAgent`` on the pool's device unless
+    ``agents`` are given); the SLO guard degrades infeasible actions,
+    speculation first, using the contention and token-cost models the
+    pool calibrates from its own measured iteration latencies. TP
+    degrees beyond ``(1,)`` raise (ROADMAP.md, Queue A item 8)."""
 
     def __init__(self, pool, cfg: ServingConfig,
                  slo_ms: Optional[Dict[str, float]] = None,
                  decode_steps_mean: float = 8.0, guard: bool = True,
                  learn: bool = True, seed: int = 0, agents=None):
-        if tuple(cfg.spec_depths) != (0,) or tuple(cfg.tp_degrees) != (1,):
+        if tuple(cfg.tp_degrees) != (1,):
             raise NotImplementedError(
-                "speculation depths and TP degrees as scheduler axes are "
-                "not ported yet: the port's pool serves neither "
-                "(ROADMAP.md, Queue A items 5 and 10)")
+                "TP degrees as a scheduler axis are not ported yet: the "
+                "port's pool serves one device per instance (ROADMAP.md, "
+                "Queue A item 8)")
         self.pool = pool
         self.cfg = cfg
         self.slo_ms = dict(slo_ms or {})
@@ -292,9 +297,9 @@ class PoolScheduler:
             np.log1p(max(0, p.prefill_backlog_tokens(model))),
             np.log1p(max(0, new_preempts)),
             float(occ.get("prefix_hit_rate", 0.0)),
-            0.0,  # speculative acceptance rate
-            0.0,  # shared-device-set utilization
-            0.0,  # host-tier occupancy
+            min(1.0, max(0.0, float(p.spec_accept_rate()))),
+            0.0,  # shared-device-set utilization (no device budget yet)
+            min(1.0, max(0.0, float(occ.get("host_frac", 0.0)))),
         ], np.float32)
 
     def _kv_feasible(self, model: str, b: int, m_c: int) -> bool:
@@ -323,13 +328,17 @@ class PoolScheduler:
         return max(slack, 2.0) / self.decode_steps_mean
 
     def _feasible(self, model: str, b: int, m_c: int,
-                  token_budget: int = 0) -> bool:
+                  token_budget: int = 0, spec_k: int = 0) -> bool:
         """Eq.-1 feasibility per iteration at the PROPOSED overlap: the
         calibrated contention model's pool-iteration latency at the other
         models' busy instances plus ``m_c`` must fit the most urgent
         request's per-iteration budget, and so must an iteration of
         ``token_budget`` tokens under the token-cost fit (when nonzero).
-        b enters through the KV guard (``_kv_feasible``)."""
+        A nonzero ``spec_k`` adds the verify surcharge: every decoding
+        slot processes ``1 + k`` tokens, so ``k * b`` more tokens are
+        priced on top of the budget (or of the ``b``-token decode floor
+        without one). b enters through the KV guard
+        (``_kv_feasible``)."""
         if not self._kv_feasible(model, b, m_c):
             return False
         budget = self._iter_budget_ms(model)
@@ -340,22 +349,25 @@ class PoolScheduler:
             if lm.predicted_iter_ms(t1, c, max(1, busy_others + m_c)) \
                     > budget:
                 return False
-        if token_budget > 0:
+        work = token_budget
+        if spec_k > 0:
+            work = (token_budget if token_budget > 0 else b) + spec_k * b
+        if work > 0:
             base, per_tok = self.pool.token_cost()
             if per_tok > 0.0 and lm.predicted_token_iter_ms(
-                    base, per_tok, token_budget) > budget:
+                    base, per_tok, work) > budget:
                 return False
         return True
 
     def _apply(self, model: str, a: int) -> int:
         cfg = self.cfg
-        b, m_c, tb = cfg.action_to_triple(a)
+        b, m_c, tb, sk = cfg.action_to_quad(a)
         # under backlog the guard steps aside (only throughput clears an
         # old queue)
         slo = self.slo_ms.get(model, 1000.0)
         backlog = self.pool.oldest_slack_ms(model) < 0.5 * slo
         if self.guard and not backlog and \
-                not self._feasible(model, b, m_c, tb):
+                not self._feasible(model, b, m_c, tb, sk):
             self.guard_interventions += 1
             bs_levels = list(cfg.batch_sizes)
             ms = list(cfg.concurrency_levels)
@@ -364,24 +376,34 @@ class PoolScheduler:
             tbs = sorted(cfg.token_budgets,
                          key=lambda t: float("inf") if t == 0 else t,
                          reverse=True)
-            bi, mi, ti = bs_levels.index(b), ms.index(m_c), tbs.index(tb)
-            # degrade the token budget first (a tighter cap bounds the
-            # iteration), then concurrency (it contends and multiplies
-            # KV residency), then batch
-            while ti < len(tbs) - 1 or mi > 0 or bi > 0:
-                if ti < len(tbs) - 1:
+            # speculation depths deepest first: walking on sheds the
+            # verify surcharge until k is 0
+            ks = sorted(cfg.spec_depths, reverse=True)
+            bi, mi = bs_levels.index(b), ms.index(m_c)
+            ti, ki = tbs.index(tb), ks.index(sk)
+            # degrade speculation first (pure surcharge: dropping it sheds
+            # no capacity), then the token budget (a tighter cap bounds
+            # the iteration), then concurrency (it contends and
+            # multiplies KV residency), then batch
+            while ki < len(ks) - 1 or ti < len(tbs) - 1 or mi > 0 \
+                    or bi > 0:
+                if ki < len(ks) - 1:
+                    ki += 1
+                elif ti < len(tbs) - 1:
                     ti += 1
                 elif mi > 0:
                     mi -= 1
                 else:
                     bi -= 1
-                if self._feasible(model, bs_levels[bi], ms[mi], tbs[ti]):
+                if self._feasible(model, bs_levels[bi], ms[mi], tbs[ti],
+                                  ks[ki]):
                     break
-            b, m_c, tb = bs_levels[bi], ms[mi], tbs[ti]
+            b, m_c, tb, sk = bs_levels[bi], ms[mi], tbs[ti], ks[ki]
         self.pool.set_slot_cap(model, b)
         self.pool.scale_to(model, m_c)
         self.pool.set_token_budget(model, tb or None)
-        return cfg.triple_to_action(b, m_c, tb)
+        self.pool.set_spec_k(model, sk)
+        return cfg.quad_to_action(b, m_c, tb, sk)
 
     # ---- decision epoch --------------------------------------------------
     def control(self) -> Dict[str, tuple]:

@@ -38,13 +38,15 @@ each step's tokens and whether it loaded a kernel library
 (``request_blocks``, ``admissible``, ``kv_block_mapping``).
 
 Preemption (recompute: the snapshot re-prefills the padded prompt plus
-every emitted token on resume) and cancellation at any phase are ported,
-and so is seeded sampling, which draws from its own ``torch.Generator``
-and so matches the reference in distribution, not token for token.
-What is still to port raises (see ROADMAP.md): speculative decoding,
-the host KV tier (and with it preemption by swap and the prefix cache's
-host spill), tensor parallelism, and encoder-decoder and frontend
-models.
+every emitted token on resume; swap: its blocks go to a pinned host tier
+and come back with no recompute), the prefix cache's host spill,
+speculative decoding (n-gram or draft-model proposals checked by one
+verify forward per iteration, ``paged_prefill_attention`` on the card)
+and cancellation at any phase are ported, and so is seeded sampling,
+which draws from its own ``torch.Generator`` and so matches the
+reference in distribution, not token for token. What is still to port
+raises (see ROADMAP.md): tensor parallelism, and encoder-decoder and
+frontend models.
 """
 from __future__ import annotations
 
@@ -92,6 +94,17 @@ def supports_prefix_cache(cfg: ModelConfig) -> bool:
     if cfg.frontend is not None or cfg.enc_dec:
         return False
     return all(paged_layer_kind(cfg, k) for k in cfg.layer_kinds())
+
+
+def supports_speculation(cfg: ModelConfig) -> bool:
+    """Speculative decoding needs every layer's decode state rewindable:
+    rejected linear-attention K/V rows are masked by ``pos`` (dense) or
+    freed back to the allocator at block granularity (paged), but a
+    recurrent state advances irreversibly per token and a windowed ring
+    aliases rejected writes over live positions. That is the prefix
+    cache's layer gate, so the two coincide."""
+    return supports_prefix_cache(cfg)
+
 
 #: largest chunked-prefill piece; pieces are powers of two up to this
 _MAX_CHUNK = 512
@@ -229,13 +242,75 @@ class InferenceEngine:
 
 
 # =====================================================================
+# speculative proposers
+# =====================================================================
+class NGramProposer:
+    """Self-speculative (prompt-lookup) drafting: find the most recent
+    earlier occurrence of the context's trailing n-gram and propose the
+    tokens that followed it, falling back to shorter n-grams and finally
+    to repeating the last token. Host-side lookup, no model forward; the
+    verify forward makes proposal quality a throughput knob, never a
+    correctness one."""
+
+    def __init__(self, n: int = 2):
+        self.n = max(1, n)
+
+    def propose(self, context: np.ndarray, k: int) -> np.ndarray:
+        """``context`` (1-D int32: prompt, emitted and pending tokens) ->
+        (k,) draft tokens continuing it."""
+        ctx = np.asarray(context, np.int32)
+        L = len(ctx)
+        cont = None
+        for n in range(min(self.n, L - 1), 0, -1):
+            tail = ctx[L - n:]
+            for i in range(L - n - 1, -1, -1):
+                if np.array_equal(ctx[i:i + n], tail):
+                    cont = ctx[i + n:i + n + k]
+                    break
+            if cont is not None and len(cont):
+                break
+        if cont is None or len(cont) == 0:
+            cont = ctx[L - 1:] if L else np.zeros(1, np.int32)
+        reps = -(-k // len(cont))
+        return np.tile(cont, reps)[:k].astype(np.int32)
+
+
+class DraftModelProposer:
+    """Draft-model proposal: a small model greedily decodes ``k`` tokens
+    from the tail of the context (at most ``context_window`` tokens),
+    re-prefilled per call through round mode. Stateless, so it stays
+    right under preemption, prefix sharing and rollback; verification
+    keeps the output identical whatever it proposes.
+
+    The draft runs on ``device`` (default ``"cuda"``) with ``params``
+    (the port's layout) or weights drawn from ``seed``; torch's generator
+    cannot reproduce the reference's JAX-seeded draft, so callers that
+    need the reference's draft bridge its weights
+    (``repro_torch.models.bridge``)."""
+
+    def __init__(self, cfg: ModelConfig, seed: int = 0,
+                 context_window: int = 256, device="cuda",
+                 params: Optional[Dict] = None):
+        self.engine = InferenceEngine(cfg, max_seq=1024, seed=seed,
+                                      device=device, params=params)
+        self.context_window = context_window
+
+    def propose(self, context: np.ndarray, k: int) -> np.ndarray:
+        ctx = np.asarray(context, np.int32)[-self.context_window:]
+        if len(ctx) == 0:
+            return np.zeros(k, np.int32)
+        res = self.engine.generate([ctx], max_new_tokens=k)
+        return res.tokens[0].astype(np.int32)
+
+
+# =====================================================================
 # continuous (iteration-level) batching
 # =====================================================================
 class BlockAllocator:
     """Reference-counted free-list allocator over a paged KV block pool,
-    with a hash-keyed cache of full immutable prefix blocks: the device
-    tier of the reference's ``BlockAllocator`` (its host tier, the spill
-    and revive hooks, is not ported; ROADMAP.md, Queue A item 6).
+    with a hash-keyed cache of full immutable prefix blocks and an
+    optional host tier: the port of the reference's ``BlockAllocator``,
+    its free-list and LRU order kept bit for bit.
 
     ``n_blocks`` usable blocks of ``block_size`` tokens; physical ids are
     1..n_blocks (id 0 is the null block inactive batch rows write into,
@@ -251,21 +326,35 @@ class BlockAllocator:
     when it is cached; parked blocks are reclaimed (oldest first, their
     key invalidated) when an allocation finds the free list empty.
 
+    Host tier (``host_blocks > 0``): a second id space 1..host_blocks of
+    host-memory blocks. *Swapped* blocks (``_host_live``) hold a
+    preempted sequence's KV and belong to its snapshot until resume or
+    cancel; *spilled* blocks (``_host_lru`` / ``_host_cache``) hold
+    refcount-0 prefix blocks that a device-LRU reclaim demoted instead of
+    invalidating, revived by a later ``acquire`` and reclaimable, oldest
+    first, when the host tier fills. The allocator is bookkeeping only:
+    the engine's ``spill_fn(device_id, host_id)`` and
+    ``unspill_fn(host_id, device_id)`` move the bytes.
+
     Invariants (checked after every step in
     tests/test_torch_engine_fuzz.py):
       * ``n_free + n_cached + n_live == n_blocks`` (disjoint id sets);
       * ``n_available = n_free + n_cached - n_reserved >= 0``;
       * a block mapped by k sequences has refcount k;
       * the null block 0 is never allocated;
-      * LRU reclaim only takes refcount-0 blocks.
-    ``free`` raises on an out-of-range id, a duplicate within one call or
-    a double free (more frees than references): any of them would hand
-    one block to two sequences.
+      * LRU reclaim only takes refcount-0 blocks;
+      * ``n_host_free + n_host_cached + n_host_live == n_host_blocks``.
+    ``free`` and ``host_free`` raise on an out-of-range id, a duplicate
+    within one call or a double free: any of them would hand one block
+    to two owners.
     """
 
-    def __init__(self, n_blocks: int, block_size: int):
+    def __init__(self, n_blocks: int, block_size: int,
+                 host_blocks: int = 0):
         if n_blocks < 1:
             raise ValueError("need at least one usable block")
+        if host_blocks < 0:
+            raise ValueError(f"host_blocks must be >= 0, got {host_blocks}")
         self.n_blocks = n_blocks
         self.block_size = block_size
         self._free = list(range(n_blocks, 0, -1))  # pop() -> low ids first
@@ -278,6 +367,22 @@ class BlockAllocator:
         self._lru: "OrderedDict[int, None]" = OrderedDict()
         self.n_reserved = 0
         self.n_reclaimed = 0    # cached blocks evicted under pressure
+        # ---- host tier ----
+        self.n_host_blocks = host_blocks
+        self._host_free = list(range(host_blocks, 0, -1))
+        self._host_live: Set[int] = set()         # swapped sequence KV
+        self._host_cache: Dict[str, int] = {}     # spilled prefix blocks
+        self._host_key: Dict[int, str] = {}
+        self._host_lru: "OrderedDict[int, None]" = OrderedDict()
+        #: the engine's byte movers; None leaves the host tier inert (a
+        #: device-LRU reclaim then invalidates its key)
+        self.spill_fn: Optional[Callable[[int, int], None]] = None
+        self.unspill_fn: Optional[Callable[[int, int], None]] = None
+        self.n_spilled = 0      # device LRU entries demoted to host
+        self.n_unspilled = 0    # host entries revived to device
+        self.n_host_reclaimed = 0  # spilled entries evicted under pressure
+        self.n_swapped_out = 0  # sequence blocks swapped device -> host
+        self.n_swapped_in = 0   # sequence blocks swapped host -> device
 
     @property
     def n_free(self) -> int:
@@ -301,6 +406,69 @@ class BlockAllocator:
         LRU blocks are reclaimable, so they count)."""
         return len(self._free) + len(self._lru) - self.n_reserved
 
+    # ---- host tier -------------------------------------------------------
+    @property
+    def n_host_free(self) -> int:
+        return len(self._host_free)
+
+    @property
+    def n_host_cached(self) -> int:
+        """Spilled prefix blocks parked in the host LRU: reclaimable."""
+        return len(self._host_lru)
+
+    @property
+    def n_host_live(self) -> int:
+        """Host blocks owned by swapped (preempted) sequences, held until
+        their snapshot resumes or is cancelled."""
+        return len(self._host_live)
+
+    @property
+    def n_host_available(self) -> int:
+        """Host blocks a swap-out could claim now: free plus reclaimable
+        spilled entries (swapped blocks are never reclaimed under their
+        owner)."""
+        return len(self._host_free) + len(self._host_lru)
+
+    def _host_alloc(self) -> Optional[int]:
+        """One host block: the free list first, then the oldest spilled
+        entry (its key invalidated). None when every host block holds a
+        swapped sequence."""
+        if self._host_free:
+            return self._host_free.pop()
+        if self._host_lru:
+            hid, _ = self._host_lru.popitem(last=False)
+            del self._host_cache[self._host_key.pop(hid)]
+            self.n_host_reclaimed += 1
+            return hid
+        return None
+
+    def swap_out_alloc(self, n: int) -> Optional[List[int]]:
+        """Claim ``n`` host blocks for a preempted sequence's KV, all or
+        nothing: None when fewer than ``n`` are available."""
+        if self.n_host_available < n:
+            return None
+        ids = []
+        for _ in range(n):
+            hid = self._host_alloc()
+            assert hid is not None
+            self._host_live.add(hid)
+            ids.append(hid)
+        self.n_swapped_out += n
+        return ids
+
+    def host_free(self, ids: List[int]) -> None:
+        """Release a swap snapshot's host blocks (its resume landed, or it
+        was cancelled), with ``free``'s double-free checks."""
+        if len(set(ids)) != len(ids):
+            raise ValueError(f"duplicate host block ids in host_free: {ids}")
+        for i in ids:
+            if i not in self._host_live:
+                raise ValueError(
+                    f"host_free of block {i}: not currently swapped out")
+        for i in ids:
+            self._host_live.discard(i)
+            self._host_free.append(i)
+
     def blocks_for(self, n_tokens: int) -> int:
         return -(-max(0, n_tokens) // self.block_size)
 
@@ -320,11 +488,23 @@ class BlockAllocator:
         self.n_reserved -= n
 
     def _reclaim_lru(self) -> int:
-        """Evict the least recently parked cached block: its key is
-        invalidated and the id serves as a fresh free block."""
+        """Evict the least recently parked cached block. With the host
+        tier attached (``spill_fn`` set) its key moves to a host block
+        instead of being invalidated, one eviction chain over both tiers;
+        without one, or with every host block swap-held, the key is
+        invalidated. The id serves as a fresh free block."""
         bid, _ = self._lru.popitem(last=False)
-        del self._cache[self._block_key.pop(bid)]
+        key = self._block_key.pop(bid)
+        del self._cache[key]
         self.n_reclaimed += 1
+        if self.spill_fn is not None:
+            hid = self._host_alloc()
+            if hid is not None:
+                self.spill_fn(bid, hid)
+                self._host_cache[key] = hid
+                self._host_key[hid] = key
+                self._host_lru[hid] = None
+                self.n_spilled += 1
         return bid
 
     def alloc_reserved(self) -> int:
@@ -366,8 +546,9 @@ class BlockAllocator:
 
     # ---- prefix cache ----------------------------------------------------
     def cached(self, key: str) -> bool:
-        """True when the cache holds ``key`` (live or parked)."""
-        return key in self._cache
+        """True when either tier holds ``key`` (a spilled entry is a hit:
+        ``acquire`` revives it)."""
+        return key in self._cache or key in self._host_cache
 
     def cached_live(self, key: str) -> bool:
         """True when ``key``'s block is mapped by a live sequence: sharing
@@ -378,10 +559,16 @@ class BlockAllocator:
     def register(self, key: str, bid: int) -> None:
         """Publish a full immutable block under its chain key. The block
         must be live (its writer still owns it); the first writer wins on
-        a key collision, and a block carries at most one key."""
+        a key collision, and a block carries at most one key. A live
+        device copy supersedes a spilled one, whose host block frees."""
         assert bid in self._outstanding, f"register of non-live block {bid}"
         if key in self._cache or bid in self._block_key:
             return
+        if key in self._host_cache:
+            hid = self._host_cache.pop(key)
+            del self._host_key[hid]
+            self._host_lru.pop(hid, None)
+            self._host_free.append(hid)
         self._cache[key] = bid
         self._block_key[bid] = key
 
@@ -389,19 +576,40 @@ class BlockAllocator:
         """Map the cached block for ``key`` into another sequence:
         refcount+1 for a live block (costs nothing), revival for a parked
         one (consumes one available block, so it is refused when every
-        remaining block is promised to a reservation). Returns the block
-        id, or None on a miss or a refused revival."""
+        remaining block is promised to a reservation). A spilled key is
+        revived into a fresh device block (free list, else a device-LRU
+        reclaim) whose bytes ``unspill_fn`` copies back, under the same
+        refusal. Returns the block id, or None on a miss or a refused
+        revival."""
         bid = self._cache.get(key)
-        if bid is None:
-            return None
-        if bid in self._outstanding:
-            self._refcount[bid] += 1
+        if bid is not None:
+            if bid in self._outstanding:
+                self._refcount[bid] += 1
+                return bid
+            if self.n_available < 1:
+                return None
+            del self._lru[bid]
+            self._outstanding.add(bid)
+            self._refcount[bid] = 1
             return bid
+        hid = self._host_cache.get(key)
+        if hid is None or self.unspill_fn is None:
+            return None
         if self.n_available < 1:
             return None
-        del self._lru[bid]
+        # detach the host entry first: claiming the device block can
+        # itself reclaim and spill, and must not evict this entry
+        del self._host_cache[key]
+        del self._host_key[hid]
+        del self._host_lru[hid]
+        bid = self._free.pop() if self._free else self._reclaim_lru()
+        self.unspill_fn(hid, bid)
+        self._host_free.append(hid)
         self._outstanding.add(bid)
         self._refcount[bid] = 1
+        self._cache[key] = bid
+        self._block_key[bid] = key
+        self.n_unspilled += 1
         return bid
 
 
@@ -438,6 +646,10 @@ class _Slot:
     #: preemption so TTFT reflects the original first token (-1 before
     #: any token)
     first_token_s: float = -1.0
+    #: speculative drafts proposed and accepted since (re-)admission; the
+    #: engine's own counters stay monotonic
+    n_spec_proposed: int = 0
+    n_spec_accepted: int = 0
 
     @property
     def active(self) -> bool:
@@ -451,15 +663,20 @@ class _Slot:
 
 @dataclasses.dataclass
 class PreemptedRequest:
-    """Resumable snapshot of a preempted sequence.
+    """Resumable snapshot of a preempted sequence, of two kinds:
 
-    Recompute snapshots (``host_blocks is None``, the only kind this
-    port's engine makes): ``seq_tokens`` holds the padded prompt plus
-    every token emitted so far, re-prefilled in chunks on resume, so
-    greedy output is token-identical to an uninterrupted run. The swap
-    fields mirror the reference's snapshot of a sequence whose KV blocks
-    went to a host tier; the port has no host tier yet (ROADMAP.md), and
-    its engines refuse a swapped snapshot."""
+    * recompute (``host_blocks is None``): ``seq_tokens`` holds the
+      padded prompt plus every token emitted so far, re-prefilled in
+      chunks on resume, so greedy output is token-identical to an
+      uninterrupted run;
+    * swap (``preempt(mode="swap")``): the sequence's KV blocks were
+      copied to the engine's host tier. ``seq_tokens`` stays the padded
+      prompt; the emitted tokens, the decode position and the pending
+      token ride along, so resume maps the blocks back onto fresh device
+      ids and decodes on with no recompute. The snapshot owns its host
+      blocks until resume or cancel and is pinned to the engine whose
+      host pool holds them (``host_engine_id``); ``release_swap`` turns
+      it into a recompute snapshot when that engine goes away."""
     request_id: int
     seq_tokens: np.ndarray      # padded prompt (+ emitted, recompute only)
     base_len: int               # emitted tokens = seq_tokens[base_len:]
@@ -499,8 +716,10 @@ def to_recompute(req: PreemptedRequest) -> PreemptedRequest:
 
 @dataclasses.dataclass
 class _WaitingReq:
-    """One queued admission: a fresh prompt, or (``prepadded``) a
-    preempted sequence whose bucket padding is already baked in."""
+    """One queued admission: a fresh prompt, (``prepadded``) a preempted
+    sequence whose bucket padding is already baked in, or (``swap``) a
+    swap snapshot whose KV waits in the host tier, admitted straight to
+    decode with no prefill."""
     request_id: int
     prompt: np.ndarray
     max_new: int
@@ -511,6 +730,7 @@ class _WaitingReq:
     truncated: bool = False
     n_preempted: int = 0
     first_token_s: float = -1.0
+    swap: Optional[PreemptedRequest] = None
 
 
 @dataclasses.dataclass
@@ -527,6 +747,10 @@ class ContinuousResult:
     truncated: bool = False
     #: times this sequence was preempted and recomputed
     n_preempted: int = 0
+    #: speculative drafts proposed and accepted while this sequence was
+    #: resident (since its last re-admission, if it was preempted)
+    n_spec_proposed: int = 0
+    n_spec_accepted: int = 0
     #: engine-clock time the first token landed (the original first
     #: token across preemption; -1 if none landed)
     first_token_s: float = -1.0
@@ -587,6 +811,25 @@ class ContinuousBatchingEngine:
     into the slot's row when the prompt is done; decode runs
     ``decode_attention`` over the rows.
 
+    ``spec_k > 0`` (a stack whose every layer can rewind, else
+    ``ValueError`` as in the reference): each iteration drafts up to
+    ``spec_k`` tokens per decoding slot (``NGramProposer(spec_ngram)``,
+    or ``proposer``), scores the pending token and the drafts in one
+    ``(n_slots, 1 + k)`` verify forward (``Model.verify_step``: paged
+    layers through ``paged_prefill_attention``), accepts the longest
+    draft prefix that equals the verify argmax and rolls the rest back
+    (dense rows are masked by ``pos``; paged blocks past the frontier go
+    back to the allocator). ``spec_k`` is mutable between steps up to
+    ``spec_max``, the depth the engine was built for; the dense cache
+    carries ``spec_max`` rows of margin past ``cache_len``.
+
+    ``kv_host_blocks > 0`` (paged only): a host tier of pinned CPU
+    memory, ``kv_host_blocks`` blocks of every paged layer's K and V.
+    Where every layer is paged (``swap_ok``) a decoding sequence can be
+    preempted with ``mode="swap"`` (its blocks copied out, copied back on
+    resume, no recompute), and the prefix cache spills reclaimed blocks
+    there before it would invalidate them.
+
     The engine runs on ``device`` (default ``"cuda"``, which raises
     without a GPU; pass ``device="cpu"`` for the plain versions). Weights
     are drawn from ``seed`` unless ``params`` (the port's layout) are
@@ -603,20 +846,16 @@ class ContinuousBatchingEngine:
                  kv_blocks: Optional[int] = None, kv_host_blocks: int = 0,
                  token_budget: Optional[int] = None,
                  prefix_cache: bool = False, spec_k: int = 0,
+                 spec_ngram: int = 2, proposer=None,
                  mesh=None, device="cuda",
                  params: Optional[Dict] = None,
                  share_from: Optional["ContinuousBatchingEngine"] = None):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
-        for flag, what in (
-                (spec_k > 0, "spec_k > 0 (Queue A item 6, speculation)"),
-                (kv_host_blocks > 0,
-                 "kv_host_blocks > 0 (Queue A item 6, the host tier)"),
-                (mesh is not None,
-                 "mesh (Queue A item 8, tensor parallelism)")):
-            if flag:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP.md)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh (Queue A item 8, tensor parallelism) is not ported "
+                "yet (ROADMAP.md)")
         if kv_layout == "paged":
             check_paged_supported(cfg)
         else:
@@ -635,6 +874,37 @@ class ContinuousBatchingEngine:
                     "recurrent/windowed/frontend layers keep per-slot "
                     "dense state the cache cannot share")
         self.prefix_cache = prefix_cache
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if spec_k > 0 and not supports_speculation(cfg):
+            raise ValueError(
+                f"{cfg.name}: speculative decoding needs every layer's "
+                "decode state rewindable (linear attention only); "
+                "recurrent states advance irreversibly and windowed ring "
+                "buffers alias rejected writes over live positions")
+        #: the deepest speculation this engine was built for (the dense
+        #: margin and the verify table's null columns depend on it);
+        #: ``spec_k`` is the current depth, mutable between steps and
+        #: clamped to ``spec_max`` at use
+        self.spec_max = spec_k
+        self.spec_k = spec_k
+        self.proposer = proposer if proposer is not None \
+            else NGramProposer(spec_ngram)
+        self.n_spec_proposed = 0
+        self.n_spec_accepted = 0
+        self.n_spec_steps = 0
+        if kv_host_blocks < 0:
+            raise ValueError(
+                f"kv_host_blocks must be >= 0, got {kv_host_blocks}")
+        if kv_host_blocks > 0 and kv_layout != "paged":
+            raise ValueError(
+                "kv_host_blocks needs kv_layout='paged' (the host tier "
+                "swaps block-granular KV)")
+        self.kv_host_blocks = kv_host_blocks
+        #: swapping a sequence or spilling a prefix block moves only
+        #: block-pool state, so every layer must be paged (the prefix
+        #: cache's gate); a hybrid stack keeps recompute on resume
+        self.swap_ok = kv_host_blocks > 0 and supports_prefix_cache(cfg)
         #: chunks run straight against the pool where every layer is
         #: paged; dense and hybrid layouts go through a staging cache
         self.fused_prefill = kv_layout == "paged" \
@@ -668,19 +938,31 @@ class ContinuousBatchingEngine:
                 # dense-equivalent worst case: admission can never refuse
                 # a request the dense layout would have taken
                 kv_blocks = self.n_slots * self.blocks_per_slot
-            self.allocator = BlockAllocator(kv_blocks, block_size)
+            self.allocator = BlockAllocator(kv_blocks, block_size,
+                                            host_blocks=kv_host_blocks)
             # pool includes the null block 0 (id range 0..kv_blocks)
             self.cache = self.model.init_paged_cache(
                 self.n_slots, self.cache_len, kv_blocks + 1, block_size,
                 device=self.device)
             self.block_tables = np.zeros(
                 (self.n_slots, self.blocks_per_slot), np.int32)
+            self.host_pool = None
+            if self.swap_ok:
+                self.host_pool = self._make_host_pool()
+                self.allocator.spill_fn = self._spill_block
+                self.allocator.unspill_fn = self._unspill_block
         else:
             self.block_size = 0
             self.allocator = None
             self.block_tables = None
-            self.cache = self.model.init_cache(self.n_slots, self.cache_len,
-                                               device=self.device)
+            self.host_pool = None
+            # a verify forward writes up to spec_max rows past a slot's
+            # frontier before acceptance is known, and the dense writes
+            # raise on a row past the slab: the slab carries that margin
+            # (cache_len stays the logical capacity everywhere)
+            self.cache = self.model.init_cache(
+                self.n_slots, self.cache_len + self.spec_max,
+                device=self.device)
         self.pos = np.zeros((self.n_slots,), np.int32)
         self.pending_tok = np.zeros((self.n_slots,), np.int32)
         self.slots = [_Slot() for _ in range(self.n_slots)]
@@ -691,6 +973,16 @@ class ContinuousBatchingEngine:
         self.n_evicted = 0
         self.n_preempted = 0
         self.n_cancelled = 0
+        #: host-tier accounting: swap preempts and resumes, and each
+        #: transfer's (bytes, host ms), which the pool's swap-cost fit
+        #: reads (``latency_model.fit_swap_cost``)
+        self.n_swap_preempts = 0
+        self.n_swap_resumes = 0
+        self.swap_samples: List[Tuple[int, float]] = []
+        #: the side stream of asynchronous swap-ins, and the event of the
+        #: last one's copy out of the pinned staging area (CUDA)
+        self._swap_stream = None
+        self._staged = None
         self.n_prefill_chunk_tokens = 0
         #: prefix-cache accounting (tokens; rate = hit / (hit + chunked))
         self.n_prefix_lookups = 0
@@ -727,19 +1019,23 @@ class ContinuousBatchingEngine:
     def _now(self) -> float:
         return time.perf_counter() - self._t0
 
-    def _note_token(self, s: _Slot) -> None:
-        """Stamp ``first_token_s`` and fire ``on_token`` for the token just
-        appended to ``s.tokens``. The index is the global completion
-        position: tokens emitted before a preemption live in the
-        re-prefilled context (``seq_tokens[base_len:]``) and offset the
-        resumed ones, so a streaming consumer sees every position once."""
+    def _note_tokens(self, s: _Slot, n_new: int) -> None:
+        """Stamp ``first_token_s`` and fire ``on_token`` for the last
+        ``n_new`` entries of ``s.tokens``. The index is the global
+        completion position: tokens emitted before a preemption live in
+        the re-prefilled context (``seq_tokens[base_len:]``) and offset
+        the resumed ones, so a streaming consumer sees every position
+        once."""
         if s.first_token_s < 0:
             s.first_token_s = self._now()
         if self.on_token is not None:
             prior = len(s.seq_tokens) - s.base_len \
                 if s.seq_tokens is not None else 0
-            self.on_token(s.request_id, int(s.tokens[-1]),
-                          prior + len(s.tokens) - 1)
+            base = prior + len(s.tokens) - n_new
+            for j in range(n_new):
+                self.on_token(s.request_id,
+                              int(s.tokens[len(s.tokens) - n_new + j]),
+                              base + j)
 
     def request_blocks(self, prompt_len: int, max_new: int) -> int:
         """Worst-case blocks a request of this shape reserves at admission
@@ -776,7 +1072,9 @@ class ContinuousBatchingEngine:
             return True
         if resume is not None:
             need = self.resume_blocks(resume)
-            if self.prefix_cache:
+            # a swap resume maps no shared prefix block (its KV comes back
+            # from the host tier whole): the discount is recompute's only
+            if self.prefix_cache and not resume.swapped:
                 need -= self._live_shared_blocks(resume.seq_tokens)
         else:
             need = self.request_blocks(prompt_len, max_new)
@@ -902,6 +1200,8 @@ class ContinuousBatchingEngine:
         backlog = sum(len(s.seq_tokens) - s.prefill_pos
                       for s in self.slots if s.prefilling)
         for w in self.waiting:
+            if w.swap is not None:
+                continue  # a swap resume maps its blocks back: no prefill
             backlog += len(w.prompt) if w.prepadded else \
                 _bucket(len(w.prompt), buckets=SEQ_BUCKETS)
         return backlog
@@ -946,14 +1246,13 @@ class ContinuousBatchingEngine:
         the same model) under a fresh engine request id; the caller
         correlates through its own bookkeeping. The padded context always
         fits ``cache_len``: ``len(seq_tokens) + max_new`` is the footprint
-        the sequence was first admitted with. A swapped snapshot is
-        refused: its blocks would sit in a host tier, which this port's
-        engine does not have."""
-        if req.swapped:
+        the sequence was first admitted with. A swap snapshot resumes only
+        on the engine whose host pool holds its blocks (``release_swap``
+        it there to resume elsewhere)."""
+        if req.swapped and req.host_engine_id != id(self):
             raise ValueError(
                 "swap snapshot is pinned to the engine holding its host "
-                "blocks; this engine has no host tier (ROADMAP.md, Queue A "
-                "item 6)")
+                "blocks; release_swap() it there to resume elsewhere")
         rid = self._next_id
         self._next_id += 1
         self.waiting.append(_WaitingReq(
@@ -961,7 +1260,8 @@ class ContinuousBatchingEngine:
             req.submit_s, prepadded=True, base_len=req.base_len,
             requested_new=req.requested_new, truncated=req.truncated,
             n_preempted=req.n_preempted,
-            first_token_s=req.first_token_s))
+            first_token_s=req.first_token_s,
+            swap=req if req.swapped else None))
         return rid
 
     def admit(self) -> int:
@@ -970,7 +1270,8 @@ class ContinuousBatchingEngine:
         reservable. With the prefix cache on, the longest cached prefix
         is mapped at refcount+1 first and only the rest is reserved (an
         ``acquire`` that would break a reservation ends the chain there).
-        Admission only ASSIGNS the slot (maps and reserves blocks and
+        A swap resume maps its host blocks back and decodes at once
+        (``_admit_swap``). Admission otherwise only ASSIGNS the slot (maps and reserves blocks and
         allocates the prompt's uncached ones, or makes the staging cache;
         builds the left-padded token sequence); the prefill itself
         advances in budget-bounded chunks inside ``step()``. Returns
@@ -979,6 +1280,11 @@ class ContinuousBatchingEngine:
         free = self.free_slots
         while self.waiting and free:
             w = self.waiting[0]
+            if w.swap is not None:
+                if not self._admit_swap(w, free):
+                    break  # FIFO: head of queue blocks on memory
+                n += 1
+                continue
             if w.prepadded:  # a preempted sequence: prompt + emitted
                 seq = w.prompt
                 base_len = w.base_len
@@ -1054,6 +1360,175 @@ class ContinuousBatchingEngine:
             if self.on_state is not None:
                 self.on_state(w.request_id, "prefill")
         return n
+
+    def _admit_swap(self, w: _WaitingReq, free: List[int]) -> bool:
+        """Admit the swap resume at the head of the queue: reserve its
+        whole remaining footprint, allocate device blocks for the swapped
+        ones and start their host-to-device copy (``_swap_in_blocks``;
+        the next forward waits for it), release the host blocks, and hand
+        the slot to the decode loop at its carried frontier: no prefill.
+        Returns False, leaving the queue as it was, when the reservation
+        cannot be met."""
+        req = w.swap
+        need = self.allocator.blocks_for(req.pos + req.max_new)
+        if not self.allocator.reserve(need):
+            return False
+        self.waiting.pop(0)
+        slot = free.pop(0)
+        n_have = len(req.host_blocks)
+        ids = [self.allocator.alloc_reserved() for _ in range(n_have)]
+        self._swap_in_blocks(req.host_blocks, ids)
+        self.allocator.host_free(req.host_blocks)
+        self.allocator.n_swapped_in += n_have
+        self.block_tables[slot, :n_have] = ids
+        # prefill_pos == len(seq_tokens): decoding from the first step,
+        # the mapped blocks already hold rows [0, pos)
+        self.slots[slot] = _Slot(
+            request_id=w.request_id, remaining=req.max_new,
+            tokens=list(req.tokens), submit_s=req.submit_s,
+            admit_s=self._now(), blocks=ids, n_outstanding=need - n_have,
+            n_shared=0, seq_tokens=np.asarray(req.seq_tokens, np.int32),
+            base_len=req.base_len, prefill_pos=len(req.seq_tokens),
+            requested_new=req.requested_new, truncated=req.truncated,
+            n_preempted=req.n_preempted, first_token_s=req.first_token_s)
+        self.pos[slot] = req.pos
+        self.pending_tok[slot] = req.pending_tok
+        if self.prefix_cache:
+            # the prompt's blocks came back bit for bit: publish again
+            # any key that fell out of both tiers meanwhile (the first
+            # writer wins, so keys cached elsewhere stay)
+            for i, key in enumerate(self._chain_keys(
+                    self.slots[slot].seq_tokens)):
+                if i < n_have:
+                    self.allocator.register(key, ids[i])
+        self.n_admitted += 1
+        self.n_swap_resumes += 1
+        if self.on_state is not None:
+            self.on_state(w.request_id, "decode")
+        return True
+
+    # ---- host KV tier: the swap data plane -------------------------------
+    def _make_host_pool(self) -> List[Dict[str, torch.Tensor]]:
+        """Host mirror of the paged pool: per layer a k and a v tensor of
+        ``kv_host_blocks + 1`` blocks (host ids index it directly; row 0
+        is dead, as the device null block). On a GPU it is pinned, and so
+        is a staging area of ``min(blocks_per_slot, kv_host_blocks)``
+        blocks per pool (no transfer moves more: a slot holds at most
+        ``blocks_per_slot`` blocks) that every transfer goes through, so
+        copies run asynchronously and no transfer pays a pinned
+        allocation. Built only where every layer is paged (``swap_ok``)."""
+        pin = self.device.type == "cuda"
+        cap = min(self.blocks_per_slot, self.kv_host_blocks)
+
+        def host(n, like):
+            return torch.zeros((n,) + tuple(like.shape[1:]), dtype=like.dtype,
+                               pin_memory=pin)
+        self._staging = [{key: host(cap, c[key]) for key in ("k", "v")}
+                         for c in self.cache] if pin else None
+        return [{key: host(self.kv_host_blocks + 1, c[key])
+                 for key in ("k", "v")} for c in self.cache]
+
+    @property
+    def swap_bytes_per_block(self) -> int:
+        """Bytes one block holds over every paged layer's K and V: the
+        unit the swap-cost fit prices."""
+        if self.host_pool is None:
+            return 0
+        return sum(h[key][0].numel() * h[key].element_size()
+                   for h in self.host_pool for key in ("k", "v"))
+
+    def _staging_free(self) -> None:
+        """Wait for the last swap-in's copy out of the staging area, so
+        the next transfer may overwrite it."""
+        if self._staged is not None:
+            self._staged.synchronize()
+            self._staged = None
+
+    def _swap_out_blocks(self, dev_ids: List[int],
+                         host_ids: List[int]) -> None:
+        """Copy pool blocks ``dev_ids`` into host blocks ``host_ids``: per
+        pool one gather on the device and, on a GPU, one copy into the
+        pinned staging area, then a synchronize, so the (bytes, ms)
+        sample measures the finished transfer; the rows then land in the
+        host pool."""
+        t0 = time.perf_counter()
+        n = len(dev_ids)
+        didx = self._int_tensor(dev_ids).long()
+        hidx = torch.as_tensor(host_ids, dtype=torch.long)
+        staged = []
+        if self.device.type == "cuda":
+            self._staging_free()
+            for c, st in zip(self.cache, self._staging):
+                for key in ("k", "v"):
+                    st[key][:n].copy_(c[key].index_select(0, didx),
+                                      non_blocking=True)
+                    staged.append(st[key][:n])
+            torch.cuda.current_stream(self.device).synchronize()
+        else:
+            staged = [c[key].index_select(0, didx) for c in self.cache
+                      for key in ("k", "v")]
+        n_bytes = 0
+        for h, rows in zip((h[key] for h in self.host_pool
+                            for key in ("k", "v")), staged):
+            h.index_copy_(0, hidx, rows)
+            n_bytes += rows.numel() * rows.element_size()
+        self.swap_samples.append(
+            (n_bytes, (time.perf_counter() - t0) * 1e3))
+
+    def _swap_in_blocks(self, host_ids: List[int],
+                        dev_ids: List[int]) -> None:
+        """Copy host blocks ``host_ids`` into device blocks ``dev_ids``.
+        On a GPU the rows are gathered into the pinned staging area (so
+        the host blocks may be handed out again at once), copied without
+        blocking on a side stream, and scattered into the pool on the
+        current stream after it waits for that copy: the transfer overlaps
+        the host's bookkeeping up to the next forward, and the sample is
+        the dispatch's host time, as the reference's. The staging area is
+        reused only once the copy has left it (``_staging_free``). On the
+        CPU the copy is direct."""
+        t0 = time.perf_counter()
+        n = len(host_ids)
+        didx = self._int_tensor(dev_ids).long()
+        hidx = torch.as_tensor(host_ids, dtype=torch.long)
+        n_bytes = 0
+        if self.device.type != "cuda":
+            for c, h in zip(self.cache, self.host_pool):
+                for key in ("k", "v"):
+                    rows = h[key].index_select(0, hidx)
+                    c[key].index_copy_(0, didx, rows)
+                    n_bytes += rows.numel() * rows.element_size()
+        else:
+            self._staging_free()
+            cur = torch.cuda.current_stream(self.device)
+            if self._swap_stream is None:
+                self._swap_stream = torch.cuda.Stream(self.device)
+            side = self._swap_stream
+            side.wait_stream(cur)
+            moved = []
+            with torch.cuda.stream(side):
+                for c, h, st in zip(self.cache, self.host_pool,
+                                    self._staging):
+                    for key in ("k", "v"):
+                        rows = st[key][:n]
+                        torch.index_select(h[key], 0, hidx, out=rows)
+                        moved.append((c[key], rows.to(self.device,
+                                                      non_blocking=True)))
+                        n_bytes += rows.numel() * rows.element_size()
+                self._staged = side.record_event()
+            cur.wait_stream(side)
+            for pool, dev in moved:
+                dev.record_stream(cur)
+                pool.index_copy_(0, didx, dev)
+        self.swap_samples.append(
+            (n_bytes, (time.perf_counter() - t0) * 1e3))
+
+    def _spill_block(self, bid: int, hid: int) -> None:
+        """Allocator hook: demote one reclaimed prefix block to host."""
+        self._swap_out_blocks([bid], [hid])
+
+    def _unspill_block(self, hid: int, bid: int) -> None:
+        """Allocator hook: revive one spilled prefix block."""
+        self._swap_in_blocks([hid], [bid])
 
     # ---- chunked prefill (docs/ARCHITECTURE.md §5) -----------------------
     def _int_tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -1133,7 +1608,9 @@ class ContinuousBatchingEngine:
         Every other leaf (dense K/V rows, rings, and a recurrent layer's
         state: ``h`` and ``conv``; ``att_state``, ``att_shift`` and
         ``ffn_shift``) replaces row ``slot`` whole: the staging cache has
-        the row's shape, prefill wrote [0, S) and the rest is zeros."""
+        the row's shape (a dense slab's speculation margin past
+        ``cache_len`` excepted, which is zeroed), prefill wrote [0, S)
+        and the rest is zeros."""
         kinds = self.cfg.layer_kinds()
         for kind, full, one in zip(kinds, self.cache, one_cache):
             if block_ids is not None and paged_layer_kind(self.cfg, kind):
@@ -1144,7 +1621,10 @@ class ContinuousBatchingEngine:
                     scatter_blocks(full[key], one[key][0, start:cap], ids)
                 continue
             for key, t in full.items():
-                t[slot].copy_(one[key][0])
+                row = one[key][0]
+                if row.shape != t.shape[1:]:
+                    t[slot, row.shape[0]:].zero_()
+                t[slot, :row.shape[0]].copy_(row)
 
     # ---- preemption ------------------------------------------------------
     def preemption_candidates(self) -> List[Tuple[int, int, int]]:
@@ -1166,9 +1646,15 @@ class ContinuousBatchingEngine:
         return out
 
     def can_swap(self, slot: int) -> bool:
-        """Could ``slot`` be preempted with ``mode="swap"``? Never: the
-        host KV tier is not ported (ROADMAP.md, Queue A item 6)."""
-        return False
+        """Could the sequence in ``slot`` be preempted with
+        ``mode="swap"`` now? It needs the host tier (``swap_ok``: built,
+        and every layer paged), a decoding sequence, and enough available
+        host blocks for its KV."""
+        if not self.swap_ok:
+            return False
+        s = self.slots[slot]
+        return s.active and not s.prefilling \
+            and self.allocator.n_host_available >= len(s.blocks)
 
     def _emitted(self, s: _Slot) -> List[int]:
         """Every token ``s`` has emitted: those before a preemption live
@@ -1193,11 +1679,16 @@ class ContinuousBatchingEngine:
     def preempt(self, slot: int, requeue: bool = True,
                 mode: str = "recompute") -> PreemptedRequest:
         """Evict the decoding sequence in ``slot``, returning its blocks
-        and the unconsumed rest of its reservation at once. The snapshot
-        resumes by re-prefilling the padded prompt plus every token
-        emitted so far, so greedy output is token-identical to an
-        uninterrupted run. ``mode="swap"`` raises, as in the reference
-        when ``can_swap`` does not hold: here it never does.
+        and the unconsumed rest of its reservation at once.
+
+        ``mode="recompute"``: the snapshot resumes by re-prefilling the
+        padded prompt plus every token emitted so far, so greedy output
+        is token-identical to an uninterrupted run. ``mode="swap"``: the
+        slot's blocks are copied to the host tier first
+        (``_swap_out_blocks``), and resume maps them back with no
+        recompute; the emitted tokens, the position and the pending token
+        ride in the snapshot. It raises where ``can_swap`` does not hold:
+        callers price and pick the mode, the engine never falls back.
         ``requeue=True`` puts the snapshot back at the head of this
         engine's queue; a pool passes ``requeue=False`` and routes it
         through its own EDF queue (``submit_resume``)."""
@@ -1209,15 +1700,31 @@ class ContinuousBatchingEngine:
         if s.prefilling:
             raise ValueError("cannot preempt a mid-chunk prefill")
         if mode == "swap":
-            raise ValueError(
-                f"slot {slot} is not swappable (host tier off, "
-                "non-pageable stack, or host pool full)")
-        req = PreemptedRequest(
-            s.request_id,
-            np.concatenate([s.seq_tokens, np.asarray(s.tokens, np.int32)]),
-            base_len=s.base_len, max_new=s.remaining, submit_s=s.submit_s,
-            requested_new=s.requested_new, truncated=s.truncated,
-            n_preempted=s.n_preempted + 1, first_token_s=s.first_token_s)
+            if not self.can_swap(slot):
+                raise ValueError(
+                    f"slot {slot} is not swappable (host tier off, "
+                    "non-pageable stack, or host pool full)")
+            host_ids = self.allocator.swap_out_alloc(len(s.blocks))
+            assert host_ids is not None  # can_swap checked availability
+            self._swap_out_blocks(s.blocks, host_ids)
+            req = PreemptedRequest(
+                s.request_id, s.seq_tokens, base_len=s.base_len,
+                max_new=s.remaining, submit_s=s.submit_s,
+                requested_new=s.requested_new, truncated=s.truncated,
+                n_preempted=s.n_preempted + 1,
+                first_token_s=s.first_token_s, tokens=list(s.tokens),
+                pos=int(self.pos[slot]),
+                pending_tok=int(self.pending_tok[slot]),
+                host_blocks=host_ids, host_engine_id=id(self))
+            self.n_swap_preempts += 1
+        else:
+            req = PreemptedRequest(
+                s.request_id, np.concatenate(
+                    [s.seq_tokens, np.asarray(s.tokens, np.int32)]),
+                base_len=s.base_len, max_new=s.remaining,
+                submit_s=s.submit_s, requested_new=s.requested_new,
+                truncated=s.truncated, n_preempted=s.n_preempted + 1,
+                first_token_s=s.first_token_s)
         self._free_slot(slot)
         self.n_preempted += 1
         if requeue:
@@ -1226,18 +1733,25 @@ class ContinuousBatchingEngine:
                 prepadded=True, base_len=req.base_len,
                 requested_new=req.requested_new, truncated=req.truncated,
                 n_preempted=req.n_preempted,
-                first_token_s=req.first_token_s))
+                first_token_s=req.first_token_s,
+                swap=req if req.swapped else None))
         return req
 
     def release_swap(self, req: PreemptedRequest) -> PreemptedRequest:
         """Convert a swap snapshot back into a recompute snapshot, freeing
-        its host blocks: a recompute snapshot is returned as it is, and a
-        swapped one is refused, since no engine of the port holds a host
-        pool."""
+        its host blocks: the way out when the engine holding them drains
+        and the snapshot must resume elsewhere. The recompute context is
+        the padded prompt plus the emitted tokens, and greedy re-prefill
+        regenerates the dropped pending token. A recompute snapshot is
+        returned as it is; a snapshot of another engine raises."""
         if not req.swapped:
             return req
-        raise ValueError(
-            "swap snapshot is pinned to a different engine's host pool")
+        if req.host_engine_id != id(self):
+            raise ValueError(
+                "swap snapshot is pinned to a different engine's host "
+                "pool")
+        self.allocator.host_free(req.host_blocks)
+        return to_recompute(req)
 
     # ---- cancellation ----------------------------------------------------
     def cancel(self, request_id: int) -> Optional[ContinuousResult]:
@@ -1255,9 +1769,14 @@ class ContinuousBatchingEngine:
                 continue
             self.waiting.pop(qi)
             # a requeued preemption carries its earlier tokens in the
-            # prepadded context; a fresh prompt has none
-            emitted = w.prompt[w.base_len:] if w.prepadded \
-                else np.zeros((0,), np.int32)
+            # prepadded context (recompute) or in the swap snapshot, whose
+            # host blocks free here; a fresh prompt has none
+            if w.swap is not None:
+                self.allocator.host_free(w.swap.host_blocks)
+                emitted = np.asarray(w.swap.tokens, np.int32)
+            else:
+                emitted = w.prompt[w.base_len:] if w.prepadded \
+                    else np.zeros((0,), np.int32)
             self.n_cancelled += 1
             return ContinuousResult(
                 request_id, np.asarray(emitted, np.int32),
@@ -1272,8 +1791,10 @@ class ContinuousBatchingEngine:
                 request_id, np.asarray(emitted, np.int32),
                 submit_s=s.submit_s, admit_s=s.admit_s, finish_s=self._now(),
                 n_iters=len(emitted), truncated=s.truncated,
-                n_preempted=s.n_preempted, first_token_s=s.first_token_s,
-                cancelled=True)
+                n_preempted=s.n_preempted,
+                n_spec_proposed=s.n_spec_proposed,
+                n_spec_accepted=s.n_spec_accepted,
+                first_token_s=s.first_token_s, cancelled=True)
             self._free_slot(i)
             self.n_cancelled += 1
             self.n_evicted += 1
@@ -1290,14 +1811,37 @@ class ContinuousBatchingEngine:
         self._free_slot(i, reset_pos=self.kv_layout == "paged")
         self.n_evicted += 1
 
+    def _result(self, s: _Slot, now: float) -> ContinuousResult:
+        """The finished sequence ``s`` as a ``ContinuousResult``."""
+        emitted = self._emitted(s)
+        return ContinuousResult(
+            s.request_id, np.asarray(emitted, np.int32),
+            submit_s=s.submit_s, admit_s=s.admit_s, finish_s=now,
+            n_iters=len(emitted), truncated=s.truncated,
+            n_preempted=s.n_preempted, n_spec_proposed=s.n_spec_proposed,
+            n_spec_accepted=s.n_spec_accepted,
+            first_token_s=s.first_token_s)
+
+    def _alloc_through(self, i: int, top: int) -> None:
+        """Map blocks into slot ``i`` until they cover position ``top``
+        (alloc on the block boundary; the admission reservation
+        guarantees the allocation cannot fail)."""
+        s = self.slots[i]
+        while top >= len(s.blocks) * self.block_size:
+            bid = self.allocator.alloc_reserved()
+            s.n_outstanding -= 1
+            self.block_tables[i, len(s.blocks)] = bid
+            s.blocks.append(bid)
+
     def step(self) -> List[ContinuousResult]:
         """One engine iteration: admit, advance chunked prefills under the
         per-iteration token budget, then ONE decode iteration over all
-        slots; evicts after. The budget caps prefill-chunk plus resident
-        decode tokens. Returns the sequences that finished. Inactive
-        slots decode a dummy token at position 0 (into the null block, or
-        their own row, which admission's graft overwrites), keeping the
-        decode shape fixed at (n_slots, 1)."""
+        slots (a speculative one where ``_effective_spec_k`` is above 0);
+        evicts after. The budget caps prefill-chunk plus resident decode
+        tokens, ``1 + k`` a slot when speculating. Returns the sequences
+        that finished. Inactive slots decode a dummy token at position 0
+        (into the null block, or their own row, which admission's graft
+        overwrites), keeping the decode shape fixed at (n_slots, 1)."""
         loads = _build.n_loads
         finished = self._step()
         self.last_step_compiled = _build.n_loads != loads
@@ -1308,30 +1852,27 @@ class ContinuousBatchingEngine:
         n_dec = len(self.decoding_slots)
         budget = self.token_budget if self.token_budget is not None \
             else 1 << 62
-        self.last_step_tokens = self._prefill_step(max(0, budget - n_dec))
+        eff_k = self._effective_spec_k(n_dec, budget)
+        self.last_step_tokens = self._prefill_step(
+            max(0, budget - n_dec * (1 + eff_k)))
         active = self.decoding_slots
         if not active:
             return []
+        if eff_k > 0:
+            return self._step_speculative(active, eff_k)
         self.last_step_tokens += len(active)
         for i in active:
             s = self.slots[i]
             s.tokens.append(int(self.pending_tok[i]))
             s.remaining -= 1
-            self._note_token(s)
+            self._note_tokens(s, 1)
         batch = {"tokens": self._int_tensor(self.pending_tok[:, None]),
                  "pos": self._int_tensor(self.pos)}
         if self.kv_layout == "paged":
-            # alloc-on-decode-boundary: the write at ``pos`` needs its
-            # block mapped before the decode runs; the admission
-            # reservation guarantees the free list cannot be empty here
-            bs = self.block_size
+            # the write at ``pos`` needs its block mapped before the
+            # decode runs
             for i in active:
-                s = self.slots[i]
-                while self.pos[i] >= len(s.blocks) * bs:
-                    bid = self.allocator.alloc_reserved()
-                    s.n_outstanding -= 1
-                    self.block_tables[i, len(s.blocks)] = bid
-                    s.blocks.append(bid)
+                self._alloc_through(i, int(self.pos[i]))
             batch["block_tables"] = self._int_tensor(self.block_tables)
         logits, self.cache = self.model.decode_step(self.params, self.cache,
                                                     batch)
@@ -1347,18 +1888,163 @@ class ContinuousBatchingEngine:
                 s.truncated = True
                 s.remaining = 0
             if s.remaining <= 0:
-                emitted = self._emitted(s)
-                finished.append(ContinuousResult(
-                    s.request_id, np.asarray(emitted, np.int32),
-                    submit_s=s.submit_s, admit_s=s.admit_s, finish_s=now,
-                    n_iters=len(emitted), truncated=s.truncated,
-                    n_preempted=s.n_preempted,
-                    first_token_s=s.first_token_s))
+                finished.append(self._result(s, now))
                 self._release(i)
             else:
                 self.pending_tok[i] = nxt[i]
                 self.pos[i] = self.pos[i] + 1
         return finished
+
+    # ---- speculative decoding --------------------------------------------
+    def _effective_spec_k(self, n_dec: int, budget: int) -> int:
+        """The speculation depth this iteration runs: ``spec_k`` clamped
+        to ``spec_max``, cut so that ``n_dec * (1 + k)`` decode tokens fit
+        the iteration's token budget (down to 0 before prefill work
+        starves; the scheduler's guard degrades the same way ahead of
+        time)."""
+        k = min(max(0, self.spec_k), self.spec_max)
+        if k and n_dec and self.token_budget is not None:
+            k = max(0, min(k, budget // n_dec - 1))
+        return k
+
+    def _step_speculative(self, active: List[int],
+                          k: int) -> List[ContinuousResult]:
+        """One speculative iteration over the decoding slots: propose up
+        to ``k`` drafts per slot from its own context, score the pending
+        token and the drafts in ONE ``(n_slots, 1 + k)`` verify forward,
+        read its argmax back once, accept the longest draft prefix that
+        matches it, and roll the rest back: dense rows past the frontier
+        are masked by ``pos`` until overwritten, paged blocks past it go
+        back to the allocator (``_trim_blocks``). Acceptance is greedy
+        equality, so every emitted token is the argmax a sequential
+        decode would have produced.
+
+        The verify writes start at ``pos``, past every shared or
+        registered prefix block, so rollback frees only sole-reference
+        decode blocks. Rows ``j > k_i`` of a slot (its cap, below) land in
+        blocks of its own reservation, the null columns or the dense
+        margin, and their logits are ignored."""
+        W = 1 + k
+        toks = np.zeros((self.n_slots, W), np.int32)
+        k_eff: Dict[int, int] = {}
+        for i in active:
+            s = self.slots[i]
+            # never draft past the tokens still owed or the logical cache
+            ki = max(0, min(k, s.remaining - 1,
+                            self.cache_len - 1 - int(self.pos[i])))
+            k_eff[i] = ki
+            toks[i, 0] = self.pending_tok[i]
+            if ki > 0:
+                context = np.concatenate(
+                    [s.seq_tokens, np.asarray(s.tokens, np.int32),
+                     [self.pending_tok[i]]]).astype(np.int32)
+                toks[i, 1:1 + ki] = self.proposer.propose(context, ki)
+        batch = {"tokens": self._int_tensor(toks),
+                 "pos": self._int_tensor(self.pos)}
+        if self.kv_layout == "paged":
+            # map blocks through each slot's deepest draft row (inside the
+            # admission reservation: pos + k_i is within the granted
+            # footprint), then widen the table by null columns so rows
+            # past cache_len land in the null block
+            for i in active:
+                self._alloc_through(i, int(self.pos[i]) + k_eff[i])
+            pad = -(-self.spec_max // self.block_size)
+            vt = np.zeros((self.n_slots, self.blocks_per_slot + pad),
+                          np.int32)
+            vt[:, :self.blocks_per_slot] = self.block_tables
+            batch["block_tables"] = self._int_tensor(vt)
+        logits, self.cache = self.model.verify_step(self.params, self.cache,
+                                                    batch)
+        nxt_all = sample_tokens(logits)  # (n_slots, W): one readback
+        self.n_iters += 1
+        self.n_spec_steps += 1
+        finished: List[ContinuousResult] = []
+        now = self._now()
+        for i in active:
+            s = self.slots[i]
+            ki = k_eff[i]
+            a = 0
+            while a < ki and toks[i, a + 1] == nxt_all[i, a]:
+                a += 1
+            self.n_spec_proposed += ki
+            self.n_spec_accepted += a
+            s.n_spec_proposed += ki
+            s.n_spec_accepted += a
+            self.last_step_tokens += 1 + ki
+            # emit the pending token and the accepted drafts
+            s.tokens.extend(int(t) for t in toks[i, :a + 1])
+            s.remaining -= a + 1
+            self._note_tokens(s, a + 1)
+            new_pos = int(self.pos[i]) + a + 1
+            if self.kv_layout == "paged":
+                self._trim_blocks(i, new_pos)
+            if new_pos >= self.cache_len and s.remaining > 0:
+                s.truncated = True
+                s.remaining = 0
+            if s.remaining <= 0:
+                finished.append(self._result(s, now))
+                self._release(i)
+            else:
+                # the model's token after the accepted prefix: what a
+                # sequential decode would hold as the new pending token
+                self.pending_tok[i] = nxt_all[i, a]
+                self.pos[i] = new_pos
+        return finished
+
+    def _trim_blocks(self, slot: int, pos: int) -> None:
+        """Block-granular KV rollback: free the blocks past the last
+        committed row ``pos - 1`` and restore the reservation, leaving the
+        block list an unspeculated decode at ``pos`` would hold. Only
+        sole-reference decode blocks are trimmed: shared and registered
+        prefix blocks lie below the prefill length, which ``pos`` never
+        rolls back past."""
+        s = self.slots[slot]
+        keep = self.allocator.blocks_for(pos)
+        if keep >= len(s.blocks):
+            return
+        drop = s.blocks[keep:]
+        for b in drop:
+            assert self.allocator.refcount(b) == 1, \
+                f"rollback would free block {b} with refcount " \
+                f"{self.allocator.refcount(b)}"
+        del s.blocks[keep:]
+        self.block_tables[slot, keep:keep + len(drop)] = 0
+        self.allocator.free(drop)
+        ok = self.allocator.reserve(len(drop))
+        assert ok, "re-reserving just-freed blocks cannot fail"
+        s.n_outstanding += len(drop)
+
+    def rollback(self, slot: int, n: int) -> None:
+        """Undo the last ``n`` emitted tokens of the sequence in ``slot``:
+        the context shrinks by ``n``, the pending token becomes the first
+        undone one, and (paged) the blocks past the new frontier go back
+        to the allocator with the reservation restored. Decoding on from
+        there is token-identical: greedy decode is deterministic, and rows
+        at or past ``pos`` are overwritten before they are attended."""
+        if not supports_speculation(self.cfg):
+            raise ValueError(
+                f"{self.cfg.name}: rollback needs rewindable decode "
+                "state (linear attention only)")
+        s = self.slots[slot]
+        if not s.active or s.prefilling:
+            raise ValueError(f"slot {slot} is not decoding")
+        if not 1 <= n <= len(s.tokens):
+            raise ValueError(
+                f"can roll back 1..{len(s.tokens)} tokens, got {n}")
+        new_pos = int(self.pos[slot]) - n
+        self.pending_tok[slot] = s.tokens[-n]
+        del s.tokens[-n:]
+        s.remaining += n
+        self.pos[slot] = new_pos
+        if self.kv_layout == "paged":
+            self._trim_blocks(slot, new_pos)
+
+    @property
+    def spec_accept_rate(self) -> float:
+        """Drafts accepted over drafts proposed in the engine's lifetime
+        (0.0 before any speculative step): the scheduler's feature."""
+        return self.n_spec_accepted / self.n_spec_proposed \
+            if self.n_spec_proposed else 0.0
 
     def run(self, prompts: List[np.ndarray], max_new_tokens: int = 8,
             max_iters: int = 10_000) -> List[ContinuousResult]:
@@ -1463,6 +2149,24 @@ class ContinuousBatchingEngine:
             "queue_depth": float(len(self.waiting)),
             "n_preempted": float(self.n_preempted),
             "n_cancelled": float(self.n_cancelled),
+            "kv_host_blocks": float(self.kv_host_blocks),
+            "kv_host_free": float(self.allocator.n_host_free
+                                  if self.kv_layout == "paged" else 0),
+            "kv_host_live": float(self.allocator.n_host_live
+                                  if self.kv_layout == "paged" else 0),
+            "kv_host_cached": float(self.allocator.n_host_cached
+                                    if self.kv_layout == "paged" else 0),
+            "n_swap_preempts": float(self.n_swap_preempts),
+            "n_swap_resumes": float(self.n_swap_resumes),
+            "n_spilled": float(self.allocator.n_spilled
+                               if self.kv_layout == "paged" else 0),
+            "n_unspilled": float(self.allocator.n_unspilled
+                                 if self.kv_layout == "paged" else 0),
             "prefill_backlog_tokens": float(self.prefill_backlog_tokens),
             "token_budget": float(self.token_budget or 0),
+            "spec_k": float(min(max(0, self.spec_k), self.spec_max)),
+            "spec_accept_rate": self.spec_accept_rate,
+            "n_spec_proposed": float(self.n_spec_proposed),
+            "n_spec_accepted": float(self.n_spec_accepted),
+            "n_spec_steps": float(self.n_spec_steps),
         }

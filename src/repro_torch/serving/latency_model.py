@@ -18,9 +18,8 @@ overflow region).
 The measured half holds the fits the instance pool and its scheduler
 calibrate from samples the pool records itself (iteration wall ms against
 overlap, against tokens processed, and KV tokens against resident
-sequences), so nothing in it describes a particular accelerator. The
-swap-cost fit of the host KV tier comes with the host tier (ROADMAP.md,
-Queue A item 5).
+sequences, and each host-tier transfer's bytes against its ms), so
+nothing in it describes a particular accelerator.
 """
 from __future__ import annotations
 
@@ -209,3 +208,33 @@ def peak_throughput_rps(hw: HardwareSpec, model: EdgeModelProfile,
     if est.overflow:
         return 0.0
     return 1000.0 * b * m_c / (est.total_ms)
+
+
+def fit_swap_cost(samples: Sequence[Tuple[int, float]]
+                  ) -> Tuple[float, float]:
+    """Calibrate the one-way KV swap cost from measured transfers: the
+    engine records (bytes moved, ms) for every host-tier swap-out,
+    swap-in, spill and revival.
+
+    Fits ``transfer_ms ~ base + per_mb * megabytes`` by least squares and
+    returns ``(base_ms, ms_per_mb)``, the per-transfer overhead and the
+    inverse link bandwidth. The pool's ``_pick_preempt_mode`` compares
+    ``2 * predicted_swap_ms(...)`` (out and back in) against the
+    recompute prefill priced by :func:`fit_token_cost`. With fewer than
+    two distinct sizes the slope cannot be identified and is 0."""
+    if not samples:
+        return 0.0, 0.0
+    xs = [max(0.0, float(b)) / 1e6 for b, _ in samples]
+    ys = [float(ms) for _, ms in samples]
+    base, slope = _least_squares(xs, ys)
+    slope = max(0.0, slope)
+    # re-anchor the intercept to the clamped slope so the prediction
+    # still passes through the sample mean
+    base = max(0.0, sum(ys) / len(ys) - slope * sum(xs) / len(xs))
+    return base, slope
+
+
+def predicted_swap_ms(base_ms: float, ms_per_mb: float, mb: float) -> float:
+    """One-way transfer time the :func:`fit_swap_cost` model predicts for
+    ``mb`` megabytes of KV blocks."""
+    return base_ms + ms_per_mb * max(0.0, mb)

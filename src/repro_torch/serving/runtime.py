@@ -36,15 +36,24 @@ cache.
 
 With ``preemption=True`` the router evicts the largest-slack resident
 (never a mid-chunk prefill) when the most urgent waiting request cannot be
-admitted and its slack no longer covers its predicted service time; the
-victim resumes through ``submit_resume`` by recomputing its context.
-``cancel`` tears a request down at any phase and frees its blocks at once.
+admitted and its slack no longer covers its predicted service time. The
+victim resumes through ``submit_resume``, by recomputing its context or,
+with a host tier (``kv_host_blocks`` per paged instance), by swapping its
+blocks back: ``preempt_mode`` forces either, or ("auto") prices both with
+the calibrated token-cost and swap-cost fits per victim. A swap snapshot
+resumes only on its source instance and falls back to recompute when
+that instance drains or retires. ``cancel`` tears a request down at any
+phase and frees its blocks (host blocks included) at once.
+
+``spec_k`` caps speculative decoding: instances of a model whose every
+layer can rewind are built for that depth, and ``set_spec_k`` (the
+``PoolScheduler``'s fourth axis) moves the live depth within it; other
+models serve with k = 0.
 
 Every instance runs on the pool's ``device`` (default ``"cuda"``, which
 raises without a GPU; ``device="cpu"`` runs the kernels' plain versions).
-What the port's engine cannot serve yet raises ``NotImplementedError``:
-the host KV tier and with it ``preempt_mode="swap"``, speculative
-decoding, tensor parallelism and a device budget (ROADMAP.md).
+Tensor parallelism and a device budget raise ``NotImplementedError``
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -65,7 +74,8 @@ from repro_torch.serving import latency_model as lm
 from repro_torch.serving import request as lifecycle
 from repro_torch.serving.engine import (ContinuousBatchingEngine,
                                         ContinuousResult, PreemptedRequest,
-                                        supports_prefix_cache)
+                                        supports_prefix_cache,
+                                        supports_speculation, to_recompute)
 from repro_torch.serving.request import RequestLifecycle
 
 # instance lifecycle states (docs/RUNTIME.md state machine)
@@ -225,12 +235,14 @@ class ModelInstancePool:
             raise ValueError(
                 f"preempt_mode must be 'recompute', 'swap' or 'auto', "
                 f"got {preempt_mode!r}")
+        if kv_host_blocks < 0:
+            raise ValueError(
+                f"kv_host_blocks must be >= 0, got {kv_host_blocks}")
+        if kv_host_blocks > 0 and kv_layout != "paged":
+            raise ValueError(
+                "kv_host_blocks needs kv_layout='paged' (the host tier "
+                "swaps block-granular KV)")
         for flag, what, item in (
-                (kv_host_blocks > 0, "kv_host_blocks > 0",
-                 "item 6, the host tier"),
-                (preempt_mode == "swap", 'preempt_mode="swap"',
-                 "item 6, the host tier"),
-                (spec_k > 0, "spec_k > 0", "item 6, speculation"),
                 (tp_degree > 1, "tp_degree > 1",
                  "item 8, tensor parallelism"),
                 (n_devices is not None, "n_devices",
@@ -258,6 +270,11 @@ class ModelInstancePool:
         #: model whose stack cannot page every decode state serves
         #: without it (per-model capability, one flag)
         self.prefix_cache = prefix_cache and kv_layout == "paged"
+        #: speculative decoding: the depth instances are built for, and
+        #: the live depth per model (``set_spec_k``) within it; models
+        #: whose cache cannot rewind serve with k = 0
+        self.spec_cap = max(0, spec_k)
+        self.spec_ks: Dict[str, int] = {m: self.spec_cap for m in configs}
         #: target grant for a paged instance; default = dense-equivalent
         #: worst case
         self.blocks_per_instance = blocks_per_instance
@@ -265,14 +282,17 @@ class ModelInstancePool:
         #: cannot be admitted anywhere and its slack no longer covers its
         #: predicted service time, evict the largest-slack resident (never
         #: a mid-chunk prefill), with margin, cooldown and a per-request
-        #: cap against thrash. Without a host tier every eviction
-        #: recomputes, so "auto" and "recompute" behave the same.
+        #: cap against thrash. ``preempt_mode``: "recompute", "swap" (into
+        #: the instance's host tier of ``kv_host_blocks`` blocks, where
+        #: the victim can) or "auto" (the cheaper of the two, priced)
         self.preemption = preemption
         self.preempt_margin_ms = preempt_margin_ms
         self.preempt_cooldown_steps = preempt_cooldown_steps
         self.max_preemptions = max_preemptions
         self.preempt_mode = preempt_mode
+        self.kv_host_blocks = kv_host_blocks
         self.n_preempted = 0
+        self.n_swap_preempted = 0
         self.preempts_by_model: Dict[str, int] = {m: 0 for m in configs}
         self._last_preempt_step: Dict[str, int] = {}
         #: per-model per-iteration token budget applied to every live
@@ -466,7 +486,10 @@ class ModelInstancePool:
         if self.kv_layout == "paged":
             kw = {"block_size": self.block_size, "kv_blocks": grant,
                   "prefix_cache": self.prefix_cache
-                  and supports_prefix_cache(self.configs[model])}
+                  and supports_prefix_cache(self.configs[model]),
+                  "kv_host_blocks": self.kv_host_blocks}
+        if self.spec_cap > 0 and supports_speculation(self.configs[model]):
+            kw["spec_k"] = self.spec_cap
         tmpl = self._templates.get(model)
         eng = ContinuousBatchingEngine(
             self.configs[model], max_slots=self.max_slots,
@@ -474,6 +497,8 @@ class ModelInstancePool:
             token_budget=self.token_budgets.get(model), device=self.device,
             params=self._params.get(model) if tmpl is None else None,
             share_from=tmpl, **kw)
+        # spawn at the depth the scheduler set last (within the built cap)
+        eng.spec_k = min(self.spec_ks.get(model, 0), eng.spec_max)
         if tmpl is None:
             self._templates[model] = eng
         inst = ModelInstance(self._next_iid, model, eng, kv_blocks=charge)
@@ -531,6 +556,17 @@ class ModelInstancePool:
         for inst in self.instances[model]:
             if inst.engine is not None:
                 inst.engine.token_budget = budget
+
+    def set_spec_k(self, model: str, k: int) -> None:
+        """The fourth knob: the speculation depth of every live engine of
+        ``model`` and of future spawns, clamped per engine to the depth it
+        was built for (``spec_max``; 0 for an engine built without
+        speculation), so the call is safe for any model."""
+        k = max(0, k)
+        self.spec_ks[model] = k
+        for inst in self.instances[model]:
+            if inst.engine is not None:
+                inst.engine.spec_k = min(k, inst.engine.spec_max)
 
     def prefill_backlog_tokens(self, model: Optional[str] = None) -> int:
         """Prompt tokens queued or mid-chunk across the live instances of
@@ -612,9 +648,19 @@ class ModelInstancePool:
             if req is not None:
                 # a preempted snapshot carries its earlier tokens
                 snap = req.resume
-                tokens = np.asarray(snap.seq_tokens[snap.base_len:],
-                                    np.int32) if snap is not None \
-                    else np.zeros((0,), np.int32)
+                if snap is not None and snap.swapped:
+                    # it will never resume: its host blocks go back to
+                    # the source engine (nothing to free once that engine
+                    # retired: the host pool went with it)
+                    src = self._swap_source(model, snap)
+                    if src is not None:
+                        src.engine.allocator.host_free(snap.host_blocks)
+                    tokens = np.asarray(snap.tokens, np.int32)
+                elif snap is not None:
+                    tokens = np.asarray(snap.seq_tokens[snap.base_len:],
+                                        np.int32)
+                else:
+                    tokens = np.zeros((0,), np.int32)
                 return self._finish_cancel(req, None, tokens)
         for inst in self.live():
             for erid, req in list(inst.requests.items()):
@@ -666,9 +712,11 @@ class ModelInstancePool:
         def _queued_work(r: PoolRequest) -> int:
             if r.resume is None:
                 return len(r.prompt) + r.max_new_tokens
-            # a preempted snapshot owes its remaining decode tokens plus
-            # the re-prefill of its whole context
-            return len(r.resume.seq_tokens) + r.resume.max_new
+            # a preempted snapshot owes its remaining decode tokens plus,
+            # recomputed, the re-prefill of its whole context (a swapped
+            # one maps its context back)
+            ctx = 0 if r.resume.swapped else len(r.resume.seq_tokens)
+            return ctx + r.resume.max_new
 
         queued_tokens = sum(_queued_work(r)
                             for _, _, r in self.queues[model])
@@ -741,6 +789,9 @@ class ModelInstancePool:
         best = None
         for inst in self.running(model):
             eng = inst.engine
+            if req.resume is not None and req.resume.swapped \
+                    and id(eng) != req.resume.host_engine_id:
+                continue  # a swapped head fits only its source engine
             for slot, erid, freeable in eng.preemption_candidates():
                 vreq = inst.requests.get(erid)
                 if vreq is None or vreq.n_preempted >= self.max_preemptions:
@@ -762,11 +813,15 @@ class ModelInstancePool:
         vreq = inst.requests.pop(erid)
         vreq.resume = snapshot
         vreq.n_preempted += 1
+        if mode == "swap":
+            self.n_swap_preempted += 1
         if vreq.lifecycle is not None and not vreq.lifecycle.terminal:
-            # DECODE -> QUEUED: the context is recomputed on resume
-            vreq.lifecycle.to(lifecycle.QUEUED, now, swapped=False)
+            # DECODE -> QUEUED, marked with how: swapped KV waits in the
+            # host tier, a recompute snapshot re-prefills
+            vreq.lifecycle.to(lifecycle.QUEUED, now,
+                              swapped=mode == "swap")
         self._emit(vreq, "preempted", instance_id=inst.instance_id,
-                   swapped=False)
+                   swapped=mode == "swap")
         heapq.heappush(self.queues[model],
                        (vreq.deadline_s, next(_seq), vreq))
         self.n_preempted += 1
@@ -776,13 +831,62 @@ class ModelInstancePool:
 
     def _pick_preempt_mode(self, eng: ContinuousBatchingEngine,
                            slot: int) -> str:
-        """Recompute or swap: the reference prices both and takes the
-        cheaper where the victim ``can_swap``. No engine of the port can
-        swap (the host tier is not ported), so every mode the pool takes
-        ("auto", "recompute") recomputes."""
+        """Recompute or swap, a priced choice. Recompute re-prefills the
+        victim's context on resume: the token-cost fit at ``pos`` tokens.
+        Swap pays two transfers (out now, in at resume): the swap-cost fit
+        at the victim's blocks. Until both fits are calibrated, swap
+        wherever the host tier has room: a transfer is the only way to
+        collect swap samples."""
         if self.preempt_mode == "recompute" or not eng.can_swap(slot):
             return "recompute"
-        raise _unported("preemption by swap", "item 6, the host tier")
+        if self.preempt_mode == "swap":
+            return "swap"
+        pos = int(eng.pos[slot])
+        base, per_tok = self.token_cost()
+        swap_base, per_mb = self.swap_cost()
+        if per_tok <= 0.0 or per_mb <= 0.0:
+            return "swap"
+        recompute_ms = base + pos * per_tok
+        mb = len(eng.slots[slot].blocks) * eng.swap_bytes_per_block / 1e6
+        swap_ms = 2.0 * lm.predicted_swap_ms(swap_base, per_mb, mb)
+        return "swap" if swap_ms < recompute_ms else "recompute"
+
+    def swap_cost(self) -> Tuple[float, float]:
+        """Calibrated ``(base_ms, ms_per_mb)`` of a host-tier transfer over
+        every live engine's (bytes, ms) samples
+        (``latency_model.fit_swap_cost``); ``(0, 0)`` before four
+        samples."""
+        samples: List[Tuple[int, float]] = []
+        for i in self.live():
+            samples.extend(i.engine.swap_samples[-_SAMPLE_WINDOW:])
+        if len(samples) < 4:
+            return 0.0, 0.0
+        return lm.fit_swap_cost(samples[-_SAMPLE_WINDOW:])
+
+    def _swap_source(self, model: str,
+                     snap: PreemptedRequest) -> Optional[ModelInstance]:
+        """The instance whose engine's host pool holds ``snap``'s blocks
+        (None once it retired)."""
+        for inst in self.instances[model]:
+            if inst.engine is not None \
+                    and id(inst.engine) == snap.host_engine_id:
+                return inst
+        return None
+
+    def _repin_swap(self, model: str, req: PoolRequest) -> None:
+        """A swap snapshot resumes only on the engine holding its host
+        blocks. When that engine drains or is gone, turn the snapshot back
+        into a recompute one so the request stays routable: releasing the
+        host blocks while the engine exists, else rebuilding it from the
+        carried tokens (the host pool went with the engine)."""
+        snap = req.resume
+        if snap is None or not snap.swapped:
+            return
+        src = self._swap_source(model, snap)
+        if src is None:
+            req.resume = to_recompute(snap)
+        elif src.state != RUNNING:
+            req.resume = src.engine.release_swap(snap)
 
     def _reject(self, req: PoolRequest) -> PoolResult:
         now = self.now()
@@ -818,6 +922,9 @@ class ModelInstancePool:
                           if cap - i.n_resident > 0]
             while q:
                 deadline_s, _, req = q[0]
+                # a swap snapshot whose source drained or retired becomes
+                # a recompute one before any admission question
+                self._repin_swap(model, req)
                 if self.strict_admission:
                     hopeless = now > deadline_s
                     if not hopeless and t1 > 0.0:
@@ -834,8 +941,13 @@ class ModelInstancePool:
                             if cap - i.n_resident > 0]
 
                 def _cands():
+                    insts = open_insts
+                    if req.resume is not None and req.resume.swapped:
+                        # swapped KV sits in one engine's host pool
+                        insts = [i for i in insts if id(i.engine)
+                                 == req.resume.host_engine_id]
                     # paged engines additionally gate on free KV blocks
-                    return [i for i in open_insts
+                    return [i for i in insts
                             if i.engine.admissible(
                                 len(req.prompt), req.max_new_tokens,
                                 pending.get(i.instance_id, 0),
@@ -1046,6 +1158,7 @@ class ModelInstancePool:
         self.n_rejected = 0
         self.n_cancelled = 0
         self.n_preempted = 0
+        self.n_swap_preempted = 0
         self.preempts_by_model = {m: 0 for m in self.configs}
         self._last_preempt_step = {}
         self.n_steps = 0
@@ -1087,6 +1200,15 @@ class ModelInstancePool:
         total = hit + sum(i.engine.n_prefill_chunk_tokens for i in live)
         return hit / total if total else 0.0
 
+    def spec_accept_rate(self) -> float:
+        """Drafts accepted over drafts proposed, over the live instances:
+        the scheduler's feature behind the k axis (0.0 before any
+        speculative step)."""
+        live = self.live()
+        acc = sum(i.engine.n_spec_accepted for i in live)
+        prop = sum(i.engine.n_spec_proposed for i in live)
+        return acc / prop if prop else 0.0
+
     def kv_shared_frac(self) -> float:
         """Fraction of live block mappings backed by a block another
         resident sequence also maps: 0 without a prefix cache. The guard
@@ -1102,10 +1224,20 @@ class ModelInstancePool:
         return 1.0 - distinct / logical if logical else 0.0
 
     def kv_occupancy(self) -> Dict[str, float]:
-        """Real occupancy of the shared KV budget: what the
-        ``PoolScheduler``'s memory guard and headroom feature read.
-        Budget fields are 0 for unlimited budgets."""
+        """Real occupancy of the shared KV budget and of the paged
+        engines' host tiers: what the ``PoolScheduler``'s memory guard,
+        headroom and host features read. Budget fields are 0 for
+        unlimited budgets, host fields 0 without a host tier."""
         budget_blocks = self.kv_block_budget or 0
+        host_blocks = host_free = host_live = host_cached = 0
+        for i in self.live():
+            if i.engine.kv_layout != "paged":
+                continue
+            a = i.engine.allocator
+            host_blocks += a.n_host_blocks
+            host_free += a.n_host_free
+            host_live += a.n_host_live
+            host_cached += a.n_host_cached
         return {
             "used_tokens": float(self.kv_used_tokens()),
             "allocated_tokens": float(sum(
@@ -1117,6 +1249,12 @@ class ModelInstancePool:
             "tokens_per_seq": self.occupancy_tokens_per_seq(),
             "shared_frac": self.kv_shared_frac(),
             "prefix_hit_rate": self.prefix_hit_rate(),
+            "host_blocks": float(host_blocks),
+            "host_free": float(host_free),
+            "host_live": float(host_live),
+            "host_cached": float(host_cached),
+            "host_frac": float((host_live + host_cached) / host_blocks)
+            if host_blocks else 0.0,
         }
 
     def slot_ms(self, model: str) -> float:
@@ -1164,6 +1302,7 @@ class ModelInstancePool:
     def stats(self) -> Dict[str, float]:
         t1, c = self.contention()
         base, per_tok = self.token_cost()
+        swap_base, per_mb = self.swap_cost()
         out = {
             "n_steps": float(self.n_steps),
             "live_instances": float(self.total_live()),
@@ -1171,11 +1310,15 @@ class ModelInstancePool:
             "n_rejected": float(self.n_rejected),
             "n_cancelled": float(self.n_cancelled),
             "n_preempted": float(self.n_preempted),
+            "n_swap_preempted": float(self.n_swap_preempted),
             "prefill_backlog_tokens": float(self.prefill_backlog_tokens()),
             "contention_t1_ms": t1,
             "contention_c": c,
             "token_base_ms": base,
             "token_per_ms": per_tok,
+            "swap_base_ms": swap_base,
+            "swap_ms_per_mb": per_mb,
+            "spec_accept_rate": self.spec_accept_rate(),
             "ttft_ms_p50": float(np.percentile(self.ttft_samples, 50))
             if self.ttft_samples else 0.0,
             "ttft_ms_p99": float(np.percentile(self.ttft_samples, 99))

@@ -6,9 +6,8 @@ serving.
 Both CLIs parse the same command line with their serving functions
 replaced by recorders: the same outcome follows (the same serving mode
 called with the same flags, the same "ignored in round mode" note, or
-the same exit code 2 with the same ``ap.error`` message). A flag of a
-feature the port does not serve yet raises only where the reference
-would use it (tests/test_torch_sim_deploy.py::test_cli_refusals).
+the same exit code 2 with the same ``ap.error`` message), speculation and
+the host tier included.
 """
 import sys
 
@@ -23,9 +22,10 @@ from repro_torch.launch import serve as serve_cli
 KEYS = {
     "serve_round": ("arch",),
     "serve_continuous": ("arch", "kv_layout", "prefix_cache",
-                         "shared_prefix_tokens"),
+                         "shared_prefix_tokens", "spec_k"),
     "serve_pool": ("models", "kv_layout", "preemption", "kv_host_blocks",
-                   "preempt_mode", "prefix_cache", "shared_prefix_tokens"),
+                   "preempt_mode", "prefix_cache", "shared_prefix_tokens",
+                   "spec_k"),
     "serve_http": ("models", "port", "kv_layout", "backpressure",
                    "max_queue_depth", "max_instances"),
 }
@@ -45,6 +45,20 @@ CASES = {
     "pool-paged-host-tier": ["--engine", "--models", "qwen3-0.6b",
                              "--kv-layout", "paged", "--kv-host-blocks",
                              "8", "--preempt-mode", "swap"],
+    "pool-host-tier-auto-spec": ["--engine", "--models", "qwen3-0.6b",
+                                 "--kv-layout", "paged", "--preemption",
+                                 "--kv-host-blocks", "64", "--preempt-mode",
+                                 "auto", "--spec-k", "4"],
+    "pool-spec-k": ["--engine", "--models", "qwen3-0.6b,recurrentgemma-2b",
+                    "--exec-mode", "continuous", "--spec-k", "2"],
+    "continuous-spec-k": ["--engine", "--exec-mode", "continuous",
+                          "--spec-k", "4"],
+    "continuous-spec-k-paged": ["--engine", "--exec-mode", "continuous",
+                                "--kv-layout", "paged", "--spec-k", "2",
+                                "--token-budget", "16"],
+    "continuous-host-tier-paged": ["--engine", "--exec-mode", "continuous",
+                                   "--kv-layout", "paged",
+                                   "--kv-host-blocks", "8"],
     "http": ["--engine", "--serve-http", "--port", "8907", "--models",
              "qwen3-0.6b", "--max-instances", "1", "--kv-layout", "paged"],
     "http-no-backpressure": ["--engine", "--serve-http", "--port", "0",

@@ -10,7 +10,8 @@ tests/test_engine_fuzz.py checks for the reference.
 
 Also here: the no-jax import guard (in a subprocess, since this
 process imported jax through conftest.py), the device policy (no GPU and
-no ``device`` argument raises), the features the port still refuses, the
+no ``device`` argument raises), the features the port still refuses (and
+those it now serves as the reference does), the
 prefix cache's gate, hybrid stacks under the paged layout, and
 ``chip_smoke.py``'s refusal to run without a GPU or outside a checkout.
 """
@@ -163,9 +164,23 @@ def test_submit_validates_prompt_bounds():
     {"kv_layout": "dense", "spec_k": 2},
     {"spec_k": 2}, {"kv_host_blocks": 4}, {"mesh": object()}])
 def test_unported_engine_features_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ContinuousBatchingEngine(_torch_cfg(TINY), device="cpu",
-                                 **{"kv_layout": "paged", **kw})
+    """Tensor parallelism (a mesh) still raises. Speculation (both
+    layouts) and the host tier are ported: the engine builds as the
+    reference's does and serves the reference's tokens."""
+    kw = {"kv_layout": "paged", **kw}
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            ContinuousBatchingEngine(_torch_cfg(TINY), device="cpu", **kw)
+        return
+    je = JaxEngine(TINY, max_slots=2, max_seq=64, **kw)
+    te = ContinuousBatchingEngine(_torch_cfg(TINY), max_slots=2, max_seq=64,
+                                  device="cpu", **kw)
+    te.load_jax_params(jax.tree.map(np.asarray, je.params))
+    assert (te.spec_max, te.kv_host_blocks, te.swap_ok) == \
+        (je.spec_max, je.kv_host_blocks, je.swap_ok)
+    prompts = [np.arange(1, n, dtype=np.int32) for n in (5, 12)]
+    assert [r.tokens.tolist() for r in te.run(prompts, 6)] == \
+        [r.tokens.tolist() for r in je.run(prompts, 6)]
 
 
 @pytest.mark.parametrize("kind,kw", [

@@ -1,25 +1,33 @@
 """Randomized differential harness: the port's continuous engine against
 the reference's under the same seeded schedules, on the CPU.
 
-The port of tests/test_engine_fuzz.py for what the port serves: each
-seeded schedule interleaves submit / step / cancel (at whatever phase it
-catches a request: queued, mid-prefill, decoding, preempted) / recompute
-preempt-and-resume over a pool of mixed-length prompts with shared and
-divergent prefixes and one exact duplicate (the copy-on-write path),
-across engine variants: dense and paged layouts, the prefix cache on and
-off, a token budget on and off in both layouts (the dense budget runs
-the staging path, the paged one the fused path), and tight block budgets
-that force LRU revivals and reclaims. Speculation and the host tier are
-not ported and not fuzzed.
+The port of tests/test_engine_fuzz.py: each seeded schedule interleaves
+submit / step / cancel (at whatever phase it catches a request: queued,
+mid-prefill, decoding, preempted) / preempt-and-resume (recompute, or a
+coin flip between recompute and swap where the engine has a host tier)
+/ live speculation-depth retuning (where the engine speculates) over a
+pool of mixed-length prompts with shared and divergent prefixes and one
+exact duplicate (the copy-on-write path), across engine variants: dense
+and paged layouts, the prefix cache on and off, a token budget on and
+off in both layouts (the dense budget runs the staging path, the paged
+one the fused path), tight block budgets that force LRU revivals and
+reclaims, speculation at k up to 4 (with a budget and a tight pool
+too), a host tier whose tight device budget forces prefix spills beside
+swap preemption, and the reference's kitchen sink (prefix cache, tight
+blocks, budget, speculation and a host tier at once).
 
 Both engines share weights (the reference's, bridged) and take every
 operation in lockstep. After EVERY operation:
 * the same finished and cancelled results (tokens, flags) on both sides;
 * the port's allocator state equals the reference's (free list, LRU pool,
-  keys, refcounts, reservations) and holds the invariants itself:
+  keys, refcounts, reservations, and the host tier's free list, swapped
+  set, spilled keys and their LRU) and holds the invariants itself:
   ``n_free + n_cached + n_live == n_blocks`` over disjoint id sets,
   ``n_available >= 0``, refcount(b) == the slots mapping b, block tables
-  mirror the slots, the null block is never mapped;
+  mirror the slots, the null block is never mapped; with a host tier
+  ``n_host_free + n_host_cached + n_host_live == n_host_blocks`` over
+  disjoint id sets, the swapped set exactly the waiting swap snapshots'
+  blocks;
 * the same slot contents (request, blocks, shared prefix blocks, prefill
   position).
 After the drain: every finished request equals an uninterrupted
@@ -60,6 +68,15 @@ VARIANTS = {
     "paged-prefix-tight-budget": {"kv_layout": "paged", "prefix": True,
                                   "kv_blocks": 18, "token_budget": 12,
                                   "max_slots": 4},
+    "paged-prefix-spec": {"kv_layout": "paged", "prefix": True,
+                          "spec_k": 4},
+    "paged-spec-tight-budget": {"kv_layout": "paged", "kv_blocks": 16,
+                                "token_budget": 12, "spec_k": 4},
+    "kitchen-sink": {"kv_layout": "paged", "prefix": True, "kv_blocks": 18,
+                     "token_budget": 12, "kv_host_blocks": 10,
+                     "spec_k": 4, "max_slots": 4},
+    "offload": {"kv_layout": "paged", "prefix": True, "kv_blocks": 16,
+                "kv_host_blocks": 12, "max_slots": 4},
 }
 
 _TEMPLATES = {}
@@ -95,6 +112,8 @@ def _engines(cfg, variant: str):
     kw = dict(VARIANTS[variant])
     prefix = kw.pop("prefix", False)
     kw.setdefault("max_slots", 3)
+    if cfg.name not in ("tiny", "tiny-tail"):
+        kw.pop("spec_k", None)  # only rewindable stacks speculate
     if kw.get("kv_layout") == "paged":
         kw["block_size"] = 8
         kw["prefix_cache"] = prefix and cfg.name in ("tiny", "tiny-tail")
@@ -136,7 +155,10 @@ def _prompt_pool(cfg):
 
 def _alloc_state(al):
     return (list(al._free), sorted(al._outstanding), dict(al._refcount),
-            dict(al._cache), list(al._lru), al.n_reserved, al.n_reclaimed)
+            dict(al._cache), list(al._lru), al.n_reserved, al.n_reclaimed,
+            list(al._host_free), sorted(al._host_live),
+            dict(al._host_cache), list(al._host_lru), al.n_spilled,
+            al.n_unspilled)
 
 
 def _check(je, te, ctx: str) -> None:
@@ -168,6 +190,16 @@ def _check(je, te, ctx: str) -> None:
     assert 0 not in counts, ctx
     assert all(al.refcount(b) == c for b, c in counts.items()), ctx
     assert set(counts) == out, ctx
+    if al.n_host_blocks:
+        hfree, hlive = set(al._host_free), set(al._host_live)
+        hcache = set(al._host_cache.values())
+        assert not (hfree & hcache or hfree & hlive or hcache & hlive), ctx
+        assert len(hfree) + len(hcache) + len(hlive) == al.n_host_blocks, \
+            ctx
+        swap_ids = [b for w in te.waiting if w.swap is not None
+                    for b in w.swap.host_blocks]
+        assert len(swap_ids) == len(set(swap_ids)), ctx
+        assert set(swap_ids) == hlive, ctx
     for i, s in enumerate(te.slots):
         if s.active and not s.prefilling:
             n = len(s.blocks)
@@ -223,13 +255,21 @@ def _run_schedule(cfg, variant: str, seed: int) -> None:
                 assert want[rid][1], f"{ctx}: cancel({rid}) did not land"
                 results.update(want)
                 cancelled.add(rid)
+        elif roll < 0.92 and je.spec_max > 0:
+            # the scheduler's fourth axis mid-flight
+            je.spec_k = te.spec_k = rng.choice((0, 2, 4))
         else:
             cands = je.decoding_slots
             assert te.decoding_slots == cands, ctx
             if cands:
                 slot = rng.choice(cands)
-                je.preempt(slot)
-                te.preempt(slot)
+                assert te.can_swap(slot) == je.can_swap(slot), ctx
+                # a host tier flips a coin between the two eviction modes:
+                # both resume to the same uninterrupted oracle
+                mode = "swap" if je.swap_ok and je.can_swap(slot) \
+                    and rng.random() < 0.5 else "recompute"
+                je.preempt(slot, mode=mode)
+                te.preempt(slot, mode=mode)
         _check(je, te, ctx)
 
     guard = 600
@@ -253,7 +293,13 @@ def _run_schedule(cfg, variant: str, seed: int) -> None:
     if al is not None:
         assert al.n_live == 0 and al.n_reserved == 0, ctx
         assert al.n_free + al.n_cached == al.n_blocks, ctx
-    assert te.stats()["prefix_hit_rate"] == je.stats()["prefix_hit_rate"]
+        assert al.n_host_live == 0, ctx
+        assert al.n_host_free + al.n_host_cached == al.n_host_blocks, ctx
+    got, want = te.stats(), je.stats()
+    for key in ("prefix_hit_rate", "n_spec_steps", "n_spec_proposed",
+                "n_spec_accepted", "n_swap_preempts", "n_swap_resumes",
+                "n_spilled", "n_unspilled"):
+        assert got[key] == want[key], (ctx, key)
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
@@ -265,7 +311,8 @@ def test_fuzz_schedules_match_the_reference(variant):
 
 
 @pytest.mark.parametrize("kind,variant", [
-    ("tail", "paged-prefix-tight-budget"), ("rglru", "paged"),
+    ("tail", "paged-prefix-tight-budget"), ("tail", "kitchen-sink"),
+    ("rglru", "offload"), ("rglru", "paged"),
     ("rglru", "paged-prefix-tight-budget"), ("windowed", "paged"),
     ("rwkv", "paged-prefix-budget")])
 def test_fuzz_layer_families(kind, variant):

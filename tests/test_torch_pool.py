@@ -338,8 +338,28 @@ def test_lifecycle_events_and_hooks():
     ({"spec_k": 2}, "spec_k"), ({"tp_degree": 2}, "tp_degree"),
     ({"n_devices": 2}, "n_devices")])
 def test_unported_pool_arguments_raise(kw, what):
-    with pytest.raises(NotImplementedError, match=what):
-        _pool(**kw)
+    """Tensor parallelism (``tp_degree``, ``n_devices``) still raises. The
+    host tier, swap preemption and speculation are ported: the pool
+    builds as the reference's does and spawns engines built the same
+    way."""
+    if what in ("tp_degree", "n_devices"):
+        with pytest.raises(NotImplementedError, match=what):
+            _pool(**kw)
+        return
+    ref = JaxPool({"tiny-a": JaxModelConfig(**SPEC_A)}, max_instances=4,
+                  max_slots=2, max_seq=64, **kw)
+    pool = _pool(**kw)
+    for p in (ref, pool):
+        p.scale_to("tiny-a", 1)
+    a, b = ref.running("tiny-a")[0].engine, pool.running("tiny-a")[0].engine
+    assert (b.spec_max, b.spec_k, b.kv_host_blocks, b.swap_ok) == \
+        (a.spec_max, a.spec_k, a.kv_host_blocks, a.swap_ok)
+    assert (pool.preempt_mode, pool.spec_cap, pool.kv_host_blocks) == \
+        (ref.preempt_mode, ref.spec_cap, ref.kv_host_blocks)
+    st, want = pool.stats(), ref.stats()
+    for key in ("n_swap_preempted", "swap_base_ms", "swap_ms_per_mb",
+                "spec_accept_rate"):
+        assert st[key] == want[key]
 
 
 def test_cancel_raises_and_the_default_device_is_the_gpu(monkeypatch):

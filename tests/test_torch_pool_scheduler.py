@@ -46,14 +46,14 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _pools(monkeypatch, kv_layout="paged"):
+def _pools(monkeypatch, kv_layout="paged", **extra):
     """The reference pool and the port's, with the same instances, the
     same routed requests, the same calibration samples and one frozen
-    clock."""
+    clock (``extra``: more pool arguments, for both)."""
     kw = dict(max_instances=4, max_slots=4, max_seq=64, seed=0,
               kv_layout=kv_layout, block_size=8,
               kv_block_budget=80 if kv_layout == "paged" else None,
-              strict_admission=True)
+              strict_admission=True, **extra)
     specs = {"tiny-a": SPEC_A, "tiny-b": SPEC_B}
     ref = JaxPool({m: JaxModelConfig(**s) for m, s in specs.items()}, **kw)
     port = ModelInstancePool({m: ModelConfig(**s)
@@ -137,6 +137,50 @@ def test_guard_feasible_set_and_degradation_are_equal(monkeypatch):
     assert s_port.guard_interventions == s_ref.guard_interventions > 0
 
 
+def test_speculation_axis_and_host_feature_are_the_references(monkeypatch):
+    """The fourth axis: with spec depths (0, 2, 4) and a host tier, every
+    action's feasibility (the verify surcharge priced by the token-cost
+    fit) and its degradation (speculation shed first) equal the
+    reference's, each leaving the same live depth; after speculative
+    steps with bridged weights the state vectors (acceptance rate, host
+    occupancy) are equal too."""
+    ref, port = _pools(monkeypatch, spec_k=4, kv_host_blocks=8)
+    port.load_jax_params("tiny-a", jax.tree.map(
+        np.asarray, ref.running("tiny-a")[0].engine.params))
+    port.load_jax_params("tiny-b", jax.tree.map(
+        np.asarray, ref.running("tiny-b")[0].engine.params))
+    for pool in (ref, port):
+        pool.route()
+    spec = dict(SCFG, spec_depths=(0, 2, 4))
+    kw = dict(slo_ms={"tiny-a": 4000.0, "tiny-b": 6000.0},
+              decode_steps_mean=32.0, guard=True, learn=False)
+    s_ref = JaxScheduler(ref, JaxServingConfig(**spec), **kw)
+    s_port = PoolScheduler(port, ServingConfig(**spec), **kw)
+    cfg = ServingConfig(**spec)
+    feasible = []
+    for a in range(cfg.n_actions):
+        b, m_c, tb, sk = cfg.action_to_quad(a)
+        want = s_ref._feasible("tiny-a", b, m_c, tb, sk)
+        assert s_port._feasible("tiny-a", b, m_c, tb, sk) == want
+        feasible.append(want)
+    assert any(feasible) and not all(feasible)
+    for a in range(cfg.n_actions):
+        assert s_port._apply("tiny-a", a) == s_ref._apply("tiny-a", a)
+        assert port.spec_ks == ref.spec_ks
+        assert [i.engine.spec_k for i in port.running("tiny-a")] == \
+            [i.engine.spec_k for i in ref.running("tiny-a")]
+    assert s_port.guard_interventions == s_ref.guard_interventions > 0
+    for pool in (ref, port):
+        pool.set_spec_k("tiny-a", 4)
+        pinned = list(pool.contention_samples)
+        for _ in range(6):
+            pool.step()
+        pool.contention_samples = pinned  # the steps' wall times differ
+    assert port.spec_accept_rate() == ref.spec_accept_rate() > 0.0
+    for m in ("tiny-a", "tiny-b"):
+        np.testing.assert_array_equal(s_port._state(m), s_ref._state(m))
+
+
 def test_bridged_agent_picks_the_same_greedy_action(monkeypatch):
     """Reference nets in the port's agent: the same greedy (b, m_c) for
     the pool's states and for random states."""
@@ -188,14 +232,22 @@ def test_scheduler_drives_real_scaling():
 
 
 def test_unported_axes_raise():
-    """Speculation depths and TP degrees as action axes need pool
-    features the port lacks (the pool's own arguments raise too, see
-    tests/test_torch_pool.py)."""
-    pool = ModelInstancePool({"tiny-a": ModelConfig(**SPEC_A)},
+    """TP degrees as an action axis need tensor parallelism, which the
+    port lacks (the pool's own arguments raise too, see
+    tests/test_torch_pool.py). Speculation depths are ported: the fourth
+    axis sets every live engine's depth, as the reference's does."""
+    pool = ModelInstancePool({"tiny-a": ModelConfig(**SPEC_A)}, spec_k=4,
                              device="cpu")
-    for extra in ({"spec_depths": (0, 2)}, {"tp_degrees": (1, 2)}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PoolScheduler(pool, ServingConfig(**SCFG, **extra))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PoolScheduler(pool, ServingConfig(**SCFG, tp_degrees=(1, 2)))
+    scfg = ServingConfig(**SCFG, spec_depths=(0, 2))
+    sched = PoolScheduler(pool, scfg, guard=False, seed=0)
+    for a in range(scfg.n_actions):
+        b, m_c, tb, sk = scfg.action_to_quad(a)
+        assert sched._apply("tiny-a", a) == a
+        assert [i.engine.spec_k for i in pool.running("tiny-a")] == \
+            [sk] * m_c
+        assert pool.spec_ks["tiny-a"] == sk
 
 
 def test_serve_pool_serves_on_the_cpu_when_asked(capsys):

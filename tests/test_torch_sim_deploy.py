@@ -418,22 +418,19 @@ def test_cli_refusals(monkeypatch):
         serve_cli.main(["--platform", "tpu_v5e", "--device", "cpu"])
     with pytest.raises(SystemExit):  # the reference's ap.error
         serve_cli.main(["--engine", "--prefix-cache", "--device", "cpu"])
-    # an unported engine feature raises where the reference would use it:
-    # continuous mode (round mode ignores it, tests/test_torch_cli.py)
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        serve_cli.main(["--engine", "--exec-mode", "continuous",
-                        "--device", "cpu", "--spec-k", "2"])
-    # the prefix cache and the templated workload are ported: continuous
-    # mode passes them to serve_continuous
+    # the prefix cache, the templated workload and speculation are
+    # ported: continuous mode passes them to serve_continuous, as the
+    # reference's does (round mode ignores them, tests/test_torch_cli.py)
     from repro_torch.launch import engine_serve
 
     seen = {}
     monkeypatch.setattr(engine_serve, "serve_continuous",
                         lambda *a, **kw: seen.update(kw))
     for flag, want in (
+            (["--spec-k", "2"], {"spec_k": 2, "kv_layout": "dense"}),
             (["--prefix-cache", "--kv-layout", "paged"],
              {"prefix_cache": True, "shared_prefix_tokens": 0,
-              "kv_layout": "paged"}),
+              "kv_layout": "paged", "spec_k": 0}),
             (["--shared-prefix-tokens", "32"],
              {"prefix_cache": False, "shared_prefix_tokens": 32,
               "kv_layout": "dense"})):
