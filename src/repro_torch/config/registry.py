@@ -34,8 +34,7 @@ def get_config(arch: str) -> ModelConfig:
     _ensure_loaded()
     if arch not in _REGISTRY:
         raise KeyError(
-            f"unknown arch {arch!r}; available: {sorted(_REGISTRY)} "
-            "(the other architectures are still to port, see ROADMAP.md)"
+            f"unknown arch {arch!r}; available: {sorted(_REGISTRY)}"
         )
     return _REGISTRY[arch]
 

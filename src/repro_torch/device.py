@@ -18,9 +18,10 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def to_device(tree, device):
-    """A nested dict/list of tensors moved to ``device``."""
+    """A nested dict/list of tensors moved to ``device``; other leaves
+    (an edge net's int strides) pass through."""
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [to_device(v, device) for v in tree]
-    return tree.to(device)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree

@@ -10,8 +10,10 @@ shared by every sequence and indirected through per-sequence block
 tables; block 0 is the null block inactive batch rows write into.
 
 Attention goes through the kernel wrappers (``flash_attention`` for
-prefill, ``decode_attention`` and the paged kernels for decode and
-chunks): on the card the CUDA kernels, on the CPU their plain versions.
+prefill, non-causal for an encoder and for prefill cross-attention;
+``decode_attention`` and the paged kernels for decode and chunks, and
+``decode_attention`` with every slot valid for decode cross-attention):
+on the card the CUDA kernels, on the CPU their plain versions.
 Paged decode on the card takes the split-K kernel when ``decode_splits``
 asks for more than one split (B * KV up to the SM count, where splitting
 was measured faster), the one-split kernel otherwise; both run one body
@@ -61,7 +63,7 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, dtype, device) -> Dict:
 
 
 def _project_qkv(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor
+                 positions: torch.Tensor, mrope_positions=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     B, S, _ = x.shape
     hd = cfg.head_dim
@@ -71,8 +73,8 @@ def _project_qkv(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     if cfg.qk_norm:
         q = apply_norm(p["q_norm"], q, "rmsnorm")
         k = apply_norm(p["k_norm"], k, "rmsnorm")
-    q = apply_rope(q, positions, cfg.rope, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope, cfg.rope_theta)
+    q = apply_rope(q, positions, cfg.rope, cfg.rope_theta, mrope_positions)
+    k = apply_rope(k, positions, cfg.rope, cfg.rope_theta, mrope_positions)
     return q, k, v
 
 
@@ -101,19 +103,52 @@ def _causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
 
 # ---------------------------------------------------------------- full seq
 def attention_full(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-                   positions: torch.Tensor, *, window: Optional[int] = None
+                   positions: torch.Tensor, *, window: Optional[int] = None,
+                   mrope_positions=None, causal: bool = True
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (B,S,d) at positions 0..S-1 (prefill) -> (output (B,S,d), k, v).
 
-    Causal, optionally windowed, self-attention through the flash kernel.
-    The rotated K/V (B,S,KV,hd) come back too, so a prefill fills its
-    cache from this projection instead of projecting a second time as
-    the reference does (same math, same values)."""
+    Causal, optionally windowed, self-attention through the flash kernel
+    (``mrope_positions``: the M-RoPE (t, h, w) ids of a prefill);
+    ``causal=False`` is the encoder's bidirectional attention, the
+    reference's ``_sdpa`` under an all-true mask. The rotated K/V
+    (B,S,KV,hd) come back too, so a prefill fills its cache from this
+    projection instead of projecting a second time as the reference does
+    (same math, same values)."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    q, k, v = _project_qkv(p, x, cfg, positions, mrope_positions)
     scale = 1.0 / float(cfg.head_dim) ** 0.5
-    out = flash_attention(q, k, v, scale=scale, causal=True, window=window)
+    out = flash_attention(q, k, v, scale=scale, causal=causal, window=window)
     return out.reshape(B, S, -1) @ p["wo"], k, v
+
+
+# ---------------------------------------------------------------- cross
+def cross_kv(p: Dict, enc_out: torch.Tensor, cfg: ModelConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention K/V (B,T,KV,hd) of the encoder output (B,T,d):
+    no RoPE, no norm (the reference's ``_cross_kv``)."""
+    B, T, _ = enc_out.shape
+    k = (enc_out @ p["wk"]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    v = (enc_out @ p["wv"]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    return k, v
+
+
+def cross_attention(p: Dict, x: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x (B,S,d) attends every encoder row of k/v (B,T,KV,hd), unmasked
+    and unrotated (the reference's ``_cross_core``): a prefill through
+    the non-causal flash kernel, a decode step (S = 1) through
+    ``decode_attention`` with every slot valid."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    scale = 1.0 / float(cfg.head_dim) ** 0.5
+    if S == 1:
+        valid = torch.ones((B, k.shape[1]), dtype=torch.bool,
+                           device=x.device)
+        out = decode_attention(q, k, v, valid, scale)
+    else:
+        out = flash_attention(q, k, v, scale=scale, causal=False)
+    return out.reshape(B, S, -1) @ p["wo"]
 
 
 # ---------------------------------------------------------------- cache

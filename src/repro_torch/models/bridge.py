@@ -20,6 +20,11 @@ follows:
   applied as ``x @ W`` on both sides, so nothing is transposed.
 * **Tied head.** The tied LM head is the ``(V, d)`` embedding table
   itself (``transformer.py:418-421``); an untied ``lm_head`` is (d, V).
+* **Frontends and encoders.** ``frontend_proj`` (d, d) crosses as it is.
+  An encoder-decoder model's ``encoder["layers"]`` is one dict stacked
+  over ``n_enc_layers`` (``transformer.py:95-99``) and leaves as a list
+  in order; its decoder layers' ``cross_norm`` and ``cross`` ride in each
+  layer's dict, as do the cross K/V ``ck``/``cv`` in a cache.
 
 The scheduler agents' nets (:func:`sac_nets_from_jax`; the baselines'
 :func:`tac_nets_from_jax`, :func:`ppo_nets_from_jax` and
@@ -37,7 +42,6 @@ import torch
 from repro_torch.config.base import ModelConfig
 from repro_torch.core.baselines import DDQNAgent, PPOAgent, TACAgent
 from repro_torch.core.sac import NETS
-from repro_torch.models.transformer import check_supported
 
 
 def _map(tree: Any, fn) -> Any:
@@ -69,8 +73,6 @@ def params_from_jax(params_np: Dict, cfg: ModelConfig,
                     device="cpu") -> Dict:
     """The port's params (float tensors on ``device``) from the reference's
     param pytree with numpy leaves."""
-    check_supported(cfg)
-
     def tensor(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a, copy=True)).to(device)
 
@@ -80,6 +82,14 @@ def params_from_jax(params_np: Dict, cfg: ModelConfig,
                     for layer in unstack_layers(params_np, cfg)]}
     if not cfg.tie_embeddings:
         p["lm_head"] = tensor(params_np["lm_head"])
+    if "frontend_proj" in params_np:
+        p["frontend_proj"] = tensor(params_np["frontend_proj"])
+    if "encoder" in params_np:
+        enc = params_np["encoder"]
+        p["encoder"] = {
+            "layers": [_map(enc["layers"], lambda a, i=i: tensor(a[i]))
+                       for i in range(cfg.n_enc_layers)],
+            "final_norm": _map(enc["final_norm"], tensor)}
     return p
 
 

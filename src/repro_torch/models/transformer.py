@@ -1,20 +1,29 @@
-"""Decoder trunk: the port of ``repro.models.transformer`` for the global
-``attn``, windowed ``local_attn``, ``rglru`` (RecurrentGemma) and
-``rwkv`` (RWKV-6) layer kinds, and the MoE family: with ``n_experts`` set,
-every layer but an ``attn_dense`` one (global attention with a dense FFN,
-llama4's interleave) has a routed-expert FFN (``models.moe``).
+"""Decoder trunk: the port of ``repro.models.transformer`` for every
+layer kind (global ``attn``, windowed ``local_attn``, ``rglru``
+(RecurrentGemma), ``rwkv`` (RWKV-6)), the MoE family (with ``n_experts``
+set, every layer but an ``attn_dense`` one has a routed-expert FFN,
+``models.moe``), frontend models (qwen2-vl: stub patch embeddings go
+through ``frontend_proj`` and are prepended to the tokens, with M-RoPE
+grid positions) and encoder-decoder models (seamless: a bidirectional
+encoder over stub frame embeddings, and a cross-attention branch in
+every decoder layer).
 
 Params are a nested dict: ``embed`` (V, d), ``final_norm``, optional
-``lm_head`` (d, V), and ``layers``, a list with one dict per layer in
+``lm_head`` (d, V), ``layers``, a list with one dict per layer in
 execution order (the reference stacks units for ``lax.scan``; here the
-trunk is a plain loop over ``cfg.layer_kinds()``). A decode cache is a
-list with one dict per layer: ``{"k", "v"}`` as a dense ``(B, C, KV,
-hd)`` slab (C = ``cache_len``, or the window for a windowed layer's ring
-buffer) or a paged ``(n_blocks, bs, KV, hd)`` block pool; a recurrent
-layer's per-slot state (``models.rglru``, ``models.rwkv``). Under the
-paged layout only linear attention layers take the block pool
-(``paged_layer_kind``); windowed rings and recurrent states stay per-slot
-dense beside it, as in the reference.
+trunk is a plain loop over ``cfg.layer_kinds()``), and where the config
+asks for them ``frontend_proj`` (d, d) and ``encoder`` (``layers``, a
+list, and ``final_norm``). An encoder-decoder model's decoder layers also
+hold ``cross_norm`` and ``cross``. A decode cache is a list with one dict
+per layer: ``{"k", "v"}`` as a dense ``(B, C, KV, hd)`` slab (C =
+``cache_len``, or the window for a windowed layer's ring buffer) or a
+paged ``(n_blocks, bs, KV, hd)`` block pool; a recurrent layer's
+per-slot state (``models.rglru``, ``models.rwkv``). An encoder-decoder
+layer's dense cache also holds the static cross K/V ``ck``/``cv`` (B,
+T_enc, KV, hd). Under the paged layout only linear attention layers take
+the block pool (``paged_layer_kind``); windowed rings and recurrent
+states stay per-slot dense beside it, and encoder-decoder models have no
+paged layout, as in the reference.
 
 Forward modes (the reference's names):
   * ``prefill(params, batch)``              — logits + dense prefill cache
@@ -22,6 +31,8 @@ Forward modes (the reference's names):
   * ``decode_step(params, cache, batch)``   — one token per sequence
 A batch carrying ``block_tables`` addresses a paged cache, one without a
 dense one (the reference's dispatch, ``transformer.py:170``, ``:210``).
+Frontend and encoder-decoder prompts prefill in one shot only:
+``prefill_chunk`` and ``verify_step`` refuse them, as the reference's do.
 """
 from __future__ import annotations
 
@@ -38,43 +49,9 @@ from repro_torch.models import rwkv as rk
 from repro_torch.models.layers import (apply_embed, apply_mlp, apply_norm,
                                        dense_init, embed_init, mlp_init,
                                        norm_init, unembed)
+from repro_torch.models.rope import default_positions, vision_grid_positions
 
-#: the layer kinds ported so far, and the recurrent ones among them
-KINDS = ("attn", "attn_dense", "local_attn", "rglru", "rwkv")
 RECURRENT = ("rglru", "rwkv")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not cover yet:
-    layer kinds other than ``KINDS``, encoder-decoder and frontend models,
-    and rotary variants other than ``rope`` and ``none``."""
-    kinds = set(cfg.layer_kinds())
-    if not kinds <= set(KINDS):
-        raise NotImplementedError(
-            f"{cfg.name}: layer kinds {sorted(kinds)}; only {list(KINDS)} "
-            "are ported so far (ROADMAP.md, Queue A item 9)")
-    if cfg.enc_dec or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and frontend models are not "
-            "ported yet (ROADMAP.md, Queue A item 9)")
-    if (cfg.norm not in ("rmsnorm", "layernorm")
-            or cfg.activation not in ("silu", "geglu", "gelu")
-            or cfg.rope not in ("rope", "none")):
-        raise NotImplementedError(
-            f"{cfg.name}: norm {cfg.norm!r}, activation {cfg.activation!r}, "
-            f"rope {cfg.rope!r}; rope2d and mrope are not ported yet "
-            "(ROADMAP.md, Queue A item 9)")
-
-
-def check_paged_supported(cfg: ModelConfig) -> None:
-    """The paged layout's own limit, the reference's (``make_cache``):
-    encoder-decoder models raise; then ``check_supported``. Windowed
-    and recurrent layers keep their per-slot dense state beside the pool
-    (``paged_layer_kind``)."""
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            "paged KV caches do not support encoder-decoder models")
-    check_supported(cfg)
 
 
 def _window_for(cfg: ModelConfig, kind: str) -> Optional[int]:
@@ -93,13 +70,14 @@ def _is_moe(cfg: ModelConfig, kind: str) -> bool:
 
 
 def _layer_init(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype,
-                device) -> Dict:
+                device, cross: bool = False) -> Dict:
     """One layer's params by kind, as the reference's ``_layer_init``: an
     RWKV layer is its whole block; an RG-LRU layer carries its own norm
     inside ``rec`` (no ``attn_norm``); an attention layer has
-    ``attn_norm`` and ``attn``. All but RWKV end in the norm and the FFN:
-    the experts (``models.moe``) in an MoE layer, else an MLP of width
-    ``d_ff``, or ``dense_ff or d_ff`` for ``attn_dense``."""
+    ``attn_norm`` and ``attn`` (and, with ``cross``, an encoder-decoder
+    layer's ``cross_norm`` and ``cross``). All but RWKV end in the norm
+    and the FFN: the experts (``models.moe``) in an MoE layer, else an
+    MLP of width ``d_ff``, or ``dense_ff or d_ff`` for ``attn_dense``."""
     if kind == "rwkv":
         return rk.rwkv_init(gen, cfg, dtype, device)
     if kind == "rglru":
@@ -107,6 +85,9 @@ def _layer_init(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype,
     else:
         p = {"attn_norm": norm_init(cfg.d_model, cfg.norm, dtype, device),
              "attn": attn.attn_init(gen, cfg, dtype, device)}
+        if cross:
+            p["cross_norm"] = norm_init(cfg.d_model, cfg.norm, dtype, device)
+            p["cross"] = attn.attn_init(gen, cfg, dtype, device)
     p["ffn_norm"] = norm_init(cfg.d_model, cfg.norm, dtype, device)
     if _is_moe(cfg, kind):
         p["ffn"] = moe.moe_init(gen, cfg, dtype, device)
@@ -123,7 +104,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     (``layers.py:16-22``), drawn from a seeded ``torch.Generator`` on
     ``device``. The values differ from ``jax.random``'s; parity tests
     bridge the reference's weights instead (``models.bridge``)."""
-    check_supported(cfg)
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -134,8 +114,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype,
                                   device, scale=0.02)
-    p["layers"] = [_layer_init(gen, cfg, kind, dtype, device)
+    p["layers"] = [_layer_init(gen, cfg, kind, dtype, device, cfg.enc_dec)
                    for kind in cfg.layer_kinds()]
+    if cfg.frontend is not None:
+        p["frontend_proj"] = dense_init(gen, cfg.d_model, cfg.d_model, dtype,
+                                        device)
+    if cfg.enc_dec:
+        p["encoder"] = {
+            "layers": [_layer_init(gen, cfg, "attn", dtype, device)
+                       for _ in range(cfg.n_enc_layers)],
+            "final_norm": norm_init(cfg.d_model, cfg.norm, dtype, device)}
     return p
 
 
@@ -166,17 +154,27 @@ def _recurrent(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
 
 
 def _layer_full(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                positions: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence layer; returns (x, the layer's prefill cache: K/V,
-    or the recurrent state after the sequence)."""
+                ctx: Dict) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence layer; ``ctx`` holds ``positions``, ``mrope`` (the
+    M-RoPE ids or None) and, for an encoder-decoder model, ``enc_out``.
+    Returns (x, the layer's prefill cache: K/V (plus the cross K/V
+    ``ck``/``cv``), or the recurrent state after the sequence)."""
     if kind in RECURRENT:
         state = _layer_cache(cfg, kind, x.shape[0], 0, x.dtype, x.device)
         return _recurrent(p, x, cfg, kind, state, decode=False)
     window = _window_for(cfg, kind)
     h = apply_norm(p["attn_norm"], x, cfg.norm)
-    out, k, v = attn.attention_full(p["attn"], h, cfg, positions,
-                                    window=window)
-    return _ffn(p, x + out, cfg, kind), _prefill_kv(k, v, cfg, window)
+    out, k, v = attn.attention_full(p["attn"], h, cfg, ctx["positions"],
+                                    window=window,
+                                    mrope_positions=ctx["mrope"])
+    x = x + out
+    cache = _prefill_kv(k, v, cfg, window)
+    if "cross" in p:
+        h = apply_norm(p["cross_norm"], x, cfg.norm)
+        ck, cv = attn.cross_kv(p["cross"], ctx["enc_out"], cfg)
+        x = x + attn.cross_attention(p["cross"], h, ck, cv, cfg)
+        cache.update(ck=ck, cv=cv)
+    return _ffn(p, x, cfg, kind), cache
 
 
 def _prefill_kv(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
@@ -218,14 +216,19 @@ def _layer_step(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     else:
         fn = attn.attention_decode if decode else attn.attention_prefill_chunk
         out = fn(p["attn"], h, cache, ctx["pos"], cfg, window=window)
-    return _ffn(p, x + out, cfg, kind)
+    x = x + out
+    if "cross" in p:  # decode only: encoder-decoder models never chunk
+        h = apply_norm(p["cross_norm"], x, cfg.norm)
+        x = x + attn.cross_attention(p["cross"], h, cache["ck"],
+                                     cache["cv"], cfg)
+    return _ffn(p, x, cfg, kind)
 
 
 def _trunk_full(params: Dict, x: torch.Tensor, cfg: ModelConfig,
-                positions: torch.Tensor) -> Tuple[torch.Tensor, List[Dict]]:
+                ctx: Dict) -> Tuple[torch.Tensor, List[Dict]]:
     cache = []
     for p_l, kind in zip(params["layers"], cfg.layer_kinds()):
-        x, c = _layer_full(p_l, x, cfg, kind, positions)
+        x, c = _layer_full(p_l, x, cfg, kind, ctx)
         cache.append(c)
     return x, cache
 
@@ -235,6 +238,54 @@ def _trunk_step(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     for p_l, kind, c_l in zip(params["layers"], cfg.layer_kinds(), cache):
         x = _layer_step(p_l, x, cfg, kind, c_l, ctx, decode)
     return x
+
+
+def _encoder_apply(params: Dict, embeds: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """The encoder over frame embeddings (B,T,d): ``frontend_proj``, then
+    per layer bidirectional self-attention (RoPE on q and k, as
+    ``_project_qkv`` applies it; the non-causal flash kernel) and the
+    FFN, then the encoder's final norm (the reference's
+    ``_encoder_apply``)."""
+    x = embeds @ params["frontend_proj"]
+    B, T, _ = x.shape
+    positions = default_positions(B, T, device=x.device)
+    for p in params["encoder"]["layers"]:
+        h = apply_norm(p["attn_norm"], x, cfg.norm)
+        out, _, _ = attn.attention_full(p["attn"], h, cfg, positions,
+                                        causal=False)
+        x = _ffn(p, x + out, cfg, "attn")
+    return apply_norm(params["encoder"]["final_norm"], x, cfg.norm)
+
+
+def _embed_inputs(params: Dict, batch: Dict, cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, Dict]:
+    """The trunk's input ``x`` (B,S,d) and its ``ctx``: ``positions``
+    (B,S) and ``mrope``. A frontend model's ``frontend_embeds`` (B,F,d)
+    go through ``frontend_proj`` and are prepended to the tokens; under
+    M-RoPE the first F positions take vision-grid (t, h, w) ids and the
+    text after them the linear positions F.. . An encoder-decoder model's
+    embeds run the encoder into ``enc_out`` instead (the reference's
+    ``_embed_inputs`` and ``prefill``)."""
+    tokens = batch["tokens"]
+    B = tokens.shape[0]
+    x = apply_embed(params["embed"], tokens)
+    ctx = {"mrope": None}
+    if cfg.enc_dec:
+        ctx["enc_out"] = _encoder_apply(params, batch["frontend_embeds"], cfg)
+    elif cfg.frontend is not None:
+        fe = batch["frontend_embeds"] @ params["frontend_proj"]
+        x = torch.cat([fe.to(x.dtype), x], dim=1)
+        F = fe.shape[1]
+        if cfg.rope == "mrope":
+            grid = max(1, int(F ** 0.5))
+            lin = default_positions(B, x.shape[1] - F, offset=F,
+                                    device=x.device)
+            ctx["mrope"] = tuple(
+                torch.cat([vis, lin], dim=1) for vis in
+                vision_grid_positions(B, F, grid, device=x.device))
+    ctx["positions"] = default_positions(B, x.shape[1], device=x.device)
+    return x, ctx
 
 
 def _lm_logits(params: Dict, x: torch.Tensor,
@@ -250,14 +301,22 @@ def _lm_logits(params: Dict, x: torch.Tensor,
 def _layer_cache(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                  dtype, device) -> Dict:
     """One layer's dense decode cache: a recurrent state, a ring of
-    ``min(cache_len, window)`` slots, or a linear ``cache_len`` slab."""
+    ``min(cache_len, window)`` slots, or a linear ``cache_len`` slab; an
+    encoder-decoder layer adds zero cross K/V of ``enc_len(cache_len)``
+    rows."""
     if kind == "rwkv":
         return rk.rwkv_state_init(cfg, batch, dtype, device)
     if kind == "rglru":
         return rg.rglru_state_init(cfg, batch, dtype, device)
     window = _window_for(cfg, kind)
-    return attn.init_kv_cache(cfg, batch, cache_len if window is None
-                              else min(cache_len, window), dtype, device)
+    c = attn.init_kv_cache(cfg, batch, cache_len if window is None
+                           else min(cache_len, window), dtype, device)
+    if cfg.enc_dec:
+        shp = (batch, ModelSpecs.enc_len(cache_len), cfg.n_kv_heads,
+               cfg.head_dim)
+        c["ck"] = torch.zeros(shp, dtype=dtype, device=device)
+        c["cv"] = torch.zeros(shp, dtype=dtype, device=device)
+    return c
 
 
 def paged_layer_kind(cfg: ModelConfig, kind: str) -> bool:
@@ -280,11 +339,11 @@ def make_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype,
     attention layers to one block pool ``(n_blocks, block_size, KV, hd)``
     each, shared by all slots; rings and recurrent states keep their
     per-slot dense layout in both modes. The reference stacks its units'
-    caches for ``lax.scan``; the port keeps one entry per layer."""
-    if paged is not None:
-        check_paged_supported(cfg)
-    else:
-        check_supported(cfg)
+    caches for ``lax.scan``; the port keeps one entry per layer. A paged
+    cache for an encoder-decoder model raises, as in the reference."""
+    if paged is not None and cfg.enc_dec:
+        raise NotImplementedError(
+            "paged KV caches do not support encoder-decoder models")
     out = []
     for kind in cfg.layer_kinds():
         if paged is not None and paged_layer_kind(cfg, kind):
@@ -299,8 +358,8 @@ def pad_cache(cfg: ModelConfig, cache: List[Dict],
               extra: int) -> List[Dict]:
     """Extend linear (non-windowed) dense caches by ``extra`` zero slots
     so a prefill cache of S entries absorbs decode writes at
-    S..S+extra-1. Ring buffers and recurrent states are fixed-size and
-    pass through."""
+    S..S+extra-1. Ring buffers, recurrent states and the static cross
+    K/V pass through."""
     out = []
     for c, kind in zip(cache, cfg.layer_kinds()):
         if kind in RECURRENT or _window_for(cfg, kind) is not None:
@@ -308,7 +367,7 @@ def pad_cache(cfg: ModelConfig, cache: List[Dict],
             continue
         out.append({key: torch.cat([t, t.new_zeros(
             (t.shape[0], extra) + tuple(t.shape[2:]))], dim=1)
-            for key, t in c.items()})
+            if key in ("k", "v") else t for key, t in c.items()})
     return out
 
 
@@ -355,12 +414,25 @@ def scatter_blocks(pool: torch.Tensor, rows: torch.Tensor,
 # =====================================================================
 # public model API
 # =====================================================================
+class ModelSpecs:
+    """The stub frontends' sizes (the reference's ``ModelSpecs``)."""
+    VLM_FRONTEND_TOKENS = 1024
+    ENC_RATIO = 4  # seamless: encoder frames = seq // 4
+
+    @staticmethod
+    def enc_len(seq_len: int) -> int:
+        return max(8, seq_len // ModelSpecs.ENC_RATIO)
+
+
+def _plain_prompts_only(cfg: ModelConfig, what: str) -> None:
+    if cfg.enc_dec or cfg.frontend is not None:
+        raise NotImplementedError(
+            f"{what} supports plain token prompts only")
+
+
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
-
-    def __post_init__(self):
-        check_supported(self.cfg)
 
     def init(self, seed: int = 0, dtype=torch.float32, device="cuda"):
         return init_params(self.cfg, seed, dtype, device)
@@ -368,17 +440,16 @@ class Model:
     @torch.no_grad()
     def prefill(self, params: Dict, batch: Dict
                 ) -> Tuple[torch.Tensor, List[Dict]]:
-        """``batch = {"tokens": (B,S)}`` at positions 0..S-1 (plain token
-        prompts; frontends are not ported). Returns (last-position logits
-        (B,1,V), the dense prefill cache: S rows per linear layer, a
-        ``window``-slot ring per windowed layer, the state after S tokens
-        per recurrent layer)."""
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = apply_embed(params["embed"], tokens)
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device)[None].expand(B, S)
-        x, cache = _trunk_full(params, x, self.cfg, positions)
+        """``batch = {"tokens": (B,S)}`` at positions 0..S-1, plus
+        ``"frontend_embeds"`` for a frontend model ((B,F,d), prepended:
+        the sequence is F + S long) or an encoder-decoder one ((B,T,d),
+        the encoder's input). Returns (last-position logits (B,1,V), the
+        dense prefill cache: a row per position per linear layer, a
+        ``window``-slot ring per windowed layer, the state after the
+        sequence per recurrent layer, and the T cross K/V rows per
+        encoder-decoder layer)."""
+        x, ctx = _embed_inputs(params, batch, self.cfg)
+        x, cache = _trunk_full(params, x, self.cfg, ctx)
         return _lm_logits(params, x[:, -1:, :], self.cfg), cache
 
     @torch.no_grad()
@@ -393,7 +464,9 @@ class Model:
         written; recurrent layers run their sequence form from the
         carried state. Returns (last-position logits (B,1,V), cache), the cache
         updated in place. A prompt processed in chunks is math-identical
-        to one processed in a single chunk."""
+        to one processed in a single chunk. Frontend and encoder-decoder
+        models raise ``NotImplementedError``, as in the reference."""
+        _plain_prompts_only(self.cfg, "prefill_chunk")
         x = apply_embed(params["embed"], batch["tokens"])
         x = _trunk_step(params, x, self.cfg, cache, batch, decode=False)
         return _lm_logits(params, x[:, -1:, :], self.cfg), cache
@@ -413,7 +486,9 @@ class Model:
         sound only where every layer can rewind
         (``serving.engine.supports_speculation``); a paged caller widens
         the table by null columns so rows past ``cache_len`` land in the
-        null block."""
+        null block. Frontend and encoder-decoder models raise
+        ``NotImplementedError``, as in the reference."""
+        _plain_prompts_only(self.cfg, "verify_step")
         x = apply_embed(params["embed"], batch["tokens"])
         x = _trunk_step(params, x, self.cfg, cache, batch, decode=False)
         return _lm_logits(params, x, self.cfg), cache
@@ -432,7 +507,8 @@ class Model:
                    device="cuda") -> List[Dict]:
         """Dense decode cache: per layer ``(batch, cache_len, KV, hd)``, a
         ``window``-slot ring buffer for a windowed layer, or a recurrent
-        layer's zero state."""
+        layer's zero state (plus zero cross K/V for an encoder-decoder
+        layer)."""
         return make_cache(self.cfg, batch, cache_len, dtype, device=device)
 
     def init_paged_cache(self, batch: int, cache_len: int, n_blocks: int,

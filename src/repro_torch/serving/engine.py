@@ -22,13 +22,19 @@ and the paged KV layout.
 On the card the attention of every layer runs the hand-written kernels
 (``repro_torch.kernels``); on the CPU their plain versions.
 
-Both engines serve the attention, the recurrent (RG-LRU, RWKV-6) and the
-MoE families; a recurrent layer's per-slot state sits beside the K/V rows
-of the dense layout and is grafted with them. An MoE layer's capacity
-follows the rows of each forward, as in the reference: all ``n_slots``
-rows of a decode iteration (idle slots' dummy tokens included), the
-unpadded rows of a prefill chunk, and every row of a round's left-padded
-``(B, S)`` batch.
+Both engines serve the attention, the recurrent (RG-LRU, RWKV-6), the
+MoE and the frontend (qwen2-vl) families; a recurrent layer's per-slot
+state sits beside the K/V rows of the dense layout and is grafted with
+them. A frontend model's prompt carries ``frontend_tokens`` stub
+embeddings ahead of its tokens, so the continuous engine admits it by
+one-shot prefill (``chunked`` is False: no chunks, no preemption, no
+prefix cache, no speculation) and every footprint counts those F
+positions. Encoder-decoder models (seamless) run in round mode only: the
+continuous engine refuses them, as the reference's does. An MoE layer's
+capacity follows the rows of each forward, as in the reference: all
+``n_slots`` rows of a decode iteration (idle slots' dummy tokens
+included), the unpadded rows of a prefill chunk, and every row of a
+round's left-padded ``(B, S)`` batch.
 
 For the instance pool (``serving/runtime.py``) the continuous engine
 shares one model and params dict between instances (``share_from``),
@@ -44,9 +50,8 @@ speculative decoding (n-gram or draft-model proposals checked by one
 verify forward per iteration, ``paged_prefill_attention`` on the card)
 and cancellation at any phase are ported, and so is seeded sampling,
 which draws from its own ``torch.Generator`` and so matches the
-reference in distribution, not token for token. What is still to port
-raises (see ROADMAP.md): tensor parallelism, and encoder-decoder and
-frontend models.
+reference in distribution, not token for token. Tensor parallelism is
+still to port and raises (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -65,9 +70,7 @@ from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels import _build
 from repro_torch.models import build_model
 from repro_torch.models.bridge import params_from_jax
-from repro_torch.models.transformer import (check_paged_supported,
-                                            check_supported, pad_cache,
-                                            paged_layer_kind,
+from repro_torch.models.transformer import (pad_cache, paged_layer_kind,
                                             scatter_blocks)
 
 
@@ -90,7 +93,8 @@ def supports_prefix_cache(cfg: ModelConfig) -> bool:
     state must live in the block pool: linear attention KV only
     (``paged_layer_kind``). Recurrent states and windowed rings are
     per-slot dense, and a shared-prefix hit would also need the recurrent
-    state at the block boundary, which the cache does not hold."""
+    state at the block boundary, which the cache does not hold; frontend
+    and encoder-decoder models bypass the chunked path entirely."""
     if cfg.frontend is not None or cfg.enc_dec:
         return False
     return all(paged_layer_kind(cfg, k) for k in cfg.layer_kinds())
@@ -102,7 +106,9 @@ def supports_speculation(cfg: ModelConfig) -> bool:
     freed back to the allocator at block granularity (paged), but a
     recurrent state advances irreversibly per token and a windowed ring
     aliases rejected writes over live positions. That is the prefix
-    cache's layer gate, so the two coincide."""
+    cache's layer gate, so the two coincide (frontend and
+    encoder-decoder models also lack the chunked forward verification
+    runs on)."""
     return supports_prefix_cache(cfg)
 
 
@@ -150,7 +156,10 @@ def make_prefill_batch(cfg: ModelConfig, prompts: List[np.ndarray]
     B the power-of-two bucket of the prompt count (extra rows all token
     0), S the ``SEQ_BUCKETS`` bucket of the longest prompt. The padding
     tokens are real positions the prompt attends, as in the reference.
-    Returns ({"tokens": (B, S)}, S, prompt lengths (B,))."""
+    A frontend model's batch adds zero ``frontend_embeds`` (B, F, d), F =
+    ``frontend_tokens``; an encoder-decoder model's adds zero frame
+    embeddings (B, max(8, S // 4), d) for its encoder. Returns (the batch,
+    S, prompt lengths (B,))."""
     B = _bucket(len(prompts))
     S = _bucket(max(len(p) for p in prompts), buckets=SEQ_BUCKETS)
     toks = np.zeros((B, S), np.int32)
@@ -158,7 +167,14 @@ def make_prefill_batch(cfg: ModelConfig, prompts: List[np.ndarray]
     for i, p in enumerate(prompts):
         toks[i, S - len(p):] = p  # left-pad (last position = last token)
         lens[i] = len(p)
-    return {"tokens": toks}, S, lens
+    batch = {"tokens": toks}
+    if cfg.frontend is not None and not cfg.enc_dec:
+        batch["frontend_embeds"] = np.zeros(
+            (B, cfg.frontend_tokens, cfg.d_model), np.float32)
+    if cfg.enc_dec:
+        batch["frontend_embeds"] = np.zeros(
+            (B, max(8, S // 4), cfg.d_model), np.float32)
+    return batch, S, lens
 
 
 @dataclasses.dataclass
@@ -186,7 +202,6 @@ class InferenceEngine:
     def __init__(self, cfg: ModelConfig, max_seq: int = 512,
                  dtype=torch.float32, seed: int = 0, device="cuda",
                  params: Optional[Dict] = None):
-        check_supported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_seq = max_seq
@@ -212,14 +227,18 @@ class InferenceEngine:
         host-clock milliseconds up to the device finishing the work."""
         t0 = time.perf_counter()
         batch, S, _ = make_prefill_batch(self.cfg, prompts)
-        tokens = torch.from_numpy(batch["tokens"]).to(self.device)
-        B = tokens.shape[0]
-        logits, cache = self.model.prefill(self.params, {"tokens": tokens})
+        batch = {k: torch.from_numpy(v).to(self.device)
+                 for k, v in batch.items()}
+        B = batch["tokens"].shape[0]
+        logits, cache = self.model.prefill(self.params, batch)
         if self.device.type == "cuda":  # time the prefill, not its enqueue
             torch.cuda.synchronize(self.device)
         t1 = time.perf_counter()
         cache = pad_cache(self.cfg, cache, max_new_tokens)
-        pos = torch.full((B,), S, dtype=torch.int32, device=self.device)
+        # decode starts past the frontend span a frontend model prepends
+        F = batch["frontend_embeds"].shape[1] if (
+            self.cfg.frontend is not None and not self.cfg.enc_dec) else 0
+        pos = torch.full((B,), F + S, dtype=torch.int32, device=self.device)
         out = torch.empty((B, max_new_tokens), dtype=torch.int32,
                           device=self.device)
         # tokens stay on the device until the round ends: no host sync
@@ -850,16 +869,19 @@ class ContinuousBatchingEngine:
                  mesh=None, device="cuda",
                  params: Optional[Dict] = None,
                  share_from: Optional["ContinuousBatchingEngine"] = None):
+        if cfg.enc_dec:
+            # cross-attention attends every encoder row unmasked, so a
+            # shorter prefilled ck/cv grafted into the slot would attend
+            # zero-padded rows (the reference's refusal and message)
+            raise NotImplementedError(
+                "continuous batching does not support encoder-decoder "
+                "architectures yet; use InferenceEngine")
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh (Queue A item 8, tensor parallelism) is not ported "
                 "yet (ROADMAP.md)")
-        if kv_layout == "paged":
-            check_paged_supported(cfg)
-        else:
-            check_supported(cfg)
         if token_budget is not None and token_budget < 1:
             raise ValueError(f"token_budget must be >= 1, got {token_budget}")
         if prefix_cache:
@@ -874,6 +896,10 @@ class ContinuousBatchingEngine:
                     "recurrent/windowed/frontend layers keep per-slot "
                     "dense state the cache cannot share")
         self.prefix_cache = prefix_cache
+        #: chunked prefill needs plain token prompts: a frontend model is
+        #: admitted by one-shot prefill (``_admit_inline``) and so cannot
+        #: be preempted or resumed
+        self.chunked = cfg.frontend is None
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         if spec_k > 0 and not supports_speculation(cfg):
@@ -1016,6 +1042,12 @@ class ContinuousBatchingEngine:
         self.params.update(new)
 
     # ---- bookkeeping -----------------------------------------------------
+    def _frontend_tokens(self) -> int:
+        """F, the positions a frontend model's stub embeddings take ahead
+        of every prompt (0 for plain token models)."""
+        return self.cfg.frontend_tokens if self.cfg.frontend is not None \
+            else 0
+
     def _now(self) -> float:
         return time.perf_counter() - self._t0
 
@@ -1039,9 +1071,9 @@ class ContinuousBatchingEngine:
 
     def request_blocks(self, prompt_len: int, max_new: int) -> int:
         """Worst-case blocks a request of this shape reserves at admission
-        (paged layout): its prompt bucket plus the decode tokens that fit
-        the cache."""
-        S = _bucket(prompt_len, buckets=SEQ_BUCKETS)
+        (paged layout): the frontend span, its prompt bucket and the
+        decode tokens that fit the cache."""
+        S = self._frontend_tokens() + _bucket(prompt_len, buckets=SEQ_BUCKETS)
         return self.allocator.blocks_for(
             S + min(max_new, self.cache_len - S))
 
@@ -1195,15 +1227,16 @@ class ContinuousBatchingEngine:
     @property
     def prefill_backlog_tokens(self) -> int:
         """Prompt tokens not yet prefilled: the unprocessed remainder of
-        in-slot chunked prefills plus the padded length of every waiting
-        prompt."""
+        in-slot chunked prefills plus the padded length (frontend span
+        included) of every waiting prompt."""
         backlog = sum(len(s.seq_tokens) - s.prefill_pos
                       for s in self.slots if s.prefilling)
         for w in self.waiting:
             if w.swap is not None:
                 continue  # a swap resume maps its blocks back: no prefill
             backlog += len(w.prompt) if w.prepadded else \
-                _bucket(len(w.prompt), buckets=SEQ_BUCKETS)
+                self._frontend_tokens() + _bucket(len(w.prompt),
+                                                  buckets=SEQ_BUCKETS)
         return backlog
 
     # ---- admission -------------------------------------------------------
@@ -1222,10 +1255,12 @@ class ContinuousBatchingEngine:
                 f"prompt token ids must lie in [0, {self.cfg.vocab_size}), "
                 f"got [{prompt.min()}, {prompt.max()}]")
         S = _bucket(len(prompt), buckets=SEQ_BUCKETS)
-        room = self.cache_len - S
+        F = self._frontend_tokens()
+        room = self.cache_len - (F + S)
         if room < 1:
             raise ValueError(
-                f"prompt bucket {S} does not fit cache_len {self.cache_len}")
+                f"prompt bucket {S} (+{F} frontend) does not fit cache_len "
+                f"{self.cache_len}")
         if self.kv_layout == "paged":
             need = self.request_blocks(len(prompt), max_new_tokens)
             if need > self.allocator.n_blocks:
@@ -1248,7 +1283,12 @@ class ContinuousBatchingEngine:
         fits ``cache_len``: ``len(seq_tokens) + max_new`` is the footprint
         the sequence was first admitted with. A swap snapshot resumes only
         on the engine whose host pool holds its blocks (``release_swap``
-        it there to resume elsewhere)."""
+        it there to resume elsewhere). An engine without the chunked path
+        (a frontend model) raises ``NotImplementedError``."""
+        if not self.chunked:
+            raise NotImplementedError(
+                "preemption-resume needs the chunked-prefill path "
+                "(plain token prompts)")
         if req.swapped and req.host_engine_id != id(self):
             raise ValueError(
                 "swap snapshot is pinned to the engine holding its host "
@@ -1282,6 +1322,11 @@ class ContinuousBatchingEngine:
             w = self.waiting[0]
             if w.swap is not None:
                 if not self._admit_swap(w, free):
+                    break  # FIFO: head of queue blocks on memory
+                n += 1
+                continue
+            if not self.chunked:
+                if not self._admit_inline(w, free):
                     break  # FIFO: head of queue blocks on memory
                 n += 1
                 continue
@@ -1360,6 +1405,50 @@ class ContinuousBatchingEngine:
             if self.on_state is not None:
                 self.on_state(w.request_id, "prefill")
         return n
+
+    def _admit_inline(self, w: _WaitingReq, free: List[int]) -> bool:
+        """Admit the frontend prompt at the head of the queue by one-shot
+        prefill (its embeds cannot go through chunks): reserve its
+        worst-case blocks (paged), prefill the frontend span and the
+        bucketed prompt at once, and graft the prefill cache into freshly
+        allocated blocks or into the slot's dense row. The slot decodes
+        from position F + S at once; every resident decode waits for the
+        whole prefill, as in the reference. Returns False, leaving the
+        queue as it was, when the reservation cannot be met."""
+        reserved = 0
+        if self.kv_layout == "paged":
+            reserved = self.request_blocks(len(w.prompt), w.max_new)
+            if not self.allocator.reserve(reserved):
+                return False
+        self.waiting.pop(0)
+        slot = free.pop(0)
+        batch, S, _ = make_prefill_batch(self.cfg, [w.prompt])
+        self.prefill_shapes.add(tuple(batch["tokens"].shape))
+        logits, one_cache = self.model.prefill(
+            self.params, {k: torch.from_numpy(v).to(self.device)
+                          for k, v in batch.items()})
+        F = self._frontend_tokens()
+        ids: List[int] = []
+        if self.kv_layout == "paged":
+            n0 = self.allocator.blocks_for(F + S)
+            ids = [self.allocator.alloc_reserved() for _ in range(n0)]
+            self.block_tables[slot, :n0] = ids
+            self._graft(one_cache, slot, block_ids=ids)
+        else:
+            self._graft(one_cache, slot)
+        self.slots[slot] = _Slot(
+            request_id=w.request_id, remaining=w.max_new,
+            submit_s=w.submit_s, admit_s=self._now(), blocks=ids,
+            n_outstanding=reserved - len(ids),
+            requested_new=w.requested_new, truncated=w.truncated)
+        self.pos[slot] = F + S
+        self.pending_tok[slot] = int(sample_tokens(logits[0, -1, :]))
+        self.n_admitted += 1
+        if self.on_state is not None:
+            # one-shot prefill: the slot decodes the moment admission
+            # returns (queued -> decode)
+            self.on_state(w.request_id, "decode")
+        return True
 
     def _admit_swap(self, w: _WaitingReq, free: List[int]) -> bool:
         """Admit the swap resume at the head of the queue: reserve its
@@ -1633,7 +1722,10 @@ class ContinuousBatchingEngine:
         chunks would be thrown away and bought again at once). A block
         other sequences also map (refcount > 1) frees no capacity when
         this slot drops its reference, so only sole-reference blocks and
-        the unconsumed rest of the reservation count as freeable."""
+        the unconsumed rest of the reservation count as freeable. An
+        engine without the chunked path (a frontend model) has none."""
+        if not self.chunked:
+            return []
         out = []
         for i, s in enumerate(self.slots):
             if not s.active or s.prefilling:
@@ -1699,6 +1791,10 @@ class ContinuousBatchingEngine:
             raise ValueError(f"slot {slot} holds no sequence")
         if s.prefilling:
             raise ValueError("cannot preempt a mid-chunk prefill")
+        if not self.chunked:
+            raise NotImplementedError(
+                "preemption needs the chunked-prefill path "
+                "(plain token prompts)")
         if mode == "swap":
             if not self.can_swap(slot):
                 raise ValueError(

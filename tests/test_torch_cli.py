@@ -7,7 +7,9 @@ Both CLIs parse the same command line with their serving functions
 replaced by recorders: the same outcome follows (the same serving mode
 called with the same flags, the same "ignored in round mode" note, or
 the same exit code 2 with the same ``ap.error`` message), speculation and
-the host tier included.
+the host tier included, and for every model family. Unrecorded, an
+encoder-decoder model in continuous mode raises the reference's error on
+both CLIs.
 """
 import sys
 
@@ -80,6 +82,22 @@ CASES = {
         "--engine", "--models", "qwen3-0.6b,recurrentgemma-2b",
         "--kv-layout", "paged", "--prefix-cache", "--shared-prefix-tokens",
         "500"],
+    # one command line per family: chatglm3, qwen2-vl, seamless, starcoder2,
+    # yi
+    "round-chatglm3": ["--engine", "--arch", "chatglm3-6b"],
+    "continuous-qwen2-vl-paged": ["--engine", "--exec-mode", "continuous",
+                                  "--arch", "qwen2-vl-7b", "--kv-layout",
+                                  "paged"],
+    "round-seamless": ["--engine", "--arch", "seamless-m4t-large-v2"],
+    "continuous-starcoder2": ["--engine", "--exec-mode", "continuous",
+                              "--arch", "starcoder2-15b", "--token-budget",
+                              "32"],
+    "continuous-yi-paged-spec-k": ["--engine", "--exec-mode", "continuous",
+                                   "--arch", "yi-34b", "--kv-layout",
+                                   "paged", "--spec-k", "2"],
+    "pool-vision-paged-prefix-cache": [
+        "--engine", "--models", "qwen3-0.6b,qwen2-vl-7b", "--kv-layout",
+        "paged", "--prefix-cache", "--shared-prefix-tokens", "32"],
 }
 
 
@@ -124,3 +142,17 @@ def test_cli_outcome_is_the_references(case, monkeypatch, capsys):
     for (fn, kw), (rfn, rkw) in zip(got, want):
         assert fn == rfn and kw == rkw, (kw, rkw)
     assert len(got) == len(want) == (0 if theirs[0] else 1)
+
+
+def test_cli_refuses_encoder_decoder_in_continuous_mode(monkeypatch):
+    """``--arch seamless-m4t-large-v2 --exec-mode continuous`` reaches the
+    continuous engine, which refuses an encoder-decoder model with the
+    reference's error on both CLIs."""
+    argv = ["--engine", "--exec-mode", "continuous", "--arch",
+            "seamless-m4t-large-v2"]
+    msg = "continuous batching does not support encoder-decoder"
+    with pytest.raises(NotImplementedError, match=msg):
+        serve_cli.main(argv + ["--device", "cpu"])
+    monkeypatch.setattr(sys, "argv", ["serve.py"] + argv)
+    with pytest.raises(NotImplementedError, match=msg):
+        jax_cli.main()

@@ -317,7 +317,7 @@ def test_port_never_imports_jax_or_the_reference():
         f"sys.path.insert(0, {ROOT!r}); import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith(('jax.', 'repro.')) or m == 'repro')\n"
-        "assert len(mods) >= 52, mods\n"
+        "assert len(mods) >= 58, mods\n"
         "print('BAD', bad)\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)

@@ -209,21 +209,40 @@ def test_embedding_rejects_out_of_range_ids():
 
 
 def test_unported_variants_raise():
-    """Rotary variants and model families still to port (encoder-decoder)
-    raise. Windowed and recurrent layers under the paged layout keep
-    their rings and per-slot states beside the block pool: the paged
-    cache has the reference's layer shapes."""
+    """The rotary variants and the encoder-decoder family are ported: they
+    give the reference's outcome instead of raising (``rope2d`` and
+    ``mrope`` its rotations, an encoder-decoder config its param layout,
+    and a paged cache of it the reference's refusal). Windowed and
+    recurrent layers under the paged layout keep their rings and per-slot
+    states beside the block pool: the paged cache has the reference's
+    layer shapes."""
+    from repro.models.rope import apply_rope as jax_apply_rope
+    from repro.models.transformer import init_params as jax_init_params
     from repro.models.transformer import make_cache as jax_make_cache
 
-    x = torch.zeros(1, 2, 1, 4)
-    pos = torch.zeros(1, 2, dtype=torch.int32)
+    x = np.random.default_rng(0).standard_normal((1, 2, 1, 4)).astype(
+        np.float32)
+    pos = np.array([[3, 7]], np.int32)
     for variant in ("rope2d", "mrope"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            apply_rope(x, pos, variant)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        init_params(_torch_cfg(dataclasses.replace(
-            TINY, name="tiny-encdec", enc_dec=True, n_enc_layers=2)),
-            device="cpu")
+        np.testing.assert_allclose(
+            apply_rope(_t(x), _t(pos), variant).numpy(),
+            np.asarray(jax_apply_rope(jnp.asarray(x), jnp.asarray(pos),
+                                      variant)), atol=1e-6, rtol=0)
+    jcfg = dataclasses.replace(TINY, name="tiny-encdec", enc_dec=True,
+                               n_enc_layers=2)
+    got = init_params(_torch_cfg(jcfg), device="cpu")
+    want = params_from_jax(jax.tree.map(np.asarray, jax_init_params(
+        jax.random.PRNGKey(0), jcfg)), _torch_cfg(jcfg))
+    assert sorted(got) == sorted(want)
+    assert sorted(got["layers"][0]) == sorted(want["layers"][0])
+    assert len(got["encoder"]["layers"]) == 2
+    for fn in (lambda: jax_make_cache(jcfg, 2, 40, jnp.float32,
+                                      paged=(4, 8)),
+               lambda: make_cache(_torch_cfg(jcfg), 2, 40, torch.float32,
+                                  paged=(4, 8), device="cpu")):
+        with pytest.raises(NotImplementedError,
+                           match="do not support encoder-decoder"):
+            fn()
     for name in ("rglru", "rwkv", "windowed", "swa"):
         jcfg = KIND_CFGS[name]
         cfg = _torch_cfg(jcfg)
