@@ -736,7 +736,103 @@ def phase_kernels(torch, device):
         del c
         torch.cuda.empty_cache()
     _family_kernels(torch, device, w, run, run_decode, errs)
+    phase_grads(torch, device)
     return errs
+
+
+#: the gradient checks: max |Function grad - plain autograd grad| over
+#: max |plain autograd grad|, per input (fp32 sums in another order; the
+#: CPU tests hold the same backward code to plain autograd to 1e-5)
+GRAD_TOL = 1e-4
+#: (B, S, T, H, KV, hd, causal, window): qwen3-0.6b's training step,
+#: recurrentgemma-2b's local layers (MQA at hd 256, window 2048, and a
+#: binding window), and seamless's cross attention at hd 64 (non-causal,
+#: S != T)
+GRAD_FLASH = ((4, 256, 256, 16, 8, 128, True, None),
+              (2, 512, 512, 10, 1, 256, True, 2048),
+              (1, 300, 300, 10, 1, 256, True, 64),
+              (4, 512, 128, 16, 16, 64, False, None))
+#: kernel launches of one forward and backward: flash's backward is torch
+#: ops, the RG-LRU's is the scan over reversed time, the expert GEMM's
+#: the kernel twice, RWKV-6's a torch-op reverse pass
+GRAD_LAUNCHES = {"flash_attention": 1, "rglru_scan": 2, "rwkv6_scan": 1,
+                 "moe_matmul": 3}
+
+
+def _grad_check(torch, device, name, fn, plain, inputs, what, seed):
+    """Gradients of ``fn`` (the kernel's autograd Function) against
+    autograd of ``plain`` on the same (poisoned) inputs and seeded
+    cotangents, on the card; checks the launches one forward and
+    backward makes. Returns the worst relative error."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def run(f):
+        ins = [t.detach().requires_grad_() for t in inputs]
+        outs = _outputs(f(*ins))
+        return ins, outs
+
+    reset_launches()
+    ins, outs = run(fn)
+    cots = [torch.randn(o.shape, generator=gen, device=device)
+            for o in outs]
+    got = torch.autograd.grad(outs, ins, cots)
+    torch.cuda.synchronize()
+    n = read_launches()[name]
+    if n != GRAD_LAUNCHES[name]:
+        fail(f"{name} grad {what}: {n} launches, expected "
+             f"{GRAD_LAUNCHES[name]}")
+    ins2, outs2 = run(plain)
+    want = torch.autograd.grad(outs2, ins2, cots)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.isfinite(g).all():
+            fail(f"{name} grad {what}: non-finite gradient of input {i}")
+        err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        worst = max(worst, err)
+    log(f"{name} grad {what}: {n} launches; worst input's max |diff| / "
+        f"max |plain grad| {worst:.3e} (tolerance {GRAD_TOL:g})")
+    if not worst <= GRAD_TOL:
+        fail(f"{name} grad {what} disagrees with plain autograd: "
+             f"{worst:.3e} > {GRAD_TOL:g}")
+    return worst
+
+
+def phase_grads(torch, device):
+    """The four kernels that training runs, each through its autograd
+    Function on the card, against autograd of its plain version."""
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import moe_matmul as mm
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rwkv6_scan as rk
+
+    for B, S, T, H, KV, hd, causal, window in GRAD_FLASH:
+        c = flash_case(torch, device, B, S, T, causal, window, H=H, KV=KV,
+                       hd=hd)
+        kw = {x: c[x] for x in ("scale", "causal", "window")}
+        _grad_check(torch, device, "flash_attention",
+                    lambda q, k, v: fl.flash_attention(q, k, v, **kw),
+                    lambda q, k, v: fl.flash_attention_plain(q, k, v, **kw),
+                    [c["q"], c["k"], c["v"]],
+                    f"q ({B},{S},{H},{hd}) KV {KV} T={T} causal={causal} "
+                    f"window={window}", seed=B + S)
+    c = rglru_case(torch, device, 2, 512, 2560, decay=RGLRU_DECAYS[1])
+    _grad_check(torch, device, "rglru_scan", rg.rglru_scan,
+                rg.rglru_scan_plain, [c["a"], c["x"], c["h0"]],
+                "(2,512,2560) a in (0.9, 0.999), NaN-tailed inputs", seed=2)
+    c = rwkv_case(torch, device, 1, 256, 40, 64, model_w=True)
+    _grad_check(torch, device, "rwkv6_scan", rk.rwkv6_scan,
+                rk.rwkv6_scan_plain,
+                [c[x] for x in ("r", "k", "v", "w", "u", "state")],
+                "(1,256,40,64) w in (0.066, 0.9975), u and state "
+                "included, NaN-tailed inputs", seed=3)
+    c = moe_case(torch, device, 8, 64, 1024, 2048)
+    _grad_check(torch, device, "moe_matmul", mm.moe_matmul,
+                mm.moe_matmul_plain, [c["x"], c["w"]],
+                "x (8,64,1024) @ w (8,1024,2048), NaN-tailed inputs",
+                seed=4)
+    del c
+    torch.cuda.empty_cache()
 
 
 def _check_splitk(torch, device, w, errs, heads, cases, n_sm, tag=""):
@@ -807,7 +903,7 @@ def _family_kernels(torch, device, w, run, run_decode, errs):
 
 
 # ---------------------------------------------------------------- phase 4
-def _time_ms(torch, fn, n_args, iters=30):
+def _time_ms(torch, fn, n_args, iters=20):
     """Mean device ms per call over ``iters`` calls cycling through
     ``n_args`` input copies (together larger than the 50 MB L2, so each
     call finds its inputs cold, as a layer of the model does)."""
@@ -3514,9 +3610,9 @@ FAMILIES = (("chatglm3-6b", None, 4, ("paged",), 640),
             ("starcoder2-15b", None, 4, ("dense",), 640),
             ("yi-34b", 16, 4, ("paged",), 640),
             ("seamless-m4t-large-v2", None, 4, (), 640))
-#: a family drain: 8 requests of 16..500 prompt tokens, 16 new tokens
-#: each, 4 slots
-FAMILY_REQ, FAMILY_NEW, FAMILY_SLOTS = 8, 16, 4
+#: a family drain: 8 requests of 16..500 prompt tokens, 8 new tokens
+#: each (16 before PR 25, cut for time), 4 slots
+FAMILY_REQ, FAMILY_NEW, FAMILY_SLOTS = 8, 8, 4
 
 
 def _family_drain(torch, device, cfg, params, smi, kv_layout, max_seq,
@@ -4100,6 +4196,315 @@ def phase_sim(torch, device, smi):
     return got
 
 
+# ---------------------------------------------------------------- training
+#: qwen3-0.6b at full width through ``repro_torch.launch.train``'s code
+#: path, at the reference TrainerConfig's batch 8 and sequence 256
+#: (warmup 50, so the learning rate ramps to 20/50 of its peak)
+TRAIN_STEPS = 20
+TRAIN_ARGS = ("--arch", FULL, "--batch", "8", "--seq", "256", "--steps",
+              str(TRAIN_STEPS), "--lr", "1e-3")
+#: recurrentgemma-2b at full width, 2 steps: the reversed RG-LRU scan at
+#: its published width (2.9 G params hold 46 GB in fp32 with Adam, so
+#: batch 4)
+TRAIN_RG_ARGS = ("--arch", "recurrentgemma-2b", "--batch", "4", "--seq",
+                 "256", "--steps", "2")
+#: card against CPU on the reduced configs, the same params and batch:
+#: the loss to 1e-5 relative; each gradient leaf's max |diff| over its max
+#: |CPU grad| to 1e-2. Reduced rwkv6-3b's loss is ill-conditioned at these
+#: params: on the CPU its fp32 gradients lie up to 2.2e-3 from the float64
+#: ones, and a 1e-6 relative change of the params moves them by 1.5e-2;
+#: the other configs agree to about 1e-6. A gradient the card dropped
+#: differs by 1.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-2
+
+
+def _train_launches(cfg, steps, remat=False):
+    """Kernel launches of ``steps`` loss-and-backward passes of ``cfg``:
+    flash once per attention layer (twice with ``remat``, the forward
+    recomputed; an encoder-decoder layer's cross attention too, and the
+    encoder's layers once), the RG-LRU scan once forward and once
+    reversed, RWKV-6 once (its backward is torch ops), the expert GEMM
+    three times forward and six backward."""
+    kinds = cfg.layer_kinds()
+    r = 2 if remat else 1
+    n_attn = sum(k not in ("rglru", "rwkv") for k in kinds)
+    n_moe = sum(k not in ("rwkv", "attn_dense") for k in kinds) \
+        if cfg.n_experts else 0
+    flash = n_attn * r * (2 if cfg.enc_dec else 1) + (
+        cfg.n_enc_layers if cfg.enc_dec else 0)
+    want = {name: 0 for name in REPLACES}
+    want.update(flash_attention=flash * steps,
+                rglru_scan=kinds.count("rglru") * (r + 1) * steps,
+                rwkv6_scan=kinds.count("rwkv") * r * steps,
+                moe_matmul=n_moe * (3 * r + 6) * steps)
+    return want
+
+
+def _check_train_launches(label, got, want):
+    if got != want:
+        fail(f"train {label}: launches {got}, expected {want}")
+    log(f"train {label}: launches exact "
+        f"{ {k: n for k, n in got.items() if n} }")
+
+
+def _train_run(torch, device, argv, label):
+    """A trainer from the launcher's own parser and constructor, run for
+    its steps with the launches counted. Returns (trainer, stats,
+    launches, run seconds)."""
+    from repro_torch.launch import train as lt
+
+    t0 = time.perf_counter()
+    tr = lt.make_trainer(lt.parse_args(list(argv)))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(tr.state.params))
+    log(f"train {label}: {n / 1e9:.3f} G params, trainer built in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB allocated")
+    reset_launches()
+    t0 = time.perf_counter()
+    stats = tr.run(log=lambda line: log(f"train {label}: {line}"))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    got = read_launches()
+    log(f"train {label}: final loss: {stats['final_loss']:.4f} "
+        f"({tr.tcfg.steps} steps in {run_s:.2f} s)")
+    if not all(np.isfinite(v) for v in stats.values()):
+        fail(f"train {label}: non-finite loss {stats}")
+    return tr, stats, got, run_s
+
+
+def phase_train(torch, device, smi):
+    """Training on the card: full-width qwen3-0.6b 20 steps through the
+    launcher (the loss on a held-out batch must fall; exact flash
+    launches, then one ``remat=True`` step; ms a step, tokens/s, one
+    profiled step, peak memory), full-width recurrentgemma-2b 2 steps,
+    the ten reduced configs card against CPU, and a checkpoint round
+    trip. Returns the launches of the two full-width runs."""
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.data import TokenPipeline
+
+    launches = {name: 0 for name in REPLACES}
+
+    def add(got):
+        for name, n in got.items():
+            launches[name] += n
+
+    torch.cuda.reset_peak_memory_stats(device)
+    tr, stats, got, run_s = _train_run(torch, device, TRAIN_ARGS, FULL)
+    cfg, tcfg = tr.cfg, tr.tcfg
+    add(got)
+    _check_train_launches(FULL, got, _train_launches(cfg, TRAIN_STEPS))
+    # the last step's batch (the trainer's pipeline replayed) and a
+    # held-out one, each under the initial params (rebuilt from the seed)
+    # and the trained ones
+    replay = tr.data()
+    for _ in range(TRAIN_STEPS):
+        last = replay.sample_batch()
+    pipe = TokenPipeline(cfg.vocab_size, tcfg.seq_len, tcfg.batch,
+                         seed=tcfg.seed + 1)
+    batches = {"the last step's batch": tr.to_batch(last),
+               "a held-out batch": tr.to_batch(pipe.sample_batch())}
+    init = init_params(cfg, tcfg.seed, device=device)
+    with torch.no_grad():
+        evals = {what: [float(tr.model.loss(p, b))
+                        for p in (init, tr.state.params)]
+                 for what, b in batches.items()}
+    del init, batches
+    for what, (before, after) in evals.items():
+        log(f"train {FULL}: loss on {what}, initial params {before:.4f}, "
+            f"after {TRAIN_STEPS} steps {after:.4f}")
+    log(f"train {FULL}: run losses {stats['first_loss']:.4f} -> "
+        f"{stats['final_loss']:.4f}")
+    before, after = evals["the last step's batch"]
+    if not after < before:
+        fail(f"train {FULL}: the loss did not fall ({before:.4f} -> "
+             f"{after:.4f})")
+    tokens = tcfg.batch * tcfg.seq_len
+
+    def step():
+        tr.state, _ = tr._step(tr.state, tr.to_batch(pipe.sample_batch()))
+
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = float(np.median(times))
+    wall, busy, n, names = _profiled(torch, step)
+    _report_profile([("one step", 1, wall, busy, n, names)], smi,
+                    f"train {FULL}")
+    _flash_share(torch, device, cfg, tcfg, busy, smi)
+    tr.model = build_model(cfg, remat=True)
+    reset_launches()
+    step()
+    torch.cuda.synchronize()
+    got = read_launches()
+    add(got)
+    _check_train_launches(f"{FULL} remat=True step", got,
+                          _train_launches(cfg, 1, remat=True))
+    peak = torch.cuda.max_memory_allocated(device)
+    log(f"train {FULL}: {step_s * 1e3:.1f} ms a step (median of 3 "
+        f"synchronised steps; the 20-step run {run_s * 1e3 / TRAIN_STEPS:.1f}"
+        f" ms a step), {tokens / step_s:,.0f} tokens/s; profiled step: "
+        f"device busy {busy:.1f} ms of {wall * 1e3:.1f} ms wall, idle "
+        f"{1 - busy / (wall * 1e3):.1%}; peak memory {peak / 2**30:.2f} "
+        f"GiB [{smi}]")
+    del tr
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats(device)
+    tr, stats, got, run_s = _train_run(torch, device, TRAIN_RG_ARGS,
+                                       TRAIN_RG_ARGS[1])
+    add(got)
+    _check_train_launches(TRAIN_RG_ARGS[1], got,
+                          _train_launches(tr.cfg, tr.tcfg.steps))
+    log(f"train {TRAIN_RG_ARGS[1]}: {run_s * 1e3 / tr.tcfg.steps:.1f} ms a "
+        f"step (first step included), peak memory "
+        f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB [{smi}]")
+    del tr
+    torch.cuda.empty_cache()
+    _train_parity(torch, device)
+    _train_checkpoint(torch, device)
+    return launches
+
+
+def _flash_share(torch, device, cfg, tcfg, busy, smi):
+    """Event ms of flash's forward kernel and of its torch-op backward at
+    the training step's shape, and their share of the step's device
+    busy (the backward's GEMMs carry cuBLAS's names in a profile)."""
+    from repro_torch.kernels import flash_attention as fl
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    B, S, H, KV, hd = (tcfg.batch, tcfg.seq_len, cfg.n_heads,
+                       cfg.n_kv_heads, cfg.head_dim)
+    q = torch.randn((B, S, H, hd), generator=gen, device=device)
+    k, v = (torch.randn((B, S, KV, hd), generator=gen, device=device)
+             for _ in range(2))
+    kw = dict(scale=hd ** -0.5, causal=True)
+    out = fl.flash_attention_launch(q, k, v, **kw)
+    dout = torch.randn(out.shape, generator=gen, device=device)
+    fwd = _time_ms(torch, lambda i: fl.flash_attention_launch(q, k, v, **kw),
+                   1)
+    bwd = _time_ms(torch, lambda i: fl.flash_attention_backward(
+        q, k, v, out, dout, **kw), 1)
+    n = sum(k not in ("rglru", "rwkv") for k in cfg.layer_kinds())
+    log(f"train {FULL}: flash at q ({B},{S},{H},{hd}): forward kernel "
+        f"{fwd:.3f} ms, torch-op backward {bwd:.3f} ms (events); {n} "
+        f"layers: {n * fwd:.1f} + {n * bwd:.1f} ms, "
+        f"{n * (fwd + bwd) / busy:.1%} of the step's device busy [{smi}]")
+
+
+def _train_batch(torch, cfg, B=2, S=32, seed=0):
+    """``tests/test_arch_smoke.py``'s ``make_batch``: tokens and labels,
+    plus frontend or frame embeddings where the config has them."""
+    rng = np.random.default_rng(seed)
+    batch = {}
+    if cfg.enc_dec:
+        batch["frontend_embeds"] = rng.standard_normal(
+            (B, max(8, S // 4), cfg.d_model)) * 0.1
+        batch["tokens"] = rng.integers(0, cfg.vocab_size, (B, S))
+    elif cfg.frontend is not None:
+        F = cfg.frontend_tokens
+        batch["frontend_embeds"] = rng.standard_normal(
+            (B, F, cfg.d_model)) * 0.1
+        batch["tokens"] = rng.integers(0, cfg.vocab_size, (B, S - F))
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab_size, (B, S))
+    batch["labels"] = rng.integers(0, cfg.vocab_size,
+                                   batch["tokens"].shape)
+    return {k: torch.from_numpy(v.astype(
+        np.float32 if k == "frontend_embeds" else np.int32))
+        for k, v in batch.items()}
+
+
+def _train_parity(torch, device):
+    """Each reduced assigned config's loss and every gradient leaf on the
+    card against the CPU, the same params and batch; the card's launches
+    exact. The check that catches a gradient the card dropped."""
+    from repro_torch.common.tree import flatten_with_paths
+    from repro_torch.config import get_reduced_config
+    from repro_torch.configs import ASSIGNED
+    from repro_torch.device import to_device
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import init_params
+
+    for arch in ASSIGNED:
+        cfg = get_reduced_config(arch)
+        model = build_model(cfg, remat=False)
+        res = {}
+        for dev in ("cpu", device):
+            params = to_device(init_params(cfg, seed=0, device="cpu"), dev)
+            paths, leaves = zip(*flatten_with_paths(params))
+            for p in leaves:
+                p.requires_grad_(True)
+            reset_launches()
+            loss = model.loss(params, to_device(_train_batch(torch, cfg),
+                                                dev))
+            grads = torch.autograd.grad(loss, leaves)
+            res[dev] = (float(loss.detach()), [g.cpu() for g in grads],
+                        read_launches())
+        (lc, gc, _), (lg, gg, got) = res["cpu"], res[device]
+        _check_train_launches(f"{arch} (reduced)", got,
+                              _train_launches(cfg, 1))
+        loss_err = abs(lg - lc) / abs(lc)
+        worst, where = max((float((g - c).abs().max())
+                            / max(float(c.abs().max()), 1e-30), path)
+                           for g, c, path in zip(gg, gc, paths))
+        log(f"train {arch} (reduced): loss card {lg:.6f} cpu {lc:.6f} "
+            f"(rel {loss_err:.2e}, tolerance {TRAIN_LOSS_RTOL:g}); "
+            f"{len(gc)} gradient leaves, worst max |diff| / max |cpu| "
+            f"{worst:.2e} at {where} (tolerance {TRAIN_GRAD_TOL:g})")
+        if not (loss_err <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_TOL):
+            fail(f"train {arch} (reduced): card and CPU disagree")
+
+
+def _train_checkpoint(torch, device):
+    """A reduced trainer's checkpoint (its ``ckpt_path``) and its whole
+    train state (the optimizer's NamedTuples included) saved from the
+    card, loaded and restored onto the card bit for bit."""
+    import shutil
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.config import get_reduced_config
+    from repro_torch.train.checkpoint import (load_checkpoint, restore_like,
+                                              save_checkpoint)
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    out = ROOT / "build" / "train_ckpt"
+    path = out / "lm.npz"
+    try:
+        tr = Trainer(get_reduced_config(FULL), TrainerConfig(
+            batch=2, seq_len=64, steps=2, log_every=1000,
+            ckpt_path=str(path)), device=device)
+        tr.run(log=lambda *_: None)
+        loaded = load_checkpoint(str(path))
+        if loaded["__meta__"].get("steps") != 2:
+            fail(f"checkpoint: metadata {loaded['__meta__']}")
+        save_checkpoint(str(out / "state.npz"), tr.state,
+                        {"step": int(tr.state.step)})
+        for what, tree, back in (
+                ("params", tr.state.params,
+                 restore_like(tr.state.params, loaded)),
+                ("train state", tr.state, restore_like(
+                    tr.state, load_checkpoint(str(out / "state.npz"))))):
+            pairs = list(zip(tree_leaves(tree), tree_leaves(back)))
+            for a, b in pairs:
+                if a.device != b.device or a.dtype != b.dtype \
+                        or not torch.equal(a.detach(), b):
+                    fail(f"checkpoint {what}: a leaf did not round-trip")
+            if type(back) is not type(tree):
+                fail(f"checkpoint {what}: {type(back)} restored")
+            log(f"checkpoint {what}: {len(pairs)} leaves saved from the "
+                f"card and restored onto it bit for bit ({type(back).__name__})")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def run(torch, device, smi):
     """Every phase after the build: kernels vs plain, timing, the three
     serving paths of full-width qwen3-0.6b, its online path (preemption,
@@ -4133,6 +4538,8 @@ def run(torch, device, smi):
         for name, n in got.items():
             launches[name] += n
 
+    add(phase_train(torch, device, smi))
+    mark("train")
     add(phase_sim(torch, device, smi))
     mark("sim")
 
@@ -4183,23 +4590,25 @@ def run(torch, device, smi):
         log(f"{arch}: {sum(t.numel() for t in _leaves(params)) / 1e9:.2f} G "
             f"params initialised on the card in "
             f"{time.perf_counter() - t0:.1f} s")
-        # 8 requests and 16 tokens a round (16 and 32 before, cut for
-        # time)
+        # 8 requests and 8 tokens a round (16 and 32 before PR 24, 16
+        # tokens before PR 25: cut for time)
         add(phase_e2e(torch, device, cfg, params, smi, "dense",
                       n_req=8)[0])
-        add(phase_round(torch, device, cfg, params, smi, max_new=16)[0])
+        add(phase_round(torch, device, cfg, params, smi, max_new=8)[0])
         del params
         torch.cuda.empty_cache()
+        # 4 requests (8 before PR 25, cut for time)
         phase_parity(torch, device, get_reduced_config(arch),
-                     ("dense", "paged"))
+                     ("dense", "paged"), n_req=4)
         mark(arch)
     add(phase_serve(torch, device, get_config(RECURRENT[-1]), "dense"))
     add(phase_moe(torch, device, smi))
     mark("moe")
     for arch in MOE:
-        phase_parity(torch, device, get_reduced_config(arch))
+        # 4 requests (8 before PR 25, cut for time)
+        phase_parity(torch, device, get_reduced_config(arch), n_req=4)
     # the published capacity factor is 1.25; at 1.0 prefill chunks and
-    # rounds drop entries on the card
+    # rounds drop entries on the card (8 requests, so they do)
     phase_parity(torch, device, dataclasses.replace(
         get_reduced_config(MOE[0]), capacity_factor=1.0), need_drops=True)
     mark("moe parity")
@@ -4207,12 +4616,15 @@ def run(torch, device, smi):
     mark("families")
     for arch, _, _, layouts, _ in FAMILIES:
         # the decoder-only families on both layouts; seamless in round
-        # mode, the only path the reference serves it on
+        # mode, the only path the reference serves it on; 4 requests (8
+        # before PR 25, cut for time)
         phase_parity(torch, device, get_reduced_config(arch),
-                     ("paged", "dense") if layouts else ())
+                     ("paged", "dense") if layouts else (), n_req=4)
+    mark("family parity")
     phase_frontend_parity(torch, device)
+    mark("frontend parity")
     add(phase_edge(torch, device, smi))
-    mark("family parity, frontend parity, edge nets")
+    mark("edge nets")
     idle = [name for name, n in launches.items() if n == 0]
     if idle:
         fail(f"kernels never launched on a main path: {idle}")

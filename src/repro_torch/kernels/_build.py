@@ -239,3 +239,22 @@ def check_scan_args(name: str, tensors: Dict[str, torch.Tensor],
         if tuple(t.shape) != tuple(shapes[tname]):
             raise ValueError(f"{name}: {tname} {tuple(t.shape)}, expected "
                              f"{tuple(shapes[tname])}")
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd must see this call: grad mode is on and an input
+    requires grad. A wrapper then goes through its
+    ``torch.autograd.Function``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Refuse a raw forward whose output autograd would need: a kernel's
+    output carries no ``grad_fn``, so every weight upstream would get a
+    zero gradient without an error. Raises ``RuntimeError``, on every
+    device, so the CPU refuses what the card would."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad under grad mode, and the raw "
+            f"forward has no backward; call {name}(), whose "
+            "torch.autograd.Function carries the gradient")

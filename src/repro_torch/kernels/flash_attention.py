@@ -19,6 +19,12 @@ to its last row's causal limit, masks only the tiles that cross an edge,
 zero-fills rows past T without reading them, and launches the heaviest
 query tiles first. IEEE fp32 FMAs, no tensor cores.
 
+Training differentiates it (:class:`FlashAttention`): the forward is the
+kernel, the backward :func:`flash_attention_backward`, torch ops over
+512 query rows at a time that recompute the probabilities from the saved
+q, k and the kernel's output (the reference differentiates its jnp
+attention with XLA, outside any Pallas kernel).
+
 Bound on an H100: at prefill lengths the two products (4 * hd flops per
 attended (query, key) pair) against 67 TFLOP/s fp32 outside the tensor
 cores; at short lengths the bytes of q, k, v and the output. Device time
@@ -29,12 +35,28 @@ MQA (10 heads over one of 256) 0.5765 ms (SDPA 0.96; before 2.5283).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.prefill_attention import NEG, _check_head_dim
+
+
+BWD_ROWS = 512
+
+
+def _mask(r0: int, r1: int, T: int, causal: bool, window: Optional[int],
+          device) -> torch.Tensor:
+    """(r1 - r0, T) bool: may query row i (r0 <= i < r1) attend slot j."""
+    qpos = torch.arange(r0, r1, device=device)[:, None]
+    kpos = torch.arange(T, device=device)[None, :]
+    mask = torch.ones((r1 - r0, T), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    return mask
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -45,31 +67,61 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     T, KV = k.shape[1], k.shape[2]
     qg = q.reshape(B, S, KV, H // KV, hd).float()
     scores = torch.einsum("bskgh,btkh->bkgst", qg, k.float()) * scale
-    qpos = torch.arange(S, device=q.device)[:, None]
-    kpos = torch.arange(T, device=q.device)[None, :]
-    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qpos >= kpos
-    if window is not None:
-        mask &= (qpos - kpos) < window
-    scores = torch.where(mask, scores, NEG)
+    scores = torch.where(_mask(0, S, T, causal, window, q.device), scores,
+                         NEG)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkh->bskgh", probs, v.float())
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float, causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """q (B,S,H,hd) float32; k/v (B,T,KV,hd) float32 -> (B,S,H,hd), row i
-    having attended positions j < T with j <= i if ``causal`` and
-    i - j < ``window`` if one is given. Every row must attend at least
-    one position (the kernel writes zeros for a row that attends none;
-    the reference would average every position).
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, *, scale: float,
+                             causal: bool = True,
+                             window: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(dq, dk, dv) of ``out = flash_attention(q, k, v)`` given ``dout``:
+    per block of ``BWD_ROWS`` query rows, P = softmax(mask(scale QK^T)),
+    dV += P^T dO, dS = P (dO V^T - rowsum(dO * O)), dQ = scale dS K,
+    dK += scale dS^T Q, each KV head summing its G query heads. Memory
+    holds one block's (B, H, BWD_ROWS, T) probabilities at a time."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, S, KV, G, hd).float()
+    og = out.reshape(B, S, KV, G, hd).float()
+    dog = dout.reshape(B, S, KV, G, hd).float()
+    kf, vf = k.float(), v.float()
+    dq = torch.empty_like(qg)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for r0 in range(0, S, BWD_ROWS):
+        r1 = min(S, r0 + BWD_ROWS)
+        qb, dob = qg[:, r0:r1], dog[:, r0:r1]
+        scores = torch.einsum("bskgh,btkh->bkgst", qb, kf) * scale
+        probs = torch.softmax(torch.where(
+            _mask(r0, r1, T, causal, window, q.device), scores, NEG), -1)
+        dv += torch.einsum("bkgst,bskgh->btkh", probs, dob)
+        dp = torch.einsum("bskgh,btkh->bkgst", dob, vf)
+        delta = (dob * og[:, r0:r1]).sum(-1).permute(0, 2, 3, 1)
+        ds = probs * (dp - delta[..., None])
+        dq[:, r0:r1] = torch.einsum("bkgst,btkh->bskgh", ds, kf) * scale
+        dk += torch.einsum("bkgst,bskgh->btkh", ds, qb) * scale
+    return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel
-    on the current stream (no synchronisation) or raise; ``launches``
-    counts the kernel launches."""
+
+def flash_attention_launch(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, scale: float,
+                           causal: bool = True,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """The forward alone: the kernel on CUDA tensors (on the current
+    stream, no synchronisation; ``flash_attention.launches`` counts its
+    launches), the plain version on CPU tensors. Raises ``RuntimeError``
+    for inputs that require grad under grad mode (its output would carry
+    no gradient): :func:`flash_attention` differentiates it."""
+    _build.check_no_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale, causal=causal,
                                      window=window)
@@ -95,6 +147,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
     flash_attention.launches += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel's forward with :func:`flash_attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window):
+        out = flash_attention_launch(q, k, v, scale=scale, causal=causal,
+                                     window=window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.args = dict(scale=scale, causal=causal, window=window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, out, dout, **ctx.args),
+                None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float, causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q (B,S,H,hd) float32; k/v (B,T,KV,hd) float32 -> (B,S,H,hd), row i
+    having attended positions j < T with j <= i if ``causal`` and
+    i - j < ``window`` if one is given. Every row must attend at least
+    one position (the kernel writes zeros for a row that attends none;
+    the reference would average every position).
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel
+    on the current stream (no synchronisation) or raise; ``launches``
+    counts the kernel launches. Under grad mode with an input that
+    requires grad the call goes through :class:`FlashAttention`, so the
+    output carries the gradient on both devices."""
+    if _build.needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, scale, causal, window)
+    return flash_attention_launch(q, k, v, scale=scale, causal=causal,
+                                  window=window)
 
 
 flash_attention.launches = 0

@@ -11,6 +11,10 @@ Pallas kernel padded C, d and f to its blocks; the kernel
 Bound on an H100: bytes on the serving path (C = 8 at decode, at most 16
 in a prefill chunk: every weight read once, 2 * C flops per 4 bytes);
 operations in a round's one-shot prefill (C = 80 at arctic-480b).
+
+Training differentiates it (:class:`MoeMatmul`) with the same kernel
+twice: dx = dy @ w^T and dw = x^T @ dy, per expert, over contiguous
+transposes.
 """
 from __future__ import annotations
 
@@ -55,12 +59,13 @@ def _check_args(x: torch.Tensor, w: torch.Tensor) -> None:
                          f"{tuple(w.shape)} exceed the kernel's grid")
 
 
-def moe_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (E,C,d) float32 @ w (E,d,f) float32 -> (E,C,f), contiguous.
-
-    CPU tensors take the plain version. CUDA tensors launch the kernel on
-    the current stream (no synchronisation) or raise; ``launches`` counts
-    the kernel launches."""
+def moe_matmul_launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The forward alone: the kernel on CUDA tensors (on the current
+    stream, no synchronisation; ``moe_matmul.launches`` counts its
+    launches), the plain version on CPU tensors. Raises ``RuntimeError``
+    for inputs that require grad under grad mode: :func:`moe_matmul`
+    differentiates it."""
+    _build.check_no_grad("moe_matmul", x, w)
     _check_args(x, w)
     if x.device.type == "cpu":
         return moe_matmul_plain(x, w)
@@ -78,6 +83,37 @@ def moe_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"moe_matmul launch failed: CUDA error {rc}")
     moe_matmul.launches += 1
     return out
+
+
+class MoeMatmul(torch.autograd.Function):
+    """The kernel's forward; its backward is the kernel twice."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return moe_matmul_launch(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = moe_matmul_launch(dy, w.transpose(1, 2).contiguous()) \
+            if ctx.needs_input_grad[0] else None
+        dw = moe_matmul_launch(x.transpose(1, 2).contiguous(), dy) \
+            if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+def moe_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (E,C,d) float32 @ w (E,d,f) float32 -> (E,C,f), contiguous.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel on
+    the current stream (no synchronisation) or raise; ``launches`` counts
+    the kernel launches. Under grad mode with an input that requires grad
+    the call goes through :class:`MoeMatmul`, on both devices."""
+    if _build.needs_grad(x, w):
+        return MoeMatmul.apply(x, w)
+    return moe_matmul_launch(x, w)
 
 
 moe_matmul.launches = 0

@@ -16,6 +16,12 @@ runs the chunk's exact recurrence. One pass repeats the plain loop bit for
 bit; two passes round only the chunks' start states differently. Nothing
 past S or W is read.
 
+Training differentiates it (:class:`RGLRUScan`) with the same kernel run
+over reversed time: the adjoint of h_t = a_t h_{t-1} + x_t is
+lam_t = g_t + a_{t+1} lam_{t+1}, from lam at the end = g + the final
+state's gradient, itself a scan of this form (:func:`rglru_scan_backward`).
+So a backward is one more launch, exact.
+
 Bound on an H100: bytes, 12 per (b, t, w) (a and x read, h written).
 """
 from __future__ import annotations
@@ -70,14 +76,14 @@ def rglru_scan_plain(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor
     return torch.stack(hs, 1), h
 
 
-def rglru_scan(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """a, x (B,S,W) float32; h0 (B,W) float32 -> (hs (B,S,W), h_final
-    (B,W)).
-
-    CPU tensors take the plain version. CUDA tensors launch the kernel on
-    the current stream (no synchronisation) or raise; ``launches`` counts
-    the kernel launches."""
+def rglru_scan_launch(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward alone: the kernel on CUDA tensors (on the current
+    stream, no synchronisation; ``rglru_scan.launches`` counts its
+    launches), the plain version on CPU tensors. Raises ``RuntimeError``
+    for inputs that require grad under grad mode: :func:`rglru_scan`
+    differentiates it."""
+    _build.check_no_grad("rglru_scan", a, x, h0)
     if a.device.type == "cpu":
         return rglru_scan_plain(a, x, h0)
     if a.device.type != "cuda":
@@ -106,6 +112,51 @@ def rglru_scan(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor
         raise RuntimeError(f"rglru_scan launch failed: CUDA error {rc}")
     rglru_scan.launches += 1
     return hs, h_final
+
+
+def rglru_scan_backward(a: torch.Tensor, h0: torch.Tensor, hs: torch.Tensor,
+                        g_hs: torch.Tensor, g_final: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(da, dx, dh0) of ``hs, h_final = rglru_scan(a, x, h0)`` given the
+    gradients of both outputs, through one forward launch over reversed
+    time: with A = (1, a_{S-1}, ..., a_1) and X = (g_{S-1}, ..., g_0)
+    from the state g_final, step tau of the scan is lam_{S-1-tau}. Then
+    dx = lam, da_t = lam_t h_{t-1} (h_{-1} = h0) and dh0 = a_0 lam_0."""
+    B, S, W = a.shape
+    rev_a = torch.cat([a.new_ones((B, 1, W)), a[:, 1:].flip(1)], dim=1)
+    lam, _ = rglru_scan_launch(rev_a, g_hs.flip(1).contiguous(),
+                               g_final.contiguous())
+    lam = lam.flip(1)
+    h_prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1)
+    return lam * h_prev, lam, a[:, 0] * lam[:, 0]
+
+
+class RGLRUScan(torch.autograd.Function):
+    """The kernel's forward with :func:`rglru_scan_backward`."""
+
+    @staticmethod
+    def forward(ctx, a, x, h0):
+        hs, h_final = rglru_scan_launch(a, x, h0)
+        ctx.save_for_backward(a, h0, hs)
+        return hs, h_final
+
+    @staticmethod
+    def backward(ctx, g_hs, g_final):
+        return rglru_scan_backward(*ctx.saved_tensors, g_hs, g_final)
+
+
+def rglru_scan(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """a, x (B,S,W) float32; h0 (B,W) float32 -> (hs (B,S,W), h_final
+    (B,W)).
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel on
+    the current stream (no synchronisation) or raise; ``launches`` counts
+    the kernel launches. Under grad mode with an input that requires grad
+    the call goes through :class:`RGLRUScan`, on both devices."""
+    if _build.needs_grad(a, x, h0):
+        return RGLRUScan.apply(a, x, h0)
+    return rglru_scan_launch(a, x, h0)
 
 
 rglru_scan.launches = 0

@@ -21,6 +21,12 @@ rwkv6-3b's decays. Head sizes up to 128; nothing past S or hd is read.
 
 Bound on an H100: bytes (about 20 * hd per (b, t, head)) just ahead of
 operations (5 * hd^2 + 5 * hd flops) at hd 64.
+
+Training differentiates it (:class:`RWKV6Scan`): the forward is the
+kernel, the backward a reverse pass in torch ops, autograd of the plain
+loop recomputed from the saved inputs (the reference differentiates its
+``lax.scan``, outside Pallas). A backward kernel waits until a trace
+shows this pass matters (ROADMAP.md, Queue B).
 """
 from __future__ import annotations
 
@@ -101,15 +107,15 @@ def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.stack(outs, 1), state
 
 
-def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               w: torch.Tensor, u: torch.Tensor, state: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """r, k, v, w (B,S,H,hd) float32; u (H,hd); state (B,H,hd,hd) float32
-    -> (out (B,S,H,hd), final state (B,H,hd,hd)).
-
-    CPU tensors take the plain version. CUDA tensors launch the kernel on
-    the current stream (no synchronisation) or raise; ``launches`` counts
-    the kernel launches."""
+def rwkv6_scan_launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      w: torch.Tensor, u: torch.Tensor, state: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward alone: the kernel on CUDA tensors (on the current
+    stream, no synchronisation; ``rwkv6_scan.launches`` counts its
+    launches), the plain version on CPU tensors. Raises ``RuntimeError``
+    for inputs that require grad under grad mode: :func:`rwkv6_scan`
+    differentiates it."""
+    _build.check_no_grad("rwkv6_scan", r, k, v, w, u, state)
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, w, u, state)
     if r.device.type != "cuda":
@@ -141,6 +147,45 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"rwkv6_scan launch failed: CUDA error {rc}")
     rwkv6_scan.launches += 1
     return out, s_final
+
+
+def rwkv6_scan_backward(saved: Tuple[torch.Tensor, ...], d_out: torch.Tensor,
+                        d_state: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """(dr, dk, dv, dw, du, dstate) of ``rwkv6_scan(*saved)`` given the
+    gradients of its two outputs: autograd of :func:`rwkv6_scan_plain`
+    recomputed from the saved inputs, on their device."""
+    ins = [t.detach().requires_grad_() for t in saved]
+    with torch.enable_grad():
+        out, s_final = rwkv6_scan_plain(*ins)
+        return torch.autograd.grad((out, s_final), ins, (d_out, d_state))
+
+
+class RWKV6Scan(torch.autograd.Function):
+    """The kernel's forward with :func:`rwkv6_scan_backward`."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return rwkv6_scan_launch(r, k, v, w, u, state)
+
+    @staticmethod
+    def backward(ctx, d_out, d_state):
+        return rwkv6_scan_backward(ctx.saved_tensors, d_out, d_state)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor, state: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r, k, v, w (B,S,H,hd) float32; u (H,hd); state (B,H,hd,hd) float32
+    -> (out (B,S,H,hd), final state (B,H,hd,hd)).
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel on
+    the current stream (no synchronisation) or raise; ``launches`` counts
+    the kernel launches. Under grad mode with an input that requires grad
+    the call goes through :class:`RWKV6Scan`, on both devices."""
+    if _build.needs_grad(r, k, v, w, u, state):
+        return RWKV6Scan.apply(r, k, v, w, u, state)
+    return rwkv6_scan_launch(r, k, v, w, u, state)
 
 
 rwkv6_scan.launches = 0

@@ -323,7 +323,7 @@ def tinybert_apply(params_cfg, tokens):
 
     p, cfg = params_cfg
     x, ctx = _embed_inputs(p, {"tokens": tokens}, cfg)
-    x, _ = _trunk_full(p, x, cfg, ctx)
+    x, _, _ = _trunk_full(p, x, cfg, {**ctx, "cache": False})
     return x.mean(dim=1) @ p["cls"]
 
 

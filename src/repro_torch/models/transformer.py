@@ -26,6 +26,10 @@ states stay per-slot dense beside it, and encoder-decoder models have no
 paged layout, as in the reference.
 
 Forward modes (the reference's names):
+  * ``loss(params, batch)``                 — teacher-forced LM loss, the
+    one mode that runs under autograd (the four full-sequence kernels
+    carry their gradients, ``kernels``); ``remat`` recomputes each layer
+    in the backward
   * ``prefill(params, batch)``              — logits + dense prefill cache
   * ``prefill_chunk(params, cache, batch)`` — T tokens against a cache
   * ``decode_step(params, cache, batch)``   — one token per sequence
@@ -40,6 +44,7 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -52,6 +57,8 @@ from repro_torch.models.layers import (apply_embed, apply_mlp, apply_norm,
 from repro_torch.models.rope import default_positions, vision_grid_positions
 
 RECURRENT = ("rglru", "rwkv")
+#: positions per cross-entropy chunk of the loss (the reference's)
+LOSS_CHUNK = 256
 
 
 def _window_for(cfg: ModelConfig, kind: str) -> Optional[int]:
@@ -131,34 +138,42 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
 # layers and trunks
 # =====================================================================
 def _ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-         kind: str) -> torch.Tensor:
-    """The residual FFN sub-block: the experts in an MoE layer (their aux
-    losses feed only the reference's training loss, so they are dropped),
-    else the MLP (the reference's ``_ffn_apply``)."""
+         kind: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual FFN sub-block: the experts in an MoE layer, else the
+    MLP (the reference's ``_ffn_apply``). Returns (x, aux loss): an MoE
+    layer's ``lb_loss + 1e-3 * z_loss``, which only the training loss
+    reads, else 0."""
     h = apply_norm(p["ffn_norm"], x, cfg.norm)
     if _is_moe(cfg, kind):
-        return x + moe.moe_apply(p["ffn"], h, cfg)[0]
-    return x + apply_mlp(p["ffn"], h, cfg.activation)
+        y, aux = moe.moe_apply(p["ffn"], h, cfg)
+        return x + y, aux["lb_loss"] + 1e-3 * aux["z_loss"]
+    return x + apply_mlp(p["ffn"], h, cfg.activation), x.new_zeros(
+        (), dtype=torch.float32)
 
 
 def _recurrent(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
-               state: Dict, decode: bool) -> Tuple[torch.Tensor, Dict]:
+               state: Dict, decode: bool
+               ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """A recurrent layer from ``state``: RWKV's whole residual block, or
-    the RG-LRU block plus the norm and MLP. Returns (x, new state)."""
+    the RG-LRU block plus the norm and MLP. Returns (x, aux loss, new
+    state)."""
     if kind == "rwkv":
-        return rk.rwkv_block(p, x, cfg, state, decode)
+        x, new_state = rk.rwkv_block(p, x, cfg, state, decode)
+        return x, x.new_zeros((), dtype=torch.float32), new_state
     h = apply_norm(p["rec"]["norm"], x, cfg.norm)
     fn = rg.rglru_decode if decode else rg.rglru_seq
     out, new_state = fn(p["rec"], h, cfg, state)
-    return _ffn(p, x + out, cfg, kind), new_state
+    return (*_ffn(p, x + out, cfg, kind), new_state)
 
 
 def _layer_full(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                ctx: Dict) -> Tuple[torch.Tensor, Dict]:
+                ctx: Dict) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """Full-sequence layer; ``ctx`` holds ``positions``, ``mrope`` (the
-    M-RoPE ids or None) and, for an encoder-decoder model, ``enc_out``.
-    Returns (x, the layer's prefill cache: K/V (plus the cross K/V
-    ``ck``/``cv``), or the recurrent state after the sequence)."""
+    M-RoPE ids or None), ``cache`` (whether to build the prefill cache;
+    the loss does not) and, for an encoder-decoder model, ``enc_out``.
+    Returns (x, aux loss, the layer's prefill cache: K/V (plus the cross
+    K/V ``ck``/``cv``), or the recurrent state after the sequence; ``{}``
+    for an attention layer without ``cache``)."""
     if kind in RECURRENT:
         state = _layer_cache(cfg, kind, x.shape[0], 0, x.dtype, x.device)
         return _recurrent(p, x, cfg, kind, state, decode=False)
@@ -168,13 +183,14 @@ def _layer_full(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                                     window=window,
                                     mrope_positions=ctx["mrope"])
     x = x + out
-    cache = _prefill_kv(k, v, cfg, window)
+    cache = _prefill_kv(k, v, cfg, window) if ctx["cache"] else {}
     if "cross" in p:
         h = apply_norm(p["cross_norm"], x, cfg.norm)
         ck, cv = attn.cross_kv(p["cross"], ctx["enc_out"], cfg)
         x = x + attn.cross_attention(p["cross"], h, ck, cv, cfg)
-        cache.update(ck=ck, cv=cv)
-    return _ffn(p, x, cfg, kind), cache
+        if ctx["cache"]:
+            cache.update(ck=ck, cv=cv)
+    return (*_ffn(p, x, cfg, kind), cache)
 
 
 def _prefill_kv(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
@@ -203,7 +219,7 @@ def _layer_step(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     recurrent layer runs from its state and replaces the state's tensors
     in ``cache``."""
     if kind in RECURRENT:
-        x, new_state = _recurrent(p, x, cfg, kind, cache, decode)
+        x, _, new_state = _recurrent(p, x, cfg, kind, cache, decode)
         cache.update(new_state)
         return x
     window = _window_for(cfg, kind)
@@ -221,16 +237,28 @@ def _layer_step(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         h = apply_norm(p["cross_norm"], x, cfg.norm)
         x = x + attn.cross_attention(p["cross"], h, cache["ck"],
                                      cache["cv"], cfg)
-    return _ffn(p, x, cfg, kind)
+    return _ffn(p, x, cfg, kind)[0]
 
 
-def _trunk_full(params: Dict, x: torch.Tensor, cfg: ModelConfig,
-                ctx: Dict) -> Tuple[torch.Tensor, List[Dict]]:
+def _trunk_full(params: Dict, x: torch.Tensor, cfg: ModelConfig, ctx: Dict,
+                remat: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor, List[Dict]]:
+    """Every layer over the full sequence. Returns (x, summed aux loss,
+    per-layer caches). ``remat`` runs each layer under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` per
+    unit): its activations are recomputed in the backward, so its
+    kernels launch twice a step."""
     cache = []
+    aux = x.new_zeros((), dtype=torch.float32)
     for p_l, kind in zip(params["layers"], cfg.layer_kinds()):
-        x, c = _layer_full(p_l, x, cfg, kind, ctx)
+        if remat:
+            x, a, c = checkpoint(_layer_full, p_l, x, cfg, kind, ctx,
+                                 use_reentrant=False)
+        else:
+            x, a, c = _layer_full(p_l, x, cfg, kind, ctx)
+        aux = aux + a
         cache.append(c)
-    return x, cache
+    return x, aux, cache
 
 
 def _trunk_step(params: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -254,7 +282,7 @@ def _encoder_apply(params: Dict, embeds: torch.Tensor,
         h = apply_norm(p["attn_norm"], x, cfg.norm)
         out, _, _ = attn.attention_full(p["attn"], h, cfg, positions,
                                         causal=False)
-        x = _ffn(p, x + out, cfg, "attn")
+        x = _ffn(p, x + out, cfg, "attn")[0]
     return apply_norm(params["encoder"]["final_norm"], x, cfg.norm)
 
 
@@ -293,6 +321,32 @@ def _lm_logits(params: Dict, x: torch.Tensor,
     x = apply_norm(params["final_norm"], x, cfg.norm)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return unembed(x, head, cfg.tie_embeddings, cfg.logit_softcap)
+
+
+def _xent(params: Dict, x: torch.Tensor, labels: torch.Tensor,
+          cfg: ModelConfig) -> torch.Tensor:
+    """Mean cross-entropy of one chunk: x (B,c,d), labels (B,c)."""
+    logits = _lm_logits(params, x, cfg).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (logz - gold).mean()
+
+
+def _xent_chunked(params: Dict, x: torch.Tensor, labels: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Cross-entropy without materialising (B,S,V): the mean over chunks
+    of ``LOSS_CHUNK`` positions (one chunk when S is not a multiple) of
+    each chunk's mean, as the reference's ``lax.map``. With more than one
+    chunk each chunk's logits are recomputed in the backward, so autograd
+    holds one chunk's at a time."""
+    S = x.shape[1]
+    chunk = LOSS_CHUNK if S % LOSS_CHUNK == 0 else S
+    if chunk == S:
+        return _xent(params, x, labels, cfg)
+    losses = [checkpoint(_xent, params, x[:, i:i + chunk],
+                         labels[:, i:i + chunk], cfg, use_reentrant=False)
+              for i in range(0, S, chunk)]
+    return torch.stack(losses).mean()
 
 
 # =====================================================================
@@ -433,9 +487,29 @@ def _plain_prompts_only(cfg: ModelConfig, what: str) -> None:
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
+    #: recompute each layer's activations in the loss's backward
+    remat: bool = True
 
     def init(self, seed: int = 0, dtype=torch.float32, device="cuda"):
         return init_params(self.cfg, seed, dtype, device)
+
+    def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
+        """Teacher-forced LM loss (the reference's ``loss``): ``batch =
+        {"tokens": (B,S), "labels": (B,S)}`` plus ``"frontend_embeds"``
+        for a frontend model (prepended; the F frontend positions are
+        dropped before the loss) or an encoder-decoder one (the encoder's
+        input). The chunked mean cross-entropy plus ``0.01 *`` the MoE
+        layers' summed aux losses, as a 0-dim float32 tensor. Runs under
+        autograd: the full-sequence kernels go through their
+        ``torch.autograd.Function``s, so ``loss.backward()`` reaches every
+        param on the card as on the CPU. Builds no decode cache."""
+        cfg = self.cfg
+        x, ctx = _embed_inputs(params, batch, cfg)
+        x, aux, _ = _trunk_full(params, x, cfg, {**ctx, "cache": False},
+                                remat=self.remat)
+        if cfg.frontend is not None and not cfg.enc_dec:
+            x = x[:, batch["frontend_embeds"].shape[1]:, :]
+        return _xent_chunked(params, x, batch["labels"], cfg) + 0.01 * aux
 
     @torch.no_grad()
     def prefill(self, params: Dict, batch: Dict
@@ -449,7 +523,7 @@ class Model:
         sequence per recurrent layer, and the T cross K/V rows per
         encoder-decoder layer)."""
         x, ctx = _embed_inputs(params, batch, self.cfg)
-        x, cache = _trunk_full(params, x, self.cfg, ctx)
+        x, _, cache = _trunk_full(params, x, self.cfg, {**ctx, "cache": True})
         return _lm_logits(params, x[:, -1:, :], self.cfg), cache
 
     @torch.no_grad()
@@ -522,5 +596,7 @@ class Model:
                           paged=(n_blocks, block_size), device=device)
 
 
-def build_model(cfg: ModelConfig) -> Model:
-    return Model(cfg)
+def build_model(cfg: ModelConfig, **kw) -> Model:
+    """``Model(cfg, **kw)``; ``remat`` defaults to True, as the
+    reference's (serving never reads it)."""
+    return Model(cfg, **kw)
