@@ -36,7 +36,11 @@ decode iteration profiled; a draft-model run; paged prefill is also held
 and timed at the verify shape) and the host KV tier (``phase_swap``: two
 decoding slots swapped out and back in the drains beside a recompute
 resume of the same context, prefix spill and revival with the revived
-bytes checked, a pool with ``preempt_mode="auto"``). At reduced width
+bytes checked, a pool with ``preempt_mode="auto"``) and tensor
+parallelism (``phase_tp``: the paged engine at tp = 2, both shards on
+this one card, against tp = 1 on the drains' 16 requests, the greedy
+streams identical and every attention kernel launched twice per layer per
+step; there is one GPU, so no tp > 1 across distinct GPUs). At reduced width
 the TINY-scale windowed,
 recurrent and RWKV stacks and the prefix-cache drains run paged on card
 and CPU alike. Before the models it drives the
@@ -78,9 +82,8 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 #: H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s
-#: and fp32 flop/s outside the tensor cores
-HBM_BPS = 3.35e12
-FP32_FLOPS = 67e12
+#: and fp32 flop/s outside the tensor cores, read from the port's roofline
+#: (``repro_torch.launch.roofline``) in ``_bound``
 #: kernel vs plain version, fp32: summation order differs, nothing else
 TOL = 1e-4
 #: the model every main path serves at full width, and the recurrent
@@ -510,12 +513,13 @@ MOE_REF_CASES = ((2, 32, 64, 48), (4, 40, 48, 56), (8, 16, 128, 128))
 #: (E, C, d, f) at full-width arctic-480b (128 experts, d 7168, expert
 #: width 4864): the capacity of a decode iteration over 8 slots (top-2,
 #: 8.0 slots of 8) and of a 512-token prefill chunk (16), for
-#: w_gate/w_up; w_down swaps d and f. The timing rows: those two (a
-#: round's one-shot prefill at b=8, S=512, C = 80, is no longer timed)
+#: w_gate/w_up; w_down swaps d and f. The timing row: the decode
+#: iteration's (C = 16 and a round's C = 80 are no longer timed, PR 26
+#: and PR 24: cut for time)
 MOE_ARCTIC = (128, 7168, 4864)
 MOE_ARCTIC_CASES = ((128, 8, 7168, 4864), (128, 16, 7168, 4864),
                     (128, 8, 4864, 7168))
-MOE_TIMING_CASES = ((128, 8, 7168, 4864), (128, 16, 7168, 4864))
+MOE_TIMING_CASES = ((128, 8, 7168, 4864),)
 
 
 def _nan_headed_randn(torch, shape, scale, device, gen, extra_rows=64):
@@ -960,7 +964,9 @@ def _sdpa(torch, q, k, v, mask, scale):
 def _bound(n_bytes, flops):
     """Least time on the card: bytes over HBM, flops over fp32 peak.
     Returns (ms, "bytes" | "operations")."""
-    t_bytes, t_ops = n_bytes / HBM_BPS, flops / FP32_FLOPS
+    from repro_torch.launch.roofline import FP32_PEAK_FLOPS, HBM_BW
+
+    t_bytes, t_ops = n_bytes / HBM_BW, flops / FP32_PEAK_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1254,39 +1260,28 @@ def phase_timing(torch, device, smi):
 
 
 def _family_timing_jobs(torch, device, n_sm):
-    """The family paths' kernel shapes (``FAMILY_CASES``): chatglm3's
-    paged decode (4 slots, 40 columns, split-K at the rule's count) and
-    its 16-token and 512-token chunks at G = 16 (4 query rows per block),
-    its b = 4 round's flash; starcoder2's
-    windowed flash and dense decode over its 4096-slot ring filled to 528
-    and full; qwen2-vl's flash at 1,088 rows and its paged decode over
-    128 columns; seamless's encoder and cross flash (non-causal), its
-    dense self and cross decode at hd 64; yi's 4-slot paged decode."""
+    """The family paths' kernel shapes (``FAMILY_CASES``), one of each
+    kind: chatglm3's paged decode (4 slots, 40 columns, split-K at the
+    rule's count) and 16-token chunk at G = 16 (4 query rows per block);
+    starcoder2's windowed flash and dense decode over its 4096-slot ring
+    filled to 528; seamless's cross flash (non-causal, hd 64)."""
     from repro_torch.kernels.decode_attention import decode_splits
 
-    glm, sc2, vl, sm, yi = (FAMILY_CASES[a]["heads"] for a in (
-        "chatglm3-6b", "starcoder2-15b", "qwen2-vl-7b",
-        "seamless-m4t-large-v2", "yi-34b"))
-    jobs = [("paged_decode_attention_splitk", lambda h=h, nb=nb:
-             _splitk_job(torch, device, 4, nb, max(2, decode_splits(
-                 4, h["KV"], nb, n_sm)), **h))
-            for h, nb in ((glm, 40), (vl, 128), (yi, 40))]
-    jobs += [("paged_prefill_attention", lambda T=T, pos=pos: _paged_job(
-        torch, device, paged_prefill_case, {"T": T, "pos": pos, **glm}))
-        for T, pos in ((16, 8), (512, 0))]
+    glm, sc2, sm = (FAMILY_CASES[a]["heads"] for a in (
+        "chatglm3-6b", "starcoder2-15b", "seamless-m4t-large-v2"))
+    # one shape of each kernel kind the families add (14 shapes before
+    # PR 26, cut for time; PERF.md keeps the others' numbers, X2)
+    jobs = [("paged_decode_attention_splitk", lambda: _splitk_job(
+        torch, device, 4, 40, max(2, decode_splits(4, glm["KV"], 40, n_sm)),
+        **glm))]
+    jobs += [("paged_prefill_attention", lambda: _paged_job(
+        torch, device, paged_prefill_case, {"T": 16, "pos": 8, **glm}))]
     jobs += [("flash_attention", lambda a=a, h=h: _flash_job(
         torch, device, *a, **h))
-        for a, h in (((4, 512, 512, True, None), glm),
-                     ((4, 512, 512, True, 4096), sc2),
-                     ((2, 1088, 1088, True, None), vl),
-                     ((4, 128, 128, False, None), sm),
+        for a, h in (((4, 512, 512, True, 4096), sc2),
                      ((4, 512, 128, False, None), sm))]
-    jobs += [("decode_attention", lambda a=a, h=h, x=x: _decode_job(
-        torch, device, *a, B=4, **h, **x))
-        for a, h, x in (((4096, "round"), sc2, {"front": 528}),
-                        ((4096, "round"), sc2, {"front": 4096}),
-                        ((528, "round"), sm, {}),
-                        ((128, "round"), sm, {"front": 128}))]
+    jobs += [("decode_attention", lambda: _decode_job(
+        torch, device, 4096, "round", B=4, **sc2, front=528))]
     return jobs
 
 
@@ -1372,24 +1367,35 @@ def _want(cfg, path, n_iters=0, n_chunks=0, n_rounds=0, n_tokens=0,
 
 
 def phase_e2e(torch, device, cfg, params, smi, kv_layout, n_req=16,
-              max_new=32, seed=0, profile=True):
+              max_new=32, seed=0, profile=True, mesh=None):
     """Serve ``n_req`` seeded requests (prompts 4..500 tokens) through the
     continuous engine with ``kv_layout`` at full width until drained;
     check every request and the launch counts, then (with ``profile``)
-    profile a prefill step and three decode steps. Returns (the kernels'
-    launches, the end-to-end numbers)."""
+    profile a prefill step and three decode steps (``"decode"``: the
+    decode steps alone, ``phase_profile``'s ``decode_only``). Under a ``("model",)``
+    ``mesh`` of degree tp the weights and cache are split by head over
+    its ranks, and every attention kernel runs tp times per layer per
+    step, at the shard's head counts. Returns (the kernels' launches, the
+    end-to-end numbers)."""
     from repro_torch.serving.engine import ContinuousBatchingEngine
 
+    tp = 1 if mesh is None else mesh.shape["model"]
+    label = f"{cfg.name} {kv_layout}" + (f" tp {tp}" if tp > 1 else "")
     t0 = time.perf_counter()
     eng = ContinuousBatchingEngine(cfg, max_slots=8, max_seq=640,
                                    kv_layout=kv_layout, token_budget=512,
-                                   device=device, params=params)
+                                   device=device, params=params, mesh=mesh)
     torch.cuda.synchronize()
+    if eng.stats()["tp_degree"] != tp:
+        fail(f"e2e {label}: stats report tp_degree "
+             f"{eng.stats()['tp_degree']}")
+    caches = eng.cache if mesh is None else eng.cache[0]
     layouts = sorted({str({k: tuple(t.shape) for k, t in c.items()})
-                      for c in eng.cache})
-    log(f"e2e {cfg.name} {kv_layout}: {cfg.name} L={cfg.n_layers} d={cfg.d_model} "
+                      for c in caches})
+    log(f"e2e {label}: {cfg.name} L={cfg.n_layers} d={cfg.d_model} "
         f"engine built in {time.perf_counter() - t0:.1f} s, layer caches "
-        f"{', '.join(layouts)} over {len(eng.cache)} layers")
+        f"{', '.join(layouts)} over {len(caches)} layers"
+        + (f" on each of {tp} ranks" if tp > 1 else ""))
     rng = np.random.default_rng(seed)
     eng.run([rng.integers(1, cfg.vocab_size, 9).astype(np.int32)],
             max_new_tokens=2)  # warm-up: cuBLAS handles, kernel libraries
@@ -1422,14 +1428,18 @@ def phase_e2e(torch, device, cfg, params, smi, kv_layout, n_req=16,
     n_pre = eng.n_prefill_chunk_tokens - tok0
     if len(results) != n_req or any(len(r.tokens) != max_new
                                     for r in results):
-        fail(f"e2e {cfg.name} {kv_layout}: {len(results)} of {n_req} requests "
+        fail(f"e2e {label}: {len(results)} of {n_req} requests "
              f"finished, token counts {[len(r.tokens) for r in results]}")
     if bool(torch.stack(bad).any()):
-        fail(f"e2e {cfg.name} {kv_layout}: non-finite logits")
-    want = _want(cfg, kv_layout, n_iters=n_iters, n_chunks=n_chunks)
+        fail(f"e2e {label}: non-finite logits")
+    shard = dataclasses.replace(cfg, n_heads=cfg.n_heads // tp,
+                                n_kv_heads=cfg.n_kv_heads // tp)
+    want = {k: v * tp for k, v in _want(shard, kv_layout, n_iters=n_iters,
+                                        n_chunks=n_chunks).items()}
     if launches != want:
-        fail(f"e2e {cfg.name} {kv_layout}: launches {launches} != {want} ("
-             f"{n_iters} decode iterations, {n_chunks} prefill chunks)")
+        fail(f"e2e {label}: launches {launches} != {want} ("
+             f"{n_iters} decode iterations, {n_chunks} prefill chunks, "
+             f"each attention kernel {tp} time(s) per layer per step)")
     gen = sum(len(r.tokens) for r in results)
     results.sort(key=lambda r: r.request_id)
     res = {"tokens": [r.tokens for r in results],
@@ -1437,7 +1447,7 @@ def phase_e2e(torch, device, cfg, params, smi, kv_layout, n_req=16,
            "p50": float(np.percentile(decode_ms, 50)),
            "p99": float(np.percentile(decode_ms, 99)),
            "prefill_tokens_per_s": n_pre / max(prefill_s, 1e-9)}
-    log(f"e2e {cfg.name} {kv_layout}: {n_req} requests (prompts {int(lens.min())}.."
+    log(f"e2e {label}: {n_req} requests (prompts {int(lens.min())}.."
         f"{int(lens.max())} tokens), {gen} generated tokens, {n_iters} "
         f"decode iterations, {n_chunks} prefill chunks ({n_pre} tokens), "
         f"wall {wall:.3f} s, {res['tokens_per_s']:.1f} generated tokens/s, "
@@ -1446,10 +1456,11 @@ def phase_e2e(torch, device, cfg, params, smi, kv_layout, n_req=16,
         f"{res['prefill_tokens_per_s']:.0f} tokens/s over steps with "
         f"prefill ({prefill_s:.3f} s, their decode included), peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{smi}]")
-    log(f"e2e {cfg.name} {kv_layout}: launches {launches} == {want}")
+    log(f"e2e {label}: launches {launches} == {want}")
     if profile:
-        phase_profile(torch, eng, rng, res["p50"], smi,
-                      f"{cfg.name} {kv_layout}")
+        res["busy"], res["kernels"] = phase_profile(
+            torch, eng, rng, res["p50"], smi, label,
+            decode_only=profile == "decode")
     del eng
     torch.cuda.empty_cache()
     return launches, res
@@ -1462,8 +1473,9 @@ def _profiled(torch, fn, counts=None):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity alone: the kernels' events are the same, and
+    # recording every host op would slow the step and the events' parse
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1512,19 +1524,25 @@ def _kernel_ms(names, fragments):
                if any(f in n for f in fragments))
 
 
-def phase_profile(torch, eng, rng, decode_p50_ms, smi, label):
+def phase_profile(torch, eng, rng, decode_p50_ms, smi, label,
+                  decode_only=False):
     """Where an iteration's time goes: one prefill-heavy step (8 prompts
     of 30..400 tokens admitted at once under the 512-token budget), three
     decode-only steps and, paged, the step of one 512-token chunk (a
-    500-token prompt alone), each under torch.profiler. Device busy time
-    is the sum of kernel durations; the decode steps' busy share is taken
-    against the unprofiled decode p50 of the drain (the profiler slows
-    the host)."""
+    500-token prompt alone), each under torch.profiler; with
+    ``decode_only`` the prefill runs unprofiled and only the three
+    decode-only steps are profiled. Device busy time is the sum of kernel
+    durations; the decode steps' busy share is taken against the
+    unprofiled decode p50 of the drain (the profiler slows the host).
+    Returns the decode-only iteration's (device busy ms, device
+    kernels)."""
     for n in (100, 200, 300, 400, 30, 60, 90, 120):
         eng.submit(rng.integers(1, eng.cfg.vocab_size, n).astype(np.int32),
                    max_new_tokens=16)
-    wall, busy, n, names = _profiled(torch, eng.step)
-    report = [("prefill step", 1, wall, busy, n, names)]
+    report = []
+    if not decode_only:
+        wall, busy, n, names = _profiled(torch, eng.step)
+        report.append(("prefill step", 1, wall, busy, n, names))
     while eng.prefill_backlog_tokens:
         eng.step()
 
@@ -1532,8 +1550,10 @@ def phase_profile(torch, eng, rng, decode_p50_ms, smi, label):
         for _ in range(3):
             eng.step()
     wall, busy, n, names = _profiled(torch, three)
-    report.append(("decode-only step", 3, wall, busy, n, names))
-    if eng.kv_layout == "paged":
+    decode = ("decode-only step", 3, wall, busy, n, names)
+    report.append(decode)
+    chunk = None
+    if eng.kv_layout == "paged" and not decode_only:
         while eng.waiting or eng.active_slots:
             eng.step()
         eng.submit(rng.integers(1, eng.cfg.vocab_size, 500).astype(
@@ -1541,25 +1561,29 @@ def phase_profile(torch, eng, rng, decode_p50_ms, smi, label):
         chunks = eng.n_prefill_chunk_tokens
         wall, busy, n, names = _profiled(torch, eng.step)
         chunks = eng.n_prefill_chunk_tokens - chunks
-        report.append((f"one-chunk step ({chunks} prompt tokens)", 1, wall,
-                       busy, n, names))
+        chunk = (f"one-chunk step ({chunks} prompt tokens)", 1, wall, busy,
+                 n, names)
+        report.append(chunk)
     _report_profile(report, smi, label)
-    busy = report[1][3] / 3
+    busy = decode[3] / 3
     log(f"profile {label}: decode-only device busy {busy:.3f} ms of the "
         f"unprofiled p50 {decode_p50_ms:.3f} ms per iteration: idle share "
         f"{1 - busy / decode_p50_ms:.1%}")
     if eng.kv_layout == "paged":
-        dec = _kernel_ms(report[1][5], DECODE_KERNELS) / 3
-        pre = _kernel_ms(report[2][5], PREFILL_KERNELS)
+        dec = _kernel_ms(decode[5], DECODE_KERNELS) / 3
+        pre = "" if chunk is None else (
+            f"; paged prefill kernel "
+            f"{_kernel_ms(chunk[5], PREFILL_KERNELS):.3f} ms in the "
+            f"one-chunk step of {chunk[3]:.3f} ms device busy")
         log(f"profile {label}: paged decode kernels {dec:.3f} ms per "
-            f"decode-only iteration ({dec / busy:.1%} of device busy); "
-            f"paged prefill kernel {pre:.3f} ms in the one-chunk step of "
-            f"{report[2][3]:.3f} ms device busy [{smi}]")
+            f"decode-only iteration ({dec / busy:.1%} of device busy)"
+            f"{pre} [{smi}]")
     else:
-        dec = _kernel_ms(report[1][5], DENSE_DECODE_KERNELS) / 3
+        dec = _kernel_ms(decode[5], DENSE_DECODE_KERNELS) / 3
         log(f"profile {label}: dense decode kernels {dec:.3f} ms per "
             f"decode-only iteration ({dec / busy:.1%} of device busy) "
             f"[{smi}]")
+    return busy, decode[4] / 3
 
 
 def phase_split_rule(torch, device, cfg, params, smi, n_slots=8, turns=8,
@@ -4196,6 +4220,69 @@ def phase_sim(torch, device, smi):
     return got
 
 
+# ---------------------------------------------------------------- TP
+#: tensor parallelism on the one card: an instance of degree TP_DEGREE with
+#: both shards on it (there is one H100 here, so no tp > 1 across distinct
+#: GPUs is run), against tp = 1 on the same schedule
+TP_DEGREE = 2
+
+
+def phase_tp(torch, device, cfg, params, smi, ref):
+    """Tensor-parallel serving on the card: ``phase_e2e``'s paged drain of
+    full-width ``cfg`` (16 requests of 4..500 tokens, 32 new each) at
+    tp = TP_DEGREE, both shards on this one card (``make_tp_mesh(2,
+    devices=[cuda:0, cuda:0])``), against ``ref``, the same drain's
+    result at tp = 1. The greedy streams must be identical (else the
+    first diverging token and its logit margin are printed and the run
+    fails); ``phase_e2e`` holds every attention kernel to tp launches per
+    layer per step. A mesh of ``devices=None`` at degree 2 must raise on a
+    one-GPU machine. The times are two shards on one card, not a TP
+    speed-up."""
+    from repro_torch.launch.mesh import make_tp_mesh
+    from repro_torch.serving.engine import ContinuousBatchingEngine
+
+    t_phase = time.perf_counter()
+    if torch.cuda.device_count() < TP_DEGREE:
+        try:
+            make_tp_mesh(TP_DEGREE)
+        except ValueError as e:
+            if "devices=" not in str(e):
+                fail(f"tp: make_tp_mesh({TP_DEGREE}) raised without the "
+                     f"workaround: {e}")
+            log(f"tp: make_tp_mesh({TP_DEGREE}) on {torch.cuda.device_count()}"
+                f" GPU raises: {e}")
+        else:
+            fail(f"tp: make_tp_mesh({TP_DEGREE}) built on one GPU")
+    mesh = make_tp_mesh(TP_DEGREE, devices=[device] * TP_DEGREE)
+    # the decode steps alone profiled (the whole profile cost ~30 s at
+    # tp = 2 in the script, cut for time)
+    launches, two = phase_e2e(torch, device, cfg, params, smi, "paged",
+                              profile="decode", mesh=mesh)
+    prompts = _drain_prompts(cfg)
+    for i, (a, b) in enumerate(zip(ref["tokens"], two["tokens"])):
+        if not np.array_equal(a, b):
+            j = int(np.argmax(np.asarray(a) != np.asarray(b)))
+            seq = np.concatenate([
+                ContinuousBatchingEngine._padded_seq(prompts[i]),
+                np.asarray(a[:j], np.int32)])
+            margin = _margin(torch, cfg, params, seq, int(a[j]), int(b[j]))
+            fail(f"tp: request {i} diverges at token {j}: tp = 1 "
+                 f"{int(a[j])}, tp = {TP_DEGREE} {int(b[j])}, logit margin "
+                 f"{margin:.3e}")
+    n_tok = sum(len(t) for t in ref["tokens"])
+    log(f"tp: greedy streams identical at tp = 1 and tp = {TP_DEGREE} "
+        f"({len(prompts)} requests, {n_tok} tokens) on {cfg.name} at full "
+        "width")
+    log(f"tp: two shards on one card, not a TP speed-up (one H100 here: no "
+        f"tp > 1 across distinct GPUs was run): decode-only iteration p50 "
+        f"{ref['p50']:.3f} ms at tp = 1, {two['p50']:.3f} ms at tp = "
+        f"{TP_DEGREE} ({two['p50'] / ref['p50']:.2f}x); device busy "
+        f"{ref['busy']:.3f} vs {two['busy']:.3f} ms; device kernels per "
+        f"iteration {ref['kernels']:.0f} vs {two['kernels']:.0f} [{smi}]")
+    log(f"tp: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # ---------------------------------------------------------------- training
 #: qwen3-0.6b at full width through ``repro_torch.launch.train``'s code
 #: path, at the reference TrainerConfig's batch 8 and sequence 256
@@ -4210,13 +4297,16 @@ TRAIN_RG_ARGS = ("--arch", "recurrentgemma-2b", "--batch", "4", "--seq",
                  "256", "--steps", "2")
 #: card against CPU on the reduced configs, the same params and batch:
 #: the loss to 1e-5 relative; each gradient leaf's max |diff| over its max
-#: |CPU grad| to 1e-2. Reduced rwkv6-3b's loss is ill-conditioned at these
-#: params: on the CPU its fp32 gradients lie up to 2.2e-3 from the float64
-#: ones, and a 1e-6 relative change of the params moves them by 1.5e-2;
-#: the other configs agree to about 1e-6. A gradient the card dropped
+#: |CPU grad| to TRAIN_GRAD_TOL, 3e-5 (the nine well-conditioned configs
+#: agreed to 9.4e-6 on an H100). Reduced rwkv6-3b alone is held to
+#: TRAIN_GRAD_TOL_RWKV, 1e-2: its loss is ill-conditioned at these params
+#: (on the CPU its fp32 gradients lie up to 2.2e-3 from the float64 ones,
+#: and a 1e-6 relative change of the params moves them by 1.5e-2; card
+#: and CPU differed by 2.77e-3 at ``embed``). A gradient the card dropped
 #: differs by 1.
 TRAIN_LOSS_RTOL = 1e-5
-TRAIN_GRAD_TOL = 1e-2
+TRAIN_GRAD_TOL = 3e-5
+TRAIN_GRAD_TOL_RWKV = 1e-2
 
 
 def _train_launches(cfg, steps, remat=False):
@@ -4455,11 +4545,12 @@ def _train_parity(torch, device):
         worst, where = max((float((g - c).abs().max())
                             / max(float(c.abs().max()), 1e-30), path)
                            for g, c, path in zip(gg, gc, paths))
+        tol = TRAIN_GRAD_TOL_RWKV if arch == "rwkv6-3b" else TRAIN_GRAD_TOL
         log(f"train {arch} (reduced): loss card {lg:.6f} cpu {lc:.6f} "
             f"(rel {loss_err:.2e}, tolerance {TRAIN_LOSS_RTOL:g}); "
             f"{len(gc)} gradient leaves, worst max |diff| / max |cpu| "
-            f"{worst:.2e} at {where} (tolerance {TRAIN_GRAD_TOL:g})")
-        if not (loss_err <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_TOL):
+            f"{worst:.2e} at {where} (tolerance {tol:g})")
+        if not (loss_err <= TRAIN_LOSS_RTOL and worst <= tol):
             fail(f"train {arch} (reduced): card and CPU disagree")
 
 
@@ -4547,14 +4638,15 @@ def run(torch, device, smi):
     params = init_params(full, seed=0, device=device)
     # one drain per layout (the k = 0 streams phase_spec and phase_swap
     # are held to); PRs 18-22 also ran a second pair in turns
-    drained = {}
+    drained, e2e = {}, {}
     for layout in ("paged", "dense"):
-        got, res = phase_e2e(torch, device, full, params, smi, layout)
+        got, e2e[layout] = phase_e2e(torch, device, full, params, smi, layout)
         add(got)
-        drained[layout] = res["tokens"]
+        drained[layout] = e2e[layout]["tokens"]
     mark("e2e")
     # 8 slots only (4 slots ran within its standard error of 8)
-    phase_split_rule(torch, device, full, params, smi, 8)
+    # 4 turns (8 before PR 26, cut for time)
+    phase_split_rule(torch, device, full, params, smi, 8, turns=4)
     mark("split rule")
     add(phase_serve(torch, device, full, "paged"))
     # 32 slots (B.KV = 256 > the SM count): decode takes the one-split
@@ -4573,6 +4665,8 @@ def run(torch, device, smi):
     mark("spec")
     add(phase_swap(torch, device, full, params, smi, drained["paged"]))
     mark("swap")
+    add(phase_tp(torch, device, full, params, smi, e2e["paged"]))
+    mark("tp")
     del params
     torch.cuda.empty_cache()
     phase_serve_round(torch, device, full, smi)
@@ -4590,10 +4684,10 @@ def run(torch, device, smi):
         log(f"{arch}: {sum(t.numel() for t in _leaves(params)) / 1e9:.2f} G "
             f"params initialised on the card in "
             f"{time.perf_counter() - t0:.1f} s")
-        # 8 requests and 8 tokens a round (16 and 32 before PR 24, 16
-        # tokens before PR 25: cut for time)
+        # 4 requests and 8 tokens a round (16 and 32 before PR 24, 16
+        # tokens before PR 25, 8 requests before PR 26: cut for time)
         add(phase_e2e(torch, device, cfg, params, smi, "dense",
-                      n_req=8)[0])
+                      n_req=4)[0])
         add(phase_round(torch, device, cfg, params, smi, max_new=8)[0])
         del params
         torch.cuda.empty_cache()

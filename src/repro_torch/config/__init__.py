@@ -1,4 +1,9 @@
-from repro_torch.config.base import ModelConfig, ServingConfig  # noqa: F401
+from repro_torch.config.base import (  # noqa: F401
+    INPUT_SHAPES,
+    InputShape,
+    ModelConfig,
+    ServingConfig,
+)
 from repro_torch.config.registry import (  # noqa: F401
     default_reduce,
     get_config,

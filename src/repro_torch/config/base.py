@@ -1,7 +1,7 @@
 """Config dataclasses: the port's own copies of the reference's
 ``ModelConfig`` and ``ServingConfig`` (field for field, so
-``dataclasses.asdict`` of one builds the other). ``InputShape`` comes
-with a later slice.
+``dataclasses.asdict`` of one builds the other), and of ``InputShape``
+with the dry-run's four ``INPUT_SHAPES``.
 """
 from __future__ import annotations
 
@@ -134,6 +134,22 @@ class ModelConfig:
             total += self.n_enc_layers * (attn_p + dense_ffn(self.d_ff))
             total += self.n_layers * attn_p  # decoder cross-attention
         return int(total)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

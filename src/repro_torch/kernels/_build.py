@@ -18,6 +18,7 @@ raises; nothing falls back to the plain PyTorch versions.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -258,3 +259,26 @@ def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
             f"{name}: an input requires grad under grad mode, and the raw "
             f"forward has no backward; call {name}(), whose "
             "torch.autograd.Function carries the gradient")
+
+
+_shapes = threading.local()
+
+
+@contextlib.contextmanager
+def shapes_only():
+    """Inside this block a kernel wrapper given ``meta`` tensors returns
+    its output's shape and dtype and computes nothing (the dry-run,
+    ``launch.dryrun``: a Pallas kernel's abstract evaluation). Outside
+    it, ``meta`` is a device with no kernel and raises like any other."""
+    prev = getattr(_shapes, "on", False)
+    _shapes.on = True
+    try:
+        yield
+    finally:
+        _shapes.on = prev
+
+
+def abstract(t: torch.Tensor) -> bool:
+    """Whether a wrapper should return ``t``'s output shape only: a
+    ``meta`` tensor inside :func:`shapes_only`."""
+    return t.device.type == "meta" and getattr(_shapes, "on", False)

@@ -82,6 +82,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``launches`` counts the calls that launched it."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, valid, scale)
+    if _build.abstract(q):
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for {q.device}")
     _build.check_dense_args("decode_attention", q, k, v, valid)
@@ -138,6 +140,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                             seq_lens, scale)
+    if _build.abstract(q):
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no kernel for {q.device}")
     _build.check_launch_args("paged_decode_attention", q, k_pool, v_pool,
@@ -350,6 +354,8 @@ def paged_decode_attention_splitk(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type == "cpu":
         return paged_decode_attention_splitk_plain(
             q, k_pool, v_pool, block_tables, seq_lens, scale, n_splits)
+    if _build.abstract(q):
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention_splitk: no kernel for "
                          f"{q.device}")

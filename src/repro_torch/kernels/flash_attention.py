@@ -125,6 +125,8 @@ def flash_attention_launch(q: torch.Tensor, k: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale=scale, causal=causal,
                                      window=window)
+    if _build.abstract(q):
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     _build.check_dense_args("flash_attention", q, k, v)

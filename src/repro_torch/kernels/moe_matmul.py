@@ -66,6 +66,8 @@ def moe_matmul_launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for inputs that require grad under grad mode: :func:`moe_matmul`
     differentiates it."""
     _build.check_no_grad("moe_matmul", x, w)
+    if _build.abstract(x):  # shapes only: any dtype
+        return x.new_empty((x.shape[0], x.shape[1], w.shape[2]))
     _check_args(x, w)
     if x.device.type == "cpu":
         return moe_matmul_plain(x, w)

@@ -92,6 +92,8 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(q, k_pool, v_pool,
                                              block_tables, pos, scale)
+    if _build.abstract(q):
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention: no kernel for {q.device}")
     _build.check_launch_args("paged_prefill_attention", q, k_pool, v_pool,

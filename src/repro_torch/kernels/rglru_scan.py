@@ -86,6 +86,8 @@ def rglru_scan_launch(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor
     _build.check_no_grad("rglru_scan", a, x, h0)
     if a.device.type == "cpu":
         return rglru_scan_plain(a, x, h0)
+    if _build.abstract(a):
+        return torch.empty_like(a), torch.empty_like(h0)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: no kernel for {a.device}")
     if a.dim() != 3:

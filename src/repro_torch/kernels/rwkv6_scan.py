@@ -118,6 +118,8 @@ def rwkv6_scan_launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_no_grad("rwkv6_scan", r, k, v, w, u, state)
     if r.device.type == "cpu":
         return rwkv6_scan_plain(r, k, v, w, u, state)
+    if _build.abstract(r):
+        return torch.empty_like(r), torch.empty_like(state)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: no kernel for {r.device}")
     if r.dim() != 4:
@@ -153,7 +155,10 @@ def rwkv6_scan_backward(saved: Tuple[torch.Tensor, ...], d_out: torch.Tensor,
                         d_state: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """(dr, dk, dv, dw, du, dstate) of ``rwkv6_scan(*saved)`` given the
     gradients of its two outputs: autograd of :func:`rwkv6_scan_plain`
-    recomputed from the saved inputs, on their device."""
+    recomputed from the saved inputs, on their device (shapes only on
+    ``meta`` under ``_build.shapes_only``)."""
+    if _build.abstract(saved[0]):
+        return tuple(torch.empty_like(t) for t in saved)
     ins = [t.detach().requires_grad_() for t in saved]
     with torch.enable_grad():
         out, s_final = rwkv6_scan_plain(*ins)

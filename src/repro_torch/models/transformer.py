@@ -46,7 +46,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.config.base import ModelConfig
+from repro_torch.config.base import InputShape, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe
 from repro_torch.models import rglru as rg
@@ -110,10 +110,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     """Random params with the reference's distributions
     (``layers.py:16-22``), drawn from a seeded ``torch.Generator`` on
     ``device``. The values differ from ``jax.random``'s; parity tests
-    bridge the reference's weights instead (``models.bridge``)."""
+    bridge the reference's weights instead (``models.bridge``). On
+    ``meta`` (``Model.abstract_params``) only the shapes are made."""
     device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = None
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     p: Dict = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device),
         "final_norm": norm_init(cfg.d_model, cfg.norm, dtype, device),
@@ -137,18 +140,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
 # =====================================================================
 # layers and trunks
 # =====================================================================
-def _ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-         kind: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The residual FFN sub-block: the experts in an MoE layer, else the
-    MLP (the reference's ``_ffn_apply``). Returns (x, aux loss): an MoE
-    layer's ``lb_loss + 1e-3 * z_loss``, which only the training loss
-    reads, else 0."""
+def ffn_out(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+            kind: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The FFN sub-block's output before its residual add: the experts in
+    an MoE layer, else the MLP (the reference's ``_ffn_apply``). Returns
+    (y, aux loss): an MoE layer's ``lb_loss + 1e-3 * z_loss``, which only
+    the training loss reads, else 0. A rank of the rank-split forward
+    (``models.tp``) runs it on its columns of ``w_up``/``w_gate`` and rows
+    of ``w_down``, so y is that rank's partial sum."""
     h = apply_norm(p["ffn_norm"], x, cfg.norm)
     if _is_moe(cfg, kind):
         y, aux = moe.moe_apply(p["ffn"], h, cfg)
-        return x + y, aux["lb_loss"] + 1e-3 * aux["z_loss"]
-    return x + apply_mlp(p["ffn"], h, cfg.activation), x.new_zeros(
+        return y, aux["lb_loss"] + 1e-3 * aux["z_loss"]
+    return apply_mlp(p["ffn"], h, cfg.activation), x.new_zeros(
         (), dtype=torch.float32)
+
+
+def _ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+         kind: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual FFN sub-block: (x + y, aux loss) of ``ffn_out``."""
+    y, aux = ffn_out(p, x, cfg, kind)
+    return x + y, aux
 
 
 def _recurrent(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
@@ -178,10 +190,7 @@ def _layer_full(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         state = _layer_cache(cfg, kind, x.shape[0], 0, x.dtype, x.device)
         return _recurrent(p, x, cfg, kind, state, decode=False)
     window = _window_for(cfg, kind)
-    h = apply_norm(p["attn_norm"], x, cfg.norm)
-    out, k, v = attn.attention_full(p["attn"], h, cfg, ctx["positions"],
-                                    window=window,
-                                    mrope_positions=ctx["mrope"])
+    out, k, v = attn_full_out(p, x, cfg, kind, ctx)
     x = x + out
     cache = _prefill_kv(k, v, cfg, window) if ctx["cache"] else {}
     if "cross" in p:
@@ -191,6 +200,17 @@ def _layer_full(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         if ctx["cache"]:
             cache.update(ck=ck, cv=cv)
     return (*_ffn(p, x, cfg, kind), cache)
+
+
+def attn_full_out(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                  ctx: Dict
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The full-sequence attention sub-block's output before its residual
+    add, with the rotated K/V (B,S,KV,hd) its cache is built from."""
+    h = apply_norm(p["attn_norm"], x, cfg.norm)
+    return attn.attention_full(p["attn"], h, cfg, ctx["positions"],
+                               window=_window_for(cfg, kind),
+                               mrope_positions=ctx["mrope"])
 
 
 def _prefill_kv(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
@@ -222,22 +242,30 @@ def _layer_step(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         x, _, new_state = _recurrent(p, x, cfg, kind, cache, decode)
         cache.update(new_state)
         return x
+    x = x + attn_step_out(p, x, cfg, kind, cache, ctx, decode)
+    if "cross" in p:  # decode only: encoder-decoder models never chunk
+        h = apply_norm(p["cross_norm"], x, cfg.norm)
+        x = x + attn.cross_attention(p["cross"], h, cache["ck"],
+                                     cache["cv"], cfg)
+    return _ffn(p, x, cfg, kind)[0]
+
+
+def attn_step_out(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                  cache: Dict, ctx: Dict, decode: bool) -> torch.Tensor:
+    """An attention layer's sub-block output before its residual add, for
+    a decode step or a chunk; the layer's K/V land in ``cache`` in place.
+    A rank of the rank-split forward (``models.tp``) runs it on its head
+    shard (its columns of wq/wk/wv, its rows of wo, its heads of the
+    cache), so the output is that rank's partial sum."""
     window = _window_for(cfg, kind)
     h = apply_norm(p["attn_norm"], x, cfg.norm)
     tables = ctx.get("block_tables")
     if tables is not None and window is None:
         fn = attn.attention_decode_paged if decode \
             else attn.attention_chunk_paged
-        out = fn(p["attn"], h, cache, tables, ctx["pos"], cfg)
-    else:
-        fn = attn.attention_decode if decode else attn.attention_prefill_chunk
-        out = fn(p["attn"], h, cache, ctx["pos"], cfg, window=window)
-    x = x + out
-    if "cross" in p:  # decode only: encoder-decoder models never chunk
-        h = apply_norm(p["cross_norm"], x, cfg.norm)
-        x = x + attn.cross_attention(p["cross"], h, cache["ck"],
-                                     cache["cv"], cfg)
-    return _ffn(p, x, cfg, kind)[0]
+        return fn(p["attn"], h, cache, tables, ctx["pos"], cfg)
+    fn = attn.attention_decode if decode else attn.attention_prefill_chunk
+    return fn(p["attn"], h, cache, ctx["pos"], cfg, window=window)
 
 
 def _trunk_full(params: Dict, x: torch.Tensor, cfg: ModelConfig, ctx: Dict,
@@ -493,6 +521,11 @@ class Model:
     def init(self, seed: int = 0, dtype=torch.float32, device="cuda"):
         return init_params(self.cfg, seed, dtype, device)
 
+    def abstract_params(self, dtype=torch.float32) -> Dict:
+        """The params' shapes and dtypes as ``meta`` tensors (the
+        reference's ``abstract_params``): nothing is allocated."""
+        return init_params(self.cfg, 0, dtype, "meta")
+
     def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
         """Teacher-forced LM loss (the reference's ``loss``): ``batch =
         {"tokens": (B,S), "labels": (B,S)}`` plus ``"frontend_embeds"``
@@ -594,6 +627,54 @@ class Model:
         ``batch`` rows of them."""
         return make_cache(self.cfg, batch, cache_len, dtype,
                           paged=(n_blocks, block_size), device=device)
+
+    def cache_spec(self, batch: int, cache_len: int,
+                   dtype=torch.float32) -> List[Dict]:
+        """The dense decode cache's shapes as ``meta`` tensors."""
+        return make_cache(self.cfg, batch, cache_len, dtype, device="meta")
+
+    def input_specs(self, shape: InputShape,
+                    dtype=torch.float32) -> Dict:
+        """A step's inputs at ``shape`` as ``meta`` tensors, the
+        reference's stand-ins (``transformer.py:781``): tokens (and labels
+        for ``train``) of the whole sequence, a frontend model's F =
+        min(frontend tokens, S/2) embeddings ahead of S - F tokens, an
+        encoder-decoder model's ``enc_len(S)`` frame embeddings; one token
+        and its position per sequence for ``decode``."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+
+        def tok(b, s):
+            return torch.empty((b, s), dtype=torch.int32, device="meta")
+
+        def emb(n):
+            return torch.empty((B, n, cfg.d_model), dtype=dtype,
+                               device="meta")
+
+        if shape.kind == "decode":
+            return {"tokens": tok(B, 1),
+                    "pos": torch.empty((B,), dtype=torch.int32,
+                                       device="meta")}
+        specs: Dict = {}
+        n_tok = S
+        if cfg.enc_dec:
+            specs["frontend_embeds"] = emb(ModelSpecs.enc_len(S))
+        elif cfg.frontend is not None:
+            F = min(cfg.frontend_tokens or ModelSpecs.VLM_FRONTEND_TOKENS,
+                    S // 2)
+            specs["frontend_embeds"] = emb(F)
+            n_tok = S - F
+        specs["tokens"] = tok(B, n_tok)
+        if shape.kind == "train":
+            specs["labels"] = tok(B, n_tok)
+        return specs
+
+    def supports_shape(self, shape: InputShape) -> bool:
+        """False for ``long_500k`` on a full-attention stack: the
+        reference's documented skip (``transformer.py:819``)."""
+        if shape.name == "long_500k":
+            return self.cfg.subquadratic
+        return True
 
 
 def build_model(cfg: ModelConfig, **kw) -> Model:

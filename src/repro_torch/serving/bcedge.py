@@ -14,20 +14,17 @@ Two drivers live here:
   each ``act`` and each guard ``predict`` reads one value back from it, a
   device synchronisation per call.
 * ``PoolScheduler`` — the real runtime path: one discrete SAC agent per
-  model picks (b, m_c, token budget, speculation depth) over the instance
-  pool; b caps the active slots per instance, m_c is applied through
-  ``pool.scale_to`` so the action really spawns or drains engine
+  model picks (b, m_c, token budget, speculation depth, TP degree) over
+  the instance pool; b caps the active slots per instance, m_c is applied
+  through ``pool.scale_to`` so the action really spawns or drains engine
   instances, the token budget caps each iteration's prefill + decode
-  tokens and the depth is each instance's live ``spec_k``. Its guard
+  tokens, the depth is each instance's live ``spec_k`` and the degree the
+  devices each new instance spans (``pool.set_tp_degree``). Its guard
   checks an action against the models the pool calibrates from its own
-  measured iterations (contention, token cost with the verify surcharge,
-  KV occupancy).
-
-The reference's pool action also carries a TP degree; the port's pool
-serves one device per instance, so ``PoolScheduler`` refuses a
-``ServingConfig`` that offers more than ``tp_degrees=(1,)`` (ROADMAP.md,
-Queue A item 8). The TP collective surcharge
-(``tp_collective_ms_per_token``) comes with tensor parallelism.
+  measured iterations (contention, token cost per degree with the verify
+  surcharge and the analytic collective surcharge
+  ``tp_collective_ms_per_token``, KV occupancy) and the pool's device
+  set.
 """
 from __future__ import annotations
 
@@ -40,6 +37,7 @@ import numpy as np
 from repro_torch.config.base import ServingConfig
 from repro_torch.configs.paper_edge_models import EDGE_MODELS
 from repro_torch.core.interference import NNInterferencePredictor
+from repro_torch.launch.roofline import LINK_BW
 from repro_torch.serving import latency_model as lm
 from repro_torch.serving.simulator import EdgeServingEnv
 
@@ -203,33 +201,47 @@ def run_episode(env: EdgeServingEnv, agent,
 #:  KV budget headroom frac (1.0 for dense/unlimited pools),
 #:  log1p(prefill backlog tokens), log1p(preemptions since last decision),
 #:  prefix-cache hit rate (0 for dense or cache-off pools), speculative
-#:  acceptance rate, shared-device-set utilization, host-tier occupancy
-#:  frac]. The device-set feature reads 0: the port's pool has no device
-#:  budget until tensor parallelism (ROADMAP.md, Queue A item 8), as the
-#:  reference's reads for a pool without one.
+#:  acceptance rate, shared-device-set utilization (0 for a pool without
+#:  ``n_devices``), host-tier occupancy frac]
 POOL_STATE_DIM = 13
+
+#: bytes of one element of the all-reduced activations: the port serves
+#: fp32 (the reference prices bf16's 2)
+TP_PAYLOAD_BYTES = 4
+
+
+def tp_collective_ms_per_token(model_cfg, tp_degree: int) -> float:
+    """Analytic per-token collective surcharge at TP degree ``d``: each
+    layer all-reduces its (d_model,) residual twice per token (after the
+    row-split ``wo`` and ``w_down``), and a ring all-reduce moves
+    ``2(d-1)/d`` of the payload per device, priced at the link bandwidth
+    ``launch.roofline.LINK_BW`` (NVLink 4's data-sheet figure, not
+    measured; the reference prices a TPU's ICI). The guard adds it to the
+    measured per-degree token-cost fit, so a degree with no samples yet is
+    still priced."""
+    if tp_degree <= 1:
+        return 0.0
+    bytes_per_chip = model_cfg.n_layers * 2 \
+        * 2.0 * (tp_degree - 1) / tp_degree * model_cfg.d_model \
+        * TP_PAYLOAD_BYTES
+    return bytes_per_chip / LINK_BW * 1000.0
 
 
 class PoolScheduler:
     """(b, m_c) scheduler over a REAL ``ModelInstancePool``: b caps the
     active slots per instance, m_c is applied through ``pool.scale_to``,
-    and the token budget and speculation depth (``cfg.token_budgets``,
-    ``cfg.spec_depths``) are the third and fourth axes. One agent per
-    model (the port's ``SACAgent`` on the pool's device unless
-    ``agents`` are given); the SLO guard degrades infeasible actions,
-    speculation first, using the contention and token-cost models the
-    pool calibrates from its own measured iteration latencies. TP
-    degrees beyond ``(1,)`` raise (ROADMAP.md, Queue A item 8)."""
+    and the token budget, speculation depth and TP degree
+    (``cfg.token_budgets``, ``cfg.spec_depths``, ``cfg.tp_degrees``) are
+    the third, fourth and fifth axes. One agent per model (the port's
+    ``SACAgent`` on the pool's device unless ``agents`` are given); the
+    SLO guard degrades infeasible actions, speculation first, using the
+    contention and token-cost models the pool calibrates from its own
+    measured iteration latencies and the pool's device set."""
 
     def __init__(self, pool, cfg: ServingConfig,
                  slo_ms: Optional[Dict[str, float]] = None,
                  decode_steps_mean: float = 8.0, guard: bool = True,
                  learn: bool = True, seed: int = 0, agents=None):
-        if tuple(cfg.tp_degrees) != (1,):
-            raise NotImplementedError(
-                "TP degrees as a scheduler axis are not ported yet: the "
-                "port's pool serves one device per instance (ROADMAP.md, "
-                "Queue A item 8)")
         self.pool = pool
         self.cfg = cfg
         self.slo_ms = dict(slo_ms or {})
@@ -298,7 +310,8 @@ class PoolScheduler:
             np.log1p(max(0, new_preempts)),
             float(occ.get("prefix_hit_rate", 0.0)),
             min(1.0, max(0.0, float(p.spec_accept_rate()))),
-            0.0,  # shared-device-set utilization (no device budget yet)
+            min(1.0, p.devices_in_use() / p.n_devices)
+            if p.n_devices else 0.0,
             min(1.0, max(0.0, float(occ.get("host_frac", 0.0)))),
         ], np.float32)
 
@@ -328,7 +341,8 @@ class PoolScheduler:
         return max(slack, 2.0) / self.decode_steps_mean
 
     def _feasible(self, model: str, b: int, m_c: int,
-                  token_budget: int = 0, spec_k: int = 0) -> bool:
+                  token_budget: int = 0, spec_k: int = 0,
+                  tp_degree: int = 1) -> bool:
         """Eq.-1 feasibility per iteration at the PROPOSED overlap: the
         calibrated contention model's pool-iteration latency at the other
         models' busy instances plus ``m_c`` must fit the most urgent
@@ -338,9 +352,21 @@ class PoolScheduler:
         slot processes ``1 + k`` tokens, so ``k * b`` more tokens are
         priced on top of the budget (or of the ``b``-token decode floor
         without one). b enters through the KV guard
-        (``_kv_feasible``)."""
+        (``_kv_feasible``).
+
+        ``tp_degree`` prices the layout: the other models' devices plus
+        ``m_c * tp_degree`` must fit the pool's device set, and the
+        iteration's work (at least the ``b``-token decode floor) is priced
+        through that degree's token-cost fit plus the collective surcharge
+        (``tp_collective_ms_per_token``)."""
         if not self._kv_feasible(model, b, m_c):
             return False
+        n_dev = self.pool.n_devices
+        if n_dev:
+            dev_others = sum(i.tp_degree for i in self.pool.live()
+                             if i.model != model)
+            if dev_others + m_c * tp_degree > n_dev:
+                return False
         budget = self._iter_budget_ms(model)
         t1, c = self.pool.contention()
         if t1 > 0.0:
@@ -352,8 +378,13 @@ class PoolScheduler:
         work = token_budget
         if spec_k > 0:
             work = (token_budget if token_budget > 0 else b) + spec_k * b
+        if tp_degree > 1 and work == 0:
+            work = b  # decode floor: the collective surcharge is per token
         if work > 0:
-            base, per_tok = self.pool.token_cost()
+            base, per_tok = self.pool.token_cost(tp_degree) \
+                if tp_degree > 1 else self.pool.token_cost()
+            per_tok += tp_collective_ms_per_token(
+                self.pool.configs[model], tp_degree)
             if per_tok > 0.0 and lm.predicted_token_iter_ms(
                     base, per_tok, work) > budget:
                 return False
@@ -361,13 +392,13 @@ class PoolScheduler:
 
     def _apply(self, model: str, a: int) -> int:
         cfg = self.cfg
-        b, m_c, tb, sk = cfg.action_to_quad(a)
+        b, m_c, tb, sk, tp = cfg.action_to_quint(a)
         # under backlog the guard steps aside (only throughput clears an
         # old queue)
         slo = self.slo_ms.get(model, 1000.0)
         backlog = self.pool.oldest_slack_ms(model) < 0.5 * slo
         if self.guard and not backlog and \
-                not self._feasible(model, b, m_c, tb, sk):
+                not self._feasible(model, b, m_c, tb, sk, tp):
             self.guard_interventions += 1
             bs_levels = list(cfg.batch_sizes)
             ms = list(cfg.concurrency_levels)
@@ -379,31 +410,41 @@ class PoolScheduler:
             # speculation depths deepest first: walking on sheds the
             # verify surcharge until k is 0
             ks = sorted(cfg.spec_depths, reverse=True)
+            # TP degrees widest first: stepping down sheds the collective
+            # surcharge and frees m_c * (the step) devices
+            tps = sorted(cfg.tp_degrees, reverse=True)
             bi, mi = bs_levels.index(b), ms.index(m_c)
-            ti, ki = tbs.index(tb), ks.index(sk)
+            ti, ki, di = tbs.index(tb), ks.index(sk), tps.index(tp)
             # degrade speculation first (pure surcharge: dropping it sheds
             # no capacity), then the token budget (a tighter cap bounds
-            # the iteration), then concurrency (it contends and
-            # multiplies KV residency), then batch
-            while ki < len(ks) - 1 or ti < len(tbs) - 1 or mi > 0 \
-                    or bi > 0:
+            # the iteration), then the TP degree (collectives and devices
+            # go, per-instance KV capacity shrinks), then concurrency (it
+            # contends and multiplies KV residency), then batch
+            while ki < len(ks) - 1 or ti < len(tbs) - 1 \
+                    or di < len(tps) - 1 or mi > 0 or bi > 0:
                 if ki < len(ks) - 1:
                     ki += 1
                 elif ti < len(tbs) - 1:
                     ti += 1
+                elif di < len(tps) - 1:
+                    di += 1
                 elif mi > 0:
                     mi -= 1
                 else:
                     bi -= 1
                 if self._feasible(model, bs_levels[bi], ms[mi], tbs[ti],
-                                  ks[ki]):
+                                  ks[ki], tps[di]):
                     break
-            b, m_c, tb, sk = bs_levels[bi], ms[mi], tbs[ti], ks[ki]
+            b, m_c, tb, sk, tp = bs_levels[bi], ms[mi], tbs[ti], ks[ki], \
+                tps[di]
         self.pool.set_slot_cap(model, b)
+        # before scale_to: a degree change drains the mismatched
+        # instances and the scale-up respawns at the new degree
+        self.pool.set_tp_degree(model, tp)
         self.pool.scale_to(model, m_c)
         self.pool.set_token_budget(model, tb or None)
         self.pool.set_spec_k(model, sk)
-        return cfg.quad_to_action(b, m_c, tb, sk)
+        return cfg.quint_to_action(b, m_c, tb, sk, tp)
 
     # ---- decision epoch --------------------------------------------------
     def control(self) -> Dict[str, tuple]:

@@ -50,8 +50,15 @@ speculative decoding (n-gram or draft-model proposals checked by one
 verify forward per iteration, ``paged_prefill_attention`` on the card)
 and cancellation at any phase are ported, and so is seeded sampling,
 which draws from its own ``torch.Generator`` and so matches the
-reference in distribution, not token for token. Tensor parallelism is
-still to port and raises (see ROADMAP.md).
+reference in distribution, not token for token.
+
+Tensor parallelism: a continuous engine given a ``("model",)`` mesh
+(``repro_torch.launch.mesh.make_tp_mesh``) splits its weights and KV cache
+by head over the mesh's ranks and runs every step through the rank-split
+forward (``repro_torch.models.tp``), one process driving every rank.
+Block tables, the allocator, slots and queues stay on the host, one copy
+for all ranks. Attention-only stacks only; a recurrent, RWKV or MoE stack
+under a mesh raises (ROADMAP.md, Queue A item 8b).
 """
 from __future__ import annotations
 
@@ -70,6 +77,7 @@ from repro_torch.device import resolve_device, to_device
 from repro_torch.kernels import _build
 from repro_torch.models import build_model
 from repro_torch.models.bridge import params_from_jax
+from repro_torch.models.tp import TPModel
 from repro_torch.models.transformer import (pad_cache, paged_layer_kind,
                                             scatter_blocks)
 
@@ -849,8 +857,21 @@ class ContinuousBatchingEngine:
     resume, no recompute), and the prefix cache spills reclaimed blocks
     there before it would invalidate them.
 
+    ``mesh`` (a ``("model",)`` mesh, ``launch.mesh.make_tp_mesh``):
+    tensor parallelism, as the reference's. The weights and the KV cache
+    are split by head over the mesh's ranks (``launch.sharding``'s engine
+    rules), ``params`` and ``cache`` become lists in rank order, and every
+    step runs the ranks in lockstep through ``models.tp.TPModel``; block
+    tables, the allocator, slots and queues stay on the host, shared by
+    all ranks, and every direct cache write (a copy-on-write block, a
+    graft) acts on each rank. The checks are the reference's (a
+    ``'model'`` axis, the chunked path, the degree dividing the heads, a
+    ``share_from`` donor on the same mesh, no host tier), and a
+    recurrent, RWKV or MoE stack raises (ROADMAP.md, Queue A item 8b).
+
     The engine runs on ``device`` (default ``"cuda"``, which raises
-    without a GPU; pass ``device="cpu"`` for the plain versions). Weights
+    without a GPU; pass ``device="cpu"`` for the plain versions; under a
+    mesh, the mesh's rank-0 device, of the same type). Weights
     are drawn from ``seed`` unless ``params`` (the port's layout) are
     given or :meth:`load_jax_params` carries the reference's across.
     ``share_from`` (an engine of the same config on the same device)
@@ -878,10 +899,6 @@ class ContinuousBatchingEngine:
                 "architectures yet; use InferenceEngine")
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh (Queue A item 8, tensor parallelism) is not ported "
-                "yet (ROADMAP.md)")
         if token_budget is not None and token_budget < 1:
             raise ValueError(f"token_budget must be >= 1, got {token_budget}")
         if prefix_cache:
@@ -926,6 +943,26 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 "kv_host_blocks needs kv_layout='paged' (the host tier "
                 "swaps block-granular KV)")
+        #: tensor parallelism: the ``("model",)`` mesh this instance
+        #: spans (None: one device). Weights and the KV cache, dense slabs
+        #: and block pools alike, are split by head over its ranks;
+        #: ``self.params`` and ``self.cache`` are then lists in rank order
+        #: and ``self.model`` the rank-split forward. The reference's
+        #: checks, in its order (``TPModel`` holds the mesh's and the
+        #: config's).
+        self.mesh = mesh
+        tp_model = None
+        if mesh is not None:
+            tp_model = TPModel(cfg, mesh)
+            if kv_host_blocks > 0:
+                raise ValueError(
+                    "the host KV tier is single-device for now: swap-in "
+                    "writes outside the step would drop the pool's "
+                    "sharding")
+            if resolve_device(device).type != mesh.devices[0].type:
+                raise ValueError(
+                    f"engine device {device!r} is not the mesh's "
+                    f"({mesh.devices[0]})")
         self.kv_host_blocks = kv_host_blocks
         #: swapping a sequence or spilling a prefix block moves only
         #: block-pool state, so every layer must be paged (the prefix
@@ -935,7 +972,8 @@ class ContinuousBatchingEngine:
         #: paged; dense and hybrid layouts go through a staging cache
         self.fused_prefill = kv_layout == "paged" \
             and supports_prefix_cache(cfg)
-        self.device = resolve_device(device)
+        self.device = resolve_device(device) if mesh is None \
+            else mesh.devices[0]
         self.cfg = cfg
         self.n_slots = max(1, max_slots)
         self.cache_len = max_seq
@@ -948,6 +986,10 @@ class ContinuousBatchingEngine:
                 raise ValueError(
                     f"share_from donor lives on {share_from.device}, this "
                     f"engine on {self.device}")
+            if share_from.mesh != mesh:
+                raise ValueError(
+                    "share_from donor spans a different mesh; instances "
+                    "share weights only at the same TP degree")
             # co-resident instances of one model share weights (the
             # reference's share_from, engine.py:909); the KV cache below
             # stays per-instance
@@ -957,6 +999,9 @@ class ContinuousBatchingEngine:
             self.model = build_model(cfg)
             self.params = self.model.init(seed, device=self.device) \
                 if params is None else to_device(params, self.device)
+            if mesh is not None:
+                self.model = tp_model
+                self.params = self.model.shard_params(self.params)
         if kv_layout == "paged":
             self.block_size = block_size
             self.blocks_per_slot = -(-self.cache_len // block_size)
@@ -1037,9 +1082,18 @@ class ContinuousBatchingEngine:
         """Replace the weights with the reference's (its param pytree with
         numpy leaves; see ``repro_torch.models.bridge``). Engines that
         share this one's params dict see the new weights too."""
-        new = to_device(params_from_jax(params_np, self.cfg), self.device)
+        self.load_params(params_from_jax(params_np, self.cfg))
+
+    def load_params(self, params: Dict) -> None:
+        """Replace the weights with ``params`` (the port's layout, whole),
+        in place, so engines sharing this one's params see them too;
+        under a mesh they are split over its ranks first."""
+        params = to_device(params, self.device)
+        if self.mesh is not None:
+            self.params[:] = self.model.shard_params(params)
+            return
         self.params.clear()
-        self.params.update(new)
+        self.params.update(params)
 
     # ---- bookkeeping -----------------------------------------------------
     def _frontend_tokens(self) -> int:
@@ -1194,10 +1248,22 @@ class ContinuousBatchingEngine:
     def _copy_pool_block(self, dst: int, src: int) -> None:
         """Copy one physical block across every paged layer's K and V, in
         place (the copy-on-write of a fully covering chain's tail block;
-        every layer is paged wherever the prefix cache is on)."""
-        for c in self.cache:
-            for key in ("k", "v"):
-                c[key][dst].copy_(c[key][src])
+        every layer is paged wherever the prefix cache is on), on every
+        rank."""
+        for rank in self._ranks(self.cache):
+            for c in rank:
+                for key in ("k", "v"):
+                    c[key][dst].copy_(c[key][src])
+
+    def _ranks(self, cache) -> List:
+        """A cache (the engine's or a staging cache) as a list of per-rank
+        caches: itself under a mesh, one rank without."""
+        return cache if self.mesh is not None else [cache]
+
+    @property
+    def tp_degree(self) -> int:
+        """Devices this instance spans (1 = single-device engine)."""
+        return int(self.mesh.shape["model"]) if self.mesh is not None else 1
 
     def kv_block_mapping(self) -> Tuple[int, int]:
         """(logical block mappings, distinct physical blocks) over the
@@ -1699,11 +1765,21 @@ class ContinuousBatchingEngine:
         ``ffn_shift``) replaces row ``slot`` whole: the staging cache has
         the row's shape (a dense slab's speculation margin past
         ``cache_len`` excepted, which is zeroed), prefill wrote [0, S)
-        and the rest is zeros."""
+        and the rest is zeros. Under a mesh, every rank's cache from its
+        rank's staging cache."""
         kinds = self.cfg.layer_kinds()
-        for kind, full, one in zip(kinds, self.cache, one_cache):
+        for rank, one_rank in zip(self._ranks(self.cache),
+                                  self._ranks(one_cache)):
+            self._graft_rank(kinds, rank, one_rank, slot, block_ids,
+                             skip_blocks)
+
+    def _graft_rank(self, kinds, cache: List[Dict], one_cache: List[Dict],
+                    slot: int, block_ids: Optional[List[int]],
+                    skip_blocks: int) -> None:
+        for kind, full, one in zip(kinds, cache, one_cache):
             if block_ids is not None and paged_layer_kind(self.cfg, kind):
-                ids = self._int_tensor(block_ids[skip_blocks:])
+                ids = self._int_tensor(block_ids[skip_blocks:]).to(
+                    full["k"].device)
                 start = skip_blocks * self.block_size
                 cap = len(block_ids) * self.block_size
                 for key in ("k", "v"):
@@ -2265,4 +2341,5 @@ class ContinuousBatchingEngine:
             "n_spec_proposed": float(self.n_spec_proposed),
             "n_spec_accepted": float(self.n_spec_accepted),
             "n_spec_steps": float(self.n_spec_steps),
+            "tp_degree": float(self.tp_degree),
         }

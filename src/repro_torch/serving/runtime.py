@@ -52,8 +52,16 @@ models serve with k = 0.
 
 Every instance runs on the pool's ``device`` (default ``"cuda"``, which
 raises without a GPU; ``device="cpu"`` runs the kernels' plain versions).
-Tensor parallelism and a device budget raise ``NotImplementedError``
-(ROADMAP.md).
+
+Tensor parallelism: ``tp_degree`` (per model, ``set_tp_degree``, the
+``PoolScheduler``'s fifth axis) is the degree new instances of a model
+spawn at; an instance at degree d spans a ``("model",)`` mesh of d
+devices (d shards on the CPU, the first d GPUs on the card), so with
+``n_devices`` set, Σ tp over the live instances caps further spawns and
+m_c and the degree partition the device set together. A paged instance at
+degree d is charged ``ceil(grant / d)`` budget blocks, a budget block
+being per device, and keeps the whole grant. A degree change drains the
+instances at the old degree; the next ``scale_to`` respawns.
 """
 from __future__ import annotations
 
@@ -89,12 +97,6 @@ _seq = itertools.count()
 #: trailing window the contention/occupancy fits read (and the bound the
 #: sample lists are trimmed to, so long-lived serving loops do not leak)
 _SAMPLE_WINDOW = 512
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: the port's engine lacks it (ROADMAP.md, "
-        f"Queue A {item})")
 
 
 @dataclasses.dataclass
@@ -176,11 +178,13 @@ class ModelInstance:
     per-instance bookkeeping (resident requests, Eq.-1 slot share)."""
 
     def __init__(self, instance_id: int, model: str,
-                 engine: ContinuousBatchingEngine, kv_blocks: int = 0):
+                 engine: ContinuousBatchingEngine, kv_blocks: int = 0,
+                 tp_degree: int = 1):
         self.instance_id = instance_id
         self.model = model
         self.engine = engine
         self.kv_blocks = kv_blocks  # share of the pool's block budget
+        self.tp_degree = tp_degree  # devices this instance spans
         self.state = STARTING
         self.requests: Dict[int, PoolRequest] = {}  # engine rid -> request
         #: the engine's ``stats()`` when the instance retired (the engine
@@ -242,13 +246,6 @@ class ModelInstancePool:
             raise ValueError(
                 "kv_host_blocks needs kv_layout='paged' (the host tier "
                 "swaps block-granular KV)")
-        for flag, what, item in (
-                (tp_degree > 1, "tp_degree > 1",
-                 "item 8, tensor parallelism"),
-                (n_devices is not None, "n_devices",
-                 "item 8, tensor parallelism")):
-            if flag:
-                raise _unported(what, item)
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         self.device = resolve_device(device)
@@ -275,6 +272,15 @@ class ModelInstancePool:
         #: whose cache cannot rewind serve with k = 0
         self.spec_cap = max(0, spec_k)
         self.spec_ks: Dict[str, int] = {m: self.spec_cap for m in configs}
+        #: tensor parallelism: the degree each model's instances spawn at
+        #: (``set_tp_degree``), the shared device set's size (None:
+        #: unbudgeted), and one mesh per degree, built on first use over
+        #: the pool's device, so same-degree instances span a value-equal
+        #: mesh and share weights
+        self.tp_degrees: Dict[str, int] = {
+            m: max(1, tp_degree) for m in configs}
+        self.n_devices = n_devices
+        self._meshes: Dict[int, object] = {}
         #: target grant for a paged instance; default = dense-equivalent
         #: worst case
         self.blocks_per_instance = blocks_per_instance
@@ -302,6 +308,10 @@ class ModelInstancePool:
         #: (tokens processed, iteration wall ms) over busy iterations
         #: that loaded no kernel: calibrates latency_model.fit_token_cost
         self.token_samples: List[Tuple[int, float]] = []
+        #: the same samples keyed by TP degree, recorded only on
+        #: iterations whose busy instances all share one degree (the
+        #: per-degree fits the guard prices layouts with)
+        self.tp_token_samples: Dict[int, List[Tuple[int, float]]] = {}
         #: (total resident sequences, Σ kv_used_tokens) per pure-decode
         #: iteration: calibrates latency_model.fit_occupancy
         self.occupancy_samples: List[Tuple[int, int]] = []
@@ -309,8 +319,11 @@ class ModelInstancePool:
             m: [] for m in self.configs}
         self.slot_caps: Dict[str, int] = {m: max_slots for m in self.configs}
         self.queues: Dict[str, List[tuple]] = {m: [] for m in self.configs}
-        #: per-model weight donor: the first live instance's engine
-        self._templates: Dict[str, ContinuousBatchingEngine] = {}
+        #: weight donors keyed (model, tp degree): instances share
+        #: weights only at the same degree (their shards live on that
+        #: degree's mesh)
+        self._templates: Dict[Tuple[str, int],
+                              ContinuousBatchingEngine] = {}
         #: per-model weights (the port's layout on ``device``) that every
         #: template is built with; absent = drawn from ``seed``
         self._params: Dict[str, Dict] = {}
@@ -343,10 +356,9 @@ class ModelInstancePool:
         switch to them in place."""
         params = to_device(params, self.device)
         self._params[model] = params
-        tmpl = self._templates.get(model)
-        if tmpl is not None:
-            tmpl.params.clear()
-            tmpl.params.update(params)
+        for (m, _), tmpl in self._templates.items():
+            if m == model:
+                tmpl.load_params(params)
 
     def load_jax_params(self, model: str, params_np: Dict) -> None:
         """:meth:`load_params` with the reference's weights (its param
@@ -429,6 +441,38 @@ class ModelInstancePool:
         contention samples are recorded against."""
         return sum(1 for i in self.live() if i.n_resident > 0)
 
+    # ---- tensor parallelism ----------------------------------------------
+    def devices_in_use(self) -> int:
+        """Devices the live instances span: Σ tp_degree. With
+        ``n_devices`` set this bounds further spawns."""
+        return sum(i.tp_degree for i in self.live())
+
+    def _tp_mesh(self, tp: int):
+        """The mesh of degree ``tp`` (None at 1): ``tp`` shards on the
+        pool's CPU, or the first ``tp`` GPUs (``make_tp_mesh`` raises when
+        fewer are visible). Cached per degree."""
+        if tp <= 1:
+            return None
+        mesh = self._meshes.get(tp)
+        if mesh is None:
+            from repro_torch.launch.mesh import make_tp_mesh
+            mesh = make_tp_mesh(tp, [self.device] * tp
+                                if self.device.type == "cpu" else None)
+            self._meshes[tp] = mesh
+        return mesh
+
+    def set_tp_degree(self, model: str, tp: int) -> None:
+        """The fifth knob: the TP degree of future spawns of ``model``. A
+        live engine cannot re-shard, so RUNNING instances at another
+        degree start DRAINING and the next ``scale_to`` respawns."""
+        tp = max(1, tp)
+        if self.tp_degrees.get(model) == tp:
+            return
+        self.tp_degrees[model] = tp
+        for inst in self.instances[model]:
+            if inst.state == RUNNING and inst.tp_degree != tp:
+                inst.state = DRAINING
+
     def _dense_equiv_blocks(self) -> int:
         """The whole (max_slots, max_seq) slab expressed in blocks: what a
         dense instance commits by construction."""
@@ -449,27 +493,47 @@ class ModelInstancePool:
         return self.blocks_per_instance or self._dense_equiv_blocks()
 
     def can_spawn(self, model: Optional[str] = None) -> bool:
-        """The instance budget and the block budget allow one more spawn:
-        a dense instance must fit its whole slab, a paged one can start on
-        a partial grant (at least one slot's worth)."""
+        """The instance budget, the device budget and the block budget
+        allow one more spawn: a dense instance must fit its whole slab, a
+        paged one can start on a partial grant (at least one slot's worth,
+        charged per device). ``model`` prices that model's TP degree
+        (degree 1 when omitted)."""
         if self.total_live() >= self.max_instances:
+            return False
+        tp = self.tp_degrees.get(model, 1) if model else 1
+        if self.n_devices is not None and \
+                self.devices_in_use() + tp > self.n_devices:
             return False
         if self.kv_blocks_free is None:
             return True
         if self.kv_layout == "paged":
-            return self.kv_blocks_free >= self._min_viable_blocks()
+            return self.kv_blocks_free >= \
+                -(-self._min_viable_blocks() // tp)
         return self.kv_blocks_free >= self._dense_equiv_blocks()
 
     def spawn(self, model: str) -> ModelInstance:
-        """STARTING -> RUNNING. Raises when the instance budget or the
-        shared KV block budget is exhausted (``scale_to`` clamps)."""
+        """STARTING -> RUNNING. Raises when the instance budget, the
+        device set or the shared KV block budget is exhausted
+        (``scale_to`` clamps)."""
         if self.total_live() >= self.max_instances:
             raise RuntimeError(
                 f"pool at max_instances={self.max_instances}")
+        tp = self.tp_degrees.get(model, 1)
+        if self.n_devices is not None and \
+                self.devices_in_use() + tp > self.n_devices:
+            raise RuntimeError(
+                f"device budget exhausted: {model!r} at tp_degree={tp} "
+                f"needs {tp} of {self.n_devices} devices, "
+                f"{self.n_devices - self.devices_in_use()} free")
         grant = charge = self._spawn_grant()
         if self.kv_blocks_free is not None:
             if self.kv_layout == "paged":
-                charge = grant = min(grant, self.kv_blocks_free)
+                # a head-split block spreads over the instance's tp
+                # devices, so one (per-device) budget block buys tp pool
+                # blocks: the charge is ceil(grant / tp) and the engine
+                # keeps the whole grant
+                charge = min(-(-grant // tp), self.kv_blocks_free)
+                grant = charge * tp
                 if grant < self._min_viable_blocks():
                     raise RuntimeError(
                         f"KV block budget exhausted "
@@ -487,21 +551,24 @@ class ModelInstancePool:
             kw = {"block_size": self.block_size, "kv_blocks": grant,
                   "prefix_cache": self.prefix_cache
                   and supports_prefix_cache(self.configs[model]),
-                  "kv_host_blocks": self.kv_host_blocks}
+                  # the host tier is single-device: a sharded instance
+                  # resumes by recompute (its engine refuses the tier)
+                  "kv_host_blocks": self.kv_host_blocks if tp == 1 else 0}
         if self.spec_cap > 0 and supports_speculation(self.configs[model]):
             kw["spec_k"] = self.spec_cap
-        tmpl = self._templates.get(model)
+        tmpl = self._templates.get((model, tp))
         eng = ContinuousBatchingEngine(
             self.configs[model], max_slots=self.max_slots,
             max_seq=self.max_seq, seed=self.seed, kv_layout=self.kv_layout,
             token_budget=self.token_budgets.get(model), device=self.device,
             params=self._params.get(model) if tmpl is None else None,
-            share_from=tmpl, **kw)
+            share_from=tmpl, mesh=self._tp_mesh(tp), **kw)
         # spawn at the depth the scheduler set last (within the built cap)
         eng.spec_k = min(self.spec_ks.get(model, 0), eng.spec_max)
         if tmpl is None:
-            self._templates[model] = eng
-        inst = ModelInstance(self._next_iid, model, eng, kv_blocks=charge)
+            self._templates[(model, tp)] = eng
+        inst = ModelInstance(self._next_iid, model, eng, kv_blocks=charge,
+                             tp_degree=tp)
         # the engine reports per-token emissions and phase changes; the
         # pool maps engine request ids to pool requests
         eng.on_token = (lambda erid, tok, idx, _inst=inst:
@@ -535,7 +602,11 @@ class ModelInstancePool:
                     : len(run) - m_c]:
                 inst.state = DRAINING
             return m_c
-        draining = [i for i in self.instances[model] if i.state == DRAINING]
+        # revive only instances at the current degree: reviving another
+        # would undo a set_tp_degree decision
+        draining = [i for i in self.instances[model]
+                    if i.state == DRAINING
+                    and i.tp_degree == self.tp_degrees.get(model, 1)]
         while len(self.running(model)) < m_c and draining:
             draining.pop(0).state = RUNNING  # revive
         while len(self.running(model)) < m_c and self.can_spawn(model):
@@ -595,9 +666,11 @@ class ModelInstancePool:
                     keep.append(inst)
             self.instances[model] = keep
             if not keep:
-                # last instance gone: drop the weight donor (the weights
-                # free unless ``load_jax_params`` holds them)
-                self._templates.pop(model, None)
+                # last instance gone: drop the weight donors of every
+                # degree (the weights free unless ``load_params`` holds
+                # them)
+                for key in [k for k in self._templates if k[0] == model]:
+                    self._templates.pop(key)
                 if retired_any:
                     # preemption bookkeeping dies with the last instance:
                     # a respawned model starts outside any cooldown
@@ -1070,10 +1143,17 @@ class ModelInstancePool:
         iter_ms = (time.perf_counter() - t0) * 1000.0
         compiled = any(i.engine.last_step_compiled for i in busy)
         if not compiled:
-            self.token_samples.append(
-                (sum(i.engine.last_step_tokens for i in busy), iter_ms))
+            sample = (sum(i.engine.last_step_tokens for i in busy), iter_ms)
+            self.token_samples.append(sample)
             if len(self.token_samples) > 2 * _SAMPLE_WINDOW:
                 del self.token_samples[:-_SAMPLE_WINDOW]
+            degrees = {i.tp_degree for i in busy}
+            if len(degrees) == 1:
+                # one degree only: the sample prices that layout
+                bucket = self.tp_token_samples.setdefault(degrees.pop(), [])
+                bucket.append(sample)
+                if len(bucket) > 2 * _SAMPLE_WINDOW:
+                    del bucket[:-_SAMPLE_WINDOW]
         if pure_decode and not compiled:
             self.contention_samples.append((overlap, iter_ms))
             self.occupancy_samples.append(
@@ -1153,6 +1233,7 @@ class ModelInstancePool:
         self.contention_samples = []
         self.occupancy_samples = []
         self.token_samples = []
+        self.tp_token_samples = {}
         self.ttft_samples = []
         self.tpot_samples = []
         self.n_rejected = 0
@@ -1171,10 +1252,16 @@ class ModelInstancePool:
             return 0.0, 0.0
         return lm.fit_contention(self.contention_samples[-_SAMPLE_WINDOW:])
 
-    def token_cost(self) -> Tuple[float, float]:
+    def token_cost(self, tp_degree: Optional[int] = None
+                   ) -> Tuple[float, float]:
         """Calibrated ``(base_ms, per_token_ms)`` iteration-cost model
         (``latency_model.fit_token_cost``); ``(0, 0)`` before eight
-        samples."""
+        samples. ``tp_degree`` selects that degree's fit, where it has
+        eight samples; otherwise the global one."""
+        if tp_degree is not None:
+            bucket = self.tp_token_samples.get(tp_degree, [])
+            if len(bucket) >= 8:
+                return lm.fit_token_cost(bucket[-_SAMPLE_WINDOW:])
         if len(self.token_samples) < 8:
             return 0.0, 0.0
         return lm.fit_token_cost(self.token_samples[-_SAMPLE_WINDOW:])
@@ -1294,6 +1381,7 @@ class ModelInstancePool:
                 "generated_tokens": float(sum(len(r.tokens)
                                               for r in served)),
                 "m_c": float(self.m_c(model)),
+                "tp_degree": float(self.tp_degrees.get(model, 1)),
                 "queued": float(len(self.queues[model])),
                 "preempted": float(self.preempts_by_model.get(model, 0)),
             }
@@ -1306,6 +1394,7 @@ class ModelInstancePool:
         out = {
             "n_steps": float(self.n_steps),
             "live_instances": float(self.total_live()),
+            "devices_in_use": float(self.devices_in_use()),
             "retired_instances": float(len(self.retired)),
             "n_rejected": float(self.n_rejected),
             "n_cancelled": float(self.n_cancelled),

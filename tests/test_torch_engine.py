@@ -164,13 +164,31 @@ def test_submit_validates_prompt_bounds():
     {"kv_layout": "dense", "spec_k": 2},
     {"spec_k": 2}, {"kv_host_blocks": 4}, {"mesh": object()}])
 def test_unported_engine_features_raise(kw):
-    """Tensor parallelism (a mesh) still raises. Speculation (both
-    layouts) and the host tier are ported: the engine builds as the
-    reference's does and serves the reference's tokens."""
+    """Speculation (both layouts), the host tier and tensor parallelism (a
+    mesh) are ported: the engine builds as the reference's does. The mesh
+    case spans one device on both sides (this process has one jax
+    device; tests/test_torch_tp_engine.py runs tp = 2 and 4), and a mesh
+    that is not a mesh fails as the reference's does."""
     kw = {"kv_layout": "paged", **kw}
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ContinuousBatchingEngine(_torch_cfg(TINY), device="cpu", **kw)
+        for eng, args in ((JaxEngine, {}),
+                          (ContinuousBatchingEngine, {"device": "cpu"})):
+            with pytest.raises(AttributeError, match="axis_names"):
+                eng(TINY if eng is JaxEngine else _torch_cfg(TINY),
+                    **args, **kw)
+        from repro.launch.mesh import make_tp_mesh as jax_mesh
+        from repro_torch.launch.mesh import make_tp_mesh
+        je = JaxEngine(TINY, max_slots=2, max_seq=64, kv_layout="paged",
+                       mesh=jax_mesh(1))
+        te = ContinuousBatchingEngine(_torch_cfg(TINY), max_slots=2,
+                                      max_seq=64, kv_layout="paged",
+                                      mesh=make_tp_mesh(1, ["cpu"]),
+                                      device="cpu")
+        te.load_jax_params(jax.tree.map(np.asarray, je.params))
+        assert te.tp_degree == je.tp_degree == 1
+        prompt = np.arange(1, 12, dtype=np.int32)
+        assert [r.tokens.tolist() for r in te.run([prompt], 6)] == \
+            [r.tokens.tolist() for r in je.run([prompt], 6)]
         return
     je = JaxEngine(TINY, max_slots=2, max_seq=64, **kw)
     te = ContinuousBatchingEngine(_torch_cfg(TINY), max_slots=2, max_seq=64,
@@ -317,7 +335,7 @@ def test_port_never_imports_jax_or_the_reference():
         f"sys.path.insert(0, {ROOT!r}); import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
         "             m.startswith(('jax.', 'repro.')) or m == 'repro')\n"
-        "assert len(mods) >= 68, mods\n"
+        "assert len(mods) >= 74, mods\n"
         "print('BAD', bad)\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)

@@ -338,17 +338,23 @@ def test_lifecycle_events_and_hooks():
     ({"spec_k": 2}, "spec_k"), ({"tp_degree": 2}, "tp_degree"),
     ({"n_devices": 2}, "n_devices")])
 def test_unported_pool_arguments_raise(kw, what):
-    """Tensor parallelism (``tp_degree``, ``n_devices``) still raises. The
-    host tier, swap preemption and speculation are ported: the pool
-    builds as the reference's does and spawns engines built the same
-    way."""
-    if what in ("tp_degree", "n_devices"):
-        with pytest.raises(NotImplementedError, match=what):
-            _pool(**kw)
-        return
+    """The host tier, swap preemption, speculation and tensor parallelism
+    (``tp_degree``, ``n_devices``) are ported: the pool builds as the
+    reference's does and spawns engines built the same way. A tp = 2
+    spawn needs two jax devices on the reference's side, so that case
+    spawns on the port's side only (tests/test_torch_tp_pool.py holds
+    both sides in a subprocess)."""
     ref = JaxPool({"tiny-a": JaxModelConfig(**SPEC_A)}, max_instances=4,
                   max_slots=2, max_seq=64, **kw)
     pool = _pool(**kw)
+    assert (pool.tp_degrees, pool.n_devices) == (ref.tp_degrees,
+                                                 ref.n_devices)
+    if what == "tp_degree":
+        assert pool.scale_to("tiny-a", 1) == 1
+        inst = pool.running("tiny-a")[0]
+        assert inst.tp_degree == inst.engine.tp_degree == 2
+        assert pool.devices_in_use() == 2
+        return
     for p in (ref, pool):
         p.scale_to("tiny-a", 1)
     a, b = ref.running("tiny-a")[0].engine, pool.running("tiny-a")[0].engine
@@ -358,7 +364,7 @@ def test_unported_pool_arguments_raise(kw, what):
         (ref.preempt_mode, ref.spec_cap, ref.kv_host_blocks)
     st, want = pool.stats(), ref.stats()
     for key in ("n_swap_preempted", "swap_base_ms", "swap_ms_per_mb",
-                "spec_accept_rate"):
+                "spec_accept_rate", "devices_in_use"):
         assert st[key] == want[key]
 
 

@@ -232,14 +232,20 @@ def test_scheduler_drives_real_scaling():
 
 
 def test_unported_axes_raise():
-    """TP degrees as an action axis need tensor parallelism, which the
-    port lacks (the pool's own arguments raise too, see
-    tests/test_torch_pool.py). Speculation depths are ported: the fourth
-    axis sets every live engine's depth, as the reference's does."""
+    """TP degrees and speculation depths are ported: the fifth axis sets
+    the degree new instances spawn at (the instances at the old degree
+    drain), the fourth every live engine's depth, as the reference's
+    do."""
     pool = ModelInstancePool({"tiny-a": ModelConfig(**SPEC_A)}, spec_k=4,
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PoolScheduler(pool, ServingConfig(**SCFG, tp_degrees=(1, 2)))
+    scfg = ServingConfig(**SCFG, tp_degrees=(1, 2))
+    sched = PoolScheduler(pool, scfg, guard=False, seed=0)
+    for a in (scfg.quint_to_action(2, 2, 0, 0, 2),
+              scfg.quint_to_action(1, 1, 0, 0, 1)):
+        tp = scfg.action_to_quint(a)[4]
+        assert sched._apply("tiny-a", a) == a
+        assert pool.tp_degrees["tiny-a"] == tp
+        assert {i.tp_degree for i in pool.running("tiny-a")} == {tp}
     scfg = ServingConfig(**SCFG, spec_depths=(0, 2))
     sched = PoolScheduler(pool, scfg, guard=False, seed=0)
     for a in range(scfg.n_actions):

@@ -346,7 +346,8 @@ def test_stats_report_speculation():
     keys = ("spec_k", "spec_accept_rate", "n_spec_proposed",
             "n_spec_accepted", "n_spec_steps")
     assert {x: s[x] for x in keys} == {x: w[x] for x in keys}
-    assert set(w) - set(s) == {"tp_degree"}
+    assert set(w) - set(s) == set()
+    assert s["tp_degree"] == w["tp_degree"] == 1.0
 
 
 def test_effective_spec_k_budget_degradation():
