@@ -233,41 +233,55 @@ def _axis_size(mesh, entry) -> int:
     return n
 
 
-def shard_tree(tree, specs, mesh) -> List[Any]:
+def shard_tree(tree, specs, mesh, consume: bool = False) -> List[Any]:
     """One tree per rank of the 1-D ``("model",)`` ``mesh``: a leaf whose
     spec puts a dim on ``model`` is cut into ``tp`` equal slices along it,
     slice ``r`` a fresh tensor on ``mesh.devices[r]``; a replicated leaf
     is the leaf itself on a rank whose device it lives on, else one copy
-    per distinct device. ``specs`` is a tree of the same structure."""
+    per distinct device. ``tree`` is nested dicts and lists, ``specs`` a
+    tree of the same structure. ``consume`` sets each of ``tree``'s slots
+    to None once its leaf is cut, so a leaf nothing else holds is freed
+    before the next is cut: the peak is the tree plus one leaf's slices,
+    not twice the tree (a full-width arctic-480b layer's experts on one
+    card)."""
     if tuple(mesh.axis_names) != (M,):
         raise ValueError(f"shard_tree needs a ('model',) mesh, got "
                          f"{mesh.axis_names}")
     tp = mesh.shape[M]
-    copies: Dict[Tuple[int, torch.device], torch.Tensor] = {}
 
-    def place(r):
-        dev = mesh.devices[r]
-
-        def leaf_for(path, leaf, spec):
-            if not isinstance(leaf, torch.Tensor):
-                return leaf
-            dims = [i for i, s in enumerate(spec) if s == M]
-            if not dims:
-                if leaf.device == dev:
-                    return leaf
-                key = (id(leaf), dev)
-                if key not in copies:
-                    copies[key] = leaf.to(dev, copy=True)
-                return copies[key]
-            d = dims[0]
-            n = leaf.shape[d] // tp
+    def cut(leaf, spec) -> List[Any]:
+        if not isinstance(leaf, torch.Tensor):
+            return [leaf] * tp
+        dims = [i for i, s in enumerate(spec) if s == M]
+        if not dims:
+            copies = {leaf.device: leaf}
+            for dev in mesh.devices:
+                if dev not in copies:
+                    copies[dev] = leaf.to(dev, copy=True)
+            return [copies[dev] for dev in mesh.devices]
+        d = dims[0]
+        n = leaf.shape[d] // tp
+        out = []
+        for r, dev in enumerate(mesh.devices):
             part = leaf.narrow(d, r * n, n)
-            out = torch.empty(part.shape, dtype=leaf.dtype, device=dev)
-            return out.copy_(part)
+            out.append(torch.empty(part.shape, dtype=leaf.dtype,
+                                   device=dev).copy_(part))
+        return out
 
-        return tree_map_with_path(leaf_for, tree, specs)
+    def walk(node, spec) -> List[Any]:
+        if not isinstance(node, (dict, list)):
+            return cut(node, spec)
+        keys = list(node) if isinstance(node, dict) else range(len(node))
+        parts = {}
+        for k in keys:
+            parts[k] = walk(node[k], spec[k])
+            if consume:
+                node[k] = None
+        if isinstance(node, dict):
+            return [{k: parts[k][r] for k in keys} for r in range(tp)]
+        return [[parts[k][r] for k in keys] for r in range(tp)]
 
-    return [place(r) for r in range(tp)]
+    return walk(tree, specs)
 
 
 def _leaf_bytes(shape, spec: Spec, mesh, itemsize: int) -> int:

@@ -55,38 +55,55 @@ def _capacity(n_tokens: int, cfg: ModelConfig) -> int:
     return max(8, -(-cap // 8) * 8)
 
 
-def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig
-              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x (B,S,d) -> (y (B,S,d), aux ``{"lb_loss", "z_loss",
-    "drop_frac"}``). Capacity follows N = B * S, the rows of this call, so
-    a batch's pad rows and an engine's idle slots take slots as real
-    tokens do."""
-    B, S, d = x.shape
-    E, k = cfg.n_experts, cfg.top_k
-    N = B * S
-    xf = x.reshape(N, d)
-    logits = (xf @ p["router"]).float()                       # (N, E)
+def route(logits: torch.Tensor, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The dispatch of N rows from their router logits (N, E), over all E
+    experts: the probs, the top-k gates (renormalised for k > 1) and
+    experts, each (token, choice) entry's expert ``flat_e`` and slot
+    ``pos`` (N*k, token-major), ``keep`` (the slot is under the capacity
+    of N rows, ``_capacity``) and ``cap``. Every rank of an expert split
+    computes the same dispatch from the gathered logits, so drops do not
+    depend on the split."""
+    N, E = logits.shape
+    k = cfg.top_k
     probs = torch.softmax(logits, dim=-1)
     # top-k of the probs, descending (lax.top_k's order)
     gate_vals, gate_idx = torch.topk(probs, k, dim=-1, sorted=True)
     if k > 1:
         gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
-
     cap = _capacity(N, cfg)
-    flat_e = gate_idx.reshape(N * k)  # expert per (token, choice), token-major
+    flat_e = gate_idx.reshape(N * k)  # expert per (token, choice)
     onehot = F.one_hot(flat_e, E)                              # (N*k, E)
     # an entry's slot: how many earlier entries chose the same expert
     pos = (torch.cumsum(onehot, dim=0) - 1).gather(1, flat_e[:, None])[:, 0]
     keep = pos < cap
-    pos = torch.where(keep, pos, torch.zeros_like(pos))
+    return {"probs": probs, "gate_vals": gate_vals, "gate_idx": gate_idx,
+            "flat_e": flat_e, "pos": torch.where(keep, pos,
+                                                 torch.zeros_like(pos)),
+            "keep": keep, "cap": cap}
 
-    # scatter into (E, cap, d): a dropped entry adds a zero row at (e, 0),
-    # so accumulate (a plain indexed write with repeated indices would
-    # race the real token at slot 0)
+
+def experts_out(p: Dict, xf: torch.Tensor, r: Dict[str, torch.Tensor],
+                cfg: ModelConfig, e0: int = 0) -> torch.Tensor:
+    """The routed experts' output (N, d) for the rows xf (N, d) under the
+    dispatch ``r`` (``route``), through the experts ``p`` holds: all of
+    them, or a rank's ``w_gate.shape[0]`` from expert ``e0`` on, whose
+    kept entries alone it scatters into ``(E_rank, cap, d)`` and gathers
+    back (a partial sum over the ranks)."""
+    N, d = xf.shape
+    k = cfg.top_k
+    n_e = p["w_gate"].shape[0]
+    flat_e, keep = r["flat_e"], r["keep"]
+    mine = keep & (flat_e >= e0) & (flat_e < e0 + n_e)
+    e = torch.where(mine, flat_e - e0, torch.zeros_like(flat_e))
+    pos = torch.where(mine, r["pos"], torch.zeros_like(r["pos"]))
+
+    # scatter into (E, cap, d): an entry not kept here adds a zero row at
+    # (0, 0), so accumulate (a plain indexed write with repeated indices
+    # would race the real token at slot 0)
     xk = xf.repeat_interleave(k, dim=0) if k > 1 else xf        # (N*k, d)
-    contrib = torch.where(keep[:, None], xk, torch.zeros_like(xk))
-    buf = torch.zeros((E, cap, d), dtype=x.dtype, device=x.device)
-    buf.index_put_((flat_e, pos), contrib, accumulate=True)
+    contrib = torch.where(mine[:, None], xk, torch.zeros_like(xk))
+    buf = torch.zeros((n_e, r["cap"], d), dtype=xf.dtype, device=xf.device)
+    buf.index_put_((e, pos), contrib, accumulate=True)
 
     # expert SwiGLU: three grouped GEMMs
     h = moe_matmul(buf, p["w_gate"])
@@ -94,18 +111,33 @@ def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig
     h = F.silu(h) * u
     y_e = moe_matmul(h, p["w_down"])                           # (E, cap, d)
 
-    # gather back, weight by the gates (zero for dropped entries), sum
-    y_tok = y_e[flat_e, pos]                                   # (N*k, d)
-    y_tok = y_tok * (gate_vals.reshape(N * k, 1)
-                     * keep[:, None]).to(x.dtype)
-    y = y_tok.reshape(N, k, d).sum(dim=1) if k > 1 else y_tok
+    # gather back, weight by the gates (zero for entries not kept here),
+    # sum over the choices
+    y_tok = y_e[e, pos]                                        # (N*k, d)
+    y_tok = y_tok * (r["gate_vals"].reshape(N * k, 1)
+                     * mine[:, None]).to(xf.dtype)
+    return y_tok.reshape(N, k, d).sum(dim=1) if k > 1 else y_tok
+
+
+def moe_apply(p: Dict, x: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x (B,S,d) -> (y (B,S,d), aux ``{"lb_loss", "z_loss",
+    "drop_frac"}``). Capacity follows N = B * S, the rows of this call, so
+    a batch's pad rows and an engine's idle slots take slots as real
+    tokens do."""
+    B, S, d = x.shape
+    E = cfg.n_experts
+    xf = x.reshape(B * S, d)
+    logits = (xf @ p["router"]).float()                       # (N, E)
+    r = route(logits, cfg)
+    y = experts_out(p, xf, r, cfg)
 
     # aux: switch-style load balance over the first choice, router z-loss
-    frac_tokens = F.one_hot(gate_idx[:, 0], E).float().mean(dim=0)
-    mean_probs = probs.mean(dim=0)
+    frac_tokens = F.one_hot(r["gate_idx"][:, 0], E).float().mean(dim=0)
+    mean_probs = r["probs"].mean(dim=0)
     lb_loss = E * torch.sum(frac_tokens * mean_probs)
     z_loss = torch.logsumexp(logits, dim=-1).square().mean()
-    dropped = 1.0 - keep.float().mean()
+    dropped = 1.0 - r["keep"].float().mean()
 
     if cfg.moe_dense_residual:
         y = y + apply_mlp(p["dense_mlp"], xf, cfg.activation)

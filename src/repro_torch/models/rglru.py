@@ -68,10 +68,14 @@ def _conv1d_causal(u: torch.Tensor, conv_w: torch.Tensor,
     return out + conv_b, full[:, -(CONV_W - 1):, :].contiguous()
 
 
-def _gates(p: Dict, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (a, gated_in) in u's dtype; the gate math runs in f32."""
-    r = torch.sigmoid((u @ p["W_a"] + p["b_a"]).float())
-    i = torch.sigmoid((u @ p["W_i"] + p["b_i"]).float())
+def _gates(p: Dict, u_in: torch.Tensor, u: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (a, gated_in) in u's dtype; the gate math runs in f32. The
+    gates read ``u_in``, the whole width; the recurrence's input is ``u``,
+    ``u_in`` itself unsplit or a rank's columns of it, the columns of
+    ``W_a``, ``W_i``, ``b_a``, ``b_i`` and ``lam`` it holds."""
+    r = torch.sigmoid((u_in @ p["W_a"] + p["b_a"]).float())
+    i = torch.sigmoid((u_in @ p["W_i"] + p["b_i"]).float())
     log_a = -DECAY_C * F.softplus(p["lam"].float()) * r
     a = torch.exp(log_a)
     gated_in = torch.sqrt(torch.clamp(1.0 - a.square(), min=1e-12)) * (
@@ -79,33 +83,58 @@ def _gates(p: Dict, u: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return a.to(u.dtype), gated_in.to(u.dtype)
 
 
-def rglru_seq(p: Dict, x: torch.Tensor, cfg: ModelConfig, state: Dict
-              ) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence Griffin recurrent block from the carried ``state``.
-    x (B,S,d) is the *normed* input. Returns (out (B,S,d), new state)."""
+def rglru_conv(p: Dict, x: torch.Tensor, state: Dict, decode: bool
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's input branch: ``x @ W_x`` through the causal conv. x
+    (B,S,d) is the *normed* input. Returns (u, new conv history): u
+    (B,S,w), or (B,w) for a decode step (S = 1). Depthwise, so a rank
+    holding columns of ``W_x`` and ``conv_*`` computes its columns of
+    u."""
     u = x @ p["W_x"]
-    u, new_conv = _conv1d_causal(u, p["conv_w"], p["conv_b"], state["conv"])
-    a, gated_in = _gates(p, u)
+    if not decode:
+        return _conv1d_causal(u, p["conv_w"], p["conv_b"], state["conv"])
+    full = torch.cat([state["conv"], u], dim=1)  # (B,CONV_W,w)
+    u1 = torch.einsum("bcw,cw->bw", full, p["conv_w"].flip(0)) + p["conv_b"]
+    return u1, full[:, 1:, :]
+
+
+def rglru_mix(p: Dict, x: torch.Tensor, u_in: torch.Tensor,
+              u: torch.Tensor, state: Dict, decode: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gates (from ``u_in``, the whole width), the recurrence over
+    ``u``'s width from ``state["h"]`` (``kernels.rglru_scan`` over a
+    sequence, the one-step formula at decode), the GELU gate and ``W_o``.
+    Returns (out (B,S,d), new h). A rank holding columns of the width
+    (and rows of ``W_o``) returns its partial sum of out."""
+    a, gated_in = _gates(p, u_in, u)
+    if decode:
+        h = a * state["h"].float() + gated_in
+        gate = gelu(x[:, 0, :] @ p["W_gate"])
+        return ((gate * h.to(x.dtype)) @ p["W_o"])[:, None, :], h.to(
+            state["h"].dtype)
     hs, new_h = rglru_scan(a.float().contiguous(),
                            gated_in.float().contiguous(),
                            state["h"].float().contiguous())
     gate = gelu(x @ p["W_gate"])
     out = (gate * hs.to(x.dtype)) @ p["W_o"]
-    return out, {"h": new_h.to(state["h"].dtype), "conv": new_conv}
+    return out, new_h.to(state["h"].dtype)
+
+
+def rglru_seq(p: Dict, x: torch.Tensor, cfg: ModelConfig, state: Dict
+              ) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence Griffin recurrent block from the carried ``state``.
+    x (B,S,d) is the *normed* input. Returns (out (B,S,d), new state)."""
+    u, new_conv = rglru_conv(p, x, state, False)
+    out, new_h = rglru_mix(p, x, u, u, state, False)
+    return out, {"h": new_h, "conv": new_conv}
 
 
 def rglru_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig, state: Dict
                  ) -> Tuple[torch.Tensor, Dict]:
     """x (B,1,d) normed input; a single recurrent step."""
-    u = x @ p["W_x"]  # (B,1,w)
-    full = torch.cat([state["conv"], u], dim=1)  # (B,CONV_W,w)
-    u1 = torch.einsum("bcw,cw->bw", full, p["conv_w"].flip(0)) + p["conv_b"]
-    a, gated_in = _gates(p, u1)
-    h = a * state["h"].float() + gated_in
-    gate = gelu(x[:, 0, :] @ p["W_gate"])
-    out = (gate * h.to(x.dtype)) @ p["W_o"]
-    return out[:, None, :], {"h": h.to(state["h"].dtype),
-                             "conv": full[:, 1:, :]}
+    u, new_conv = rglru_conv(p, x, state, True)
+    out, new_h = rglru_mix(p, x, u, u, state, True)
+    return out, {"h": new_h, "conv": new_conv}
 
 
 def rglru_state_init(cfg: ModelConfig, batch: int, dtype, device) -> Dict:

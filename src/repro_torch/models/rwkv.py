@@ -16,7 +16,7 @@ one-step formula. The head count is ``d_model // rwkv_head_size``, not
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -80,70 +80,89 @@ def _ddlerp(tm: Dict, x: torch.Tensor, xx: torch.Tensor,
     return x + xx * (tm[f"mu_{nm}"] + lora)
 
 
-def _rkvwg(tm: Dict, x: torch.Tensor, shifted: torch.Tensor, H: int,
-           hd: int):
+def _rkvwg(tm: Dict, x: torch.Tensor, shifted: torch.Tensor, lo: int):
+    """r, k, v, w (…, H, hd) and g (…, H * hd) for the heads of ``tm``:
+    ``u``'s (H, hd), all of them or a rank's, whose channels start at
+    ``lo``. The token-shift LoRAs read the whole x; the decay LoRA's
+    output is cut to the rank's channels, as ``w_base`` is."""
+    H, hd = tm["u"].shape
     xx = shifted - x
     r = _ddlerp(tm, x, xx, "r") @ tm["W_r"]
     k = _ddlerp(tm, x, xx, "k") @ tm["W_k"]
     v = _ddlerp(tm, x, xx, "v") @ tm["W_v"]
     g = F.silu(_ddlerp(tm, x, xx, "g") @ tm["W_g"])
     w_in = _ddlerp(tm, x, xx, "w")
-    log_w = tm["w_base"].float() + (
-        torch.tanh(w_in @ tm["A_w"]) @ tm["B_w"]).float()
-    w = torch.exp(-torch.exp(log_w))  # (…, d) in (0,1)
+    lora = torch.tanh(w_in @ tm["A_w"]) @ tm["B_w"]
+    log_w = tm["w_base"].float() + lora[..., lo:lo + H * hd].float()
+    w = torch.exp(-torch.exp(log_w))  # (…, H * hd) in (0,1)
     shp = tuple(x.shape[:-1]) + (H, hd)
     return (r.reshape(shp), k.reshape(shp), v.reshape(shp), w.reshape(shp),
             g)
 
 
 def time_mix_seq(tm: Dict, x: torch.Tensor, cfg: ModelConfig,
-                 state: torch.Tensor, shift: torch.Tensor
+                 state: torch.Tensor, shift: torch.Tensor, lo: int = 0
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence time-mix. x (B,S,d); state (B,H,hd,hd); shift (B,d).
-    Returns (out (B,S,d), new_state, new_shift)."""
-    B, S, d = x.shape
-    H, hd = _heads(cfg)
-    r, k, v, w, g = _rkvwg(tm, x, _token_shift(x, shift), H, hd)
+    Returns (out (B,S,d), new_state, new_shift). A rank holding heads
+    from channel ``lo`` on (their columns of ``W_r``/``W_k``/``W_v``/
+    ``W_g`` and ``w_base``, rows of ``u``, ``att_state`` and ``W_o``)
+    returns its partial sum of out."""
+    B, S, _ = x.shape
+    r, k, v, w, g = _rkvwg(tm, x, _token_shift(x, shift), lo)
     out, new_state = rwkv6_scan(
         *(t.float().contiguous() for t in (r, k, v, w)),
         tm["u"].float().contiguous(), state.float().contiguous())
     out = apply_norm(tm["ln_x"], out.to(x.dtype), "rmsnorm")
-    out = (out.reshape(B, S, d) * g) @ tm["W_o"]
+    out = (out.reshape(B, S, g.shape[-1]) * g) @ tm["W_o"]
     return out, new_state.to(state.dtype), x[:, -1, :].contiguous()
 
 
 def time_mix_decode(tm: Dict, x: torch.Tensor, cfg: ModelConfig,
-                    state: torch.Tensor, shift: torch.Tensor):
-    """Single-token decode. x (B,1,d)."""
-    B, _, d = x.shape
-    H, hd = _heads(cfg)
+                    state: torch.Tensor, shift: torch.Tensor, lo: int = 0):
+    """Single-token decode. x (B,1,d); a rank as in ``time_mix_seq``."""
+    B = x.shape[0]
     xt = x[:, 0, :]
-    r, k, v, w, g = _rkvwg(tm, xt, shift, H, hd)
+    r, k, v, w, g = _rkvwg(tm, xt, shift, lo)
     new_state, out = wkv_step(state.float(), r.float(), k.float(),
                               v.float(), w.float(), tm["u"].float())
     out = apply_norm(tm["ln_x"], out[:, :, None, :].transpose(1, 2)
                      .to(x.dtype), "rmsnorm")  # (B,1,H,hd)
-    out = (out.reshape(B, 1, d) * g[:, None, :]) @ tm["W_o"]
+    out = (out.reshape(B, 1, g.shape[-1]) * g[:, None, :]) @ tm["W_o"]
     return out, new_state.to(state.dtype), xt
+
+
+def channel_mix_parts(cm: Dict, x: torch.Tensor, shift: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The channel mix's two factors and the new shift: (``sigmoid(xr @
+    W_r)``, ``relu(xk @ W_k)^2 @ W_v``, new_shift). A rank holding
+    columns of ``W_r`` has those columns of the first; one holding columns
+    of ``W_k`` and rows of ``W_v`` a partial sum of the second."""
+    xx = _token_shift(x, shift) - x
+    xk = x + xx * cm["mu_k"]
+    xr = x + xx * cm["mu_r"]
+    k = torch.square(torch.relu(xk @ cm["W_k"]))
+    return (torch.sigmoid(xr @ cm["W_r"]), k @ cm["W_v"],
+            x[:, -1, :].contiguous())
 
 
 def channel_mix(cm: Dict, x: torch.Tensor, shift: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,d) (S may be 1); returns (out, new_shift)."""
-    xx = _token_shift(x, shift) - x
-    xk = x + xx * cm["mu_k"]
-    xr = x + xx * cm["mu_r"]
-    k = torch.square(torch.relu(xk @ cm["W_k"]))
-    out = torch.sigmoid(xr @ cm["W_r"]) * (k @ cm["W_v"])
-    return out, x[:, -1, :].contiguous()
+    r, kv, new_shift = channel_mix_parts(cm, x, shift)
+    return r * kv, new_shift
 
 
-def rwkv_state_init(cfg: ModelConfig, batch: int, dtype, device) -> Dict:
+def rwkv_state_init(cfg: ModelConfig, batch: int, dtype, device,
+                    n_heads: Optional[int] = None) -> Dict:
+    """A zero state; ``n_heads`` sizes ``att_state`` for a rank's heads
+    (default all). The shifts are whole on every rank: they feed the
+    token-shift LoRAs, which read the whole x."""
     d = cfg.d_model
     H, hd = _heads(cfg)
     return {
-        "att_state": torch.zeros((batch, H, hd, hd), dtype=torch.float32,
-                                 device=device),
+        "att_state": torch.zeros((batch, n_heads or H, hd, hd),
+                                 dtype=torch.float32, device=device),
         "att_shift": torch.zeros((batch, d), dtype=dtype, device=device),
         "ffn_shift": torch.zeros((batch, d), dtype=dtype, device=device),
     }

@@ -140,27 +140,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
 # =====================================================================
 # layers and trunks
 # =====================================================================
-def ffn_out(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-            kind: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The FFN sub-block's output before its residual add: the experts in
-    an MoE layer, else the MLP (the reference's ``_ffn_apply``). Returns
-    (y, aux loss): an MoE layer's ``lb_loss + 1e-3 * z_loss``, which only
-    the training loss reads, else 0. A rank of the rank-split forward
-    (``models.tp``) runs it on its columns of ``w_up``/``w_gate`` and rows
-    of ``w_down``, so y is that rank's partial sum."""
+def _ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+         kind: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual FFN sub-block (the reference's ``_ffn_apply``): x plus
+    the experts' output in an MoE layer, else the MLP's. Returns (x + y,
+    aux loss): an MoE layer's ``lb_loss + 1e-3 * z_loss``, which only the
+    training loss reads, else 0."""
     h = apply_norm(p["ffn_norm"], x, cfg.norm)
     if _is_moe(cfg, kind):
         y, aux = moe.moe_apply(p["ffn"], h, cfg)
-        return y, aux["lb_loss"] + 1e-3 * aux["z_loss"]
-    return apply_mlp(p["ffn"], h, cfg.activation), x.new_zeros(
+        return x + y, aux["lb_loss"] + 1e-3 * aux["z_loss"]
+    return x + apply_mlp(p["ffn"], h, cfg.activation), x.new_zeros(
         (), dtype=torch.float32)
-
-
-def _ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-         kind: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The residual FFN sub-block: (x + y, aux loss) of ``ffn_out``."""
-    y, aux = ffn_out(p, x, cfg, kind)
-    return x + y, aux
 
 
 def _recurrent(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,

@@ -57,8 +57,9 @@ Tensor parallelism: a continuous engine given a ``("model",)`` mesh
 by head over the mesh's ranks and runs every step through the rank-split
 forward (``repro_torch.models.tp``), one process driving every rank.
 Block tables, the allocator, slots and queues stay on the host, one copy
-for all ranks. Attention-only stacks only; a recurrent, RWKV or MoE stack
-under a mesh raises (ROADMAP.md, Queue A item 8b).
+for all ranks. Attention, RG-LRU, RWKV-6 and MoE layers all split (each
+rank's recurrent states sit beside its KV pool); frontend and
+encoder-decoder engines stay single-device, as in the reference.
 """
 from __future__ import annotations
 
@@ -858,16 +859,20 @@ class ContinuousBatchingEngine:
     there before it would invalidate them.
 
     ``mesh`` (a ``("model",)`` mesh, ``launch.mesh.make_tp_mesh``):
-    tensor parallelism, as the reference's. The weights and the KV cache
-    are split by head over the mesh's ranks (``launch.sharding``'s engine
-    rules), ``params`` and ``cache`` become lists in rank order, and every
-    step runs the ranks in lockstep through ``models.tp.TPModel``; block
-    tables, the allocator, slots and queues stay on the host, shared by
-    all ranks, and every direct cache write (a copy-on-write block, a
-    graft) acts on each rank. The checks are the reference's (a
-    ``'model'`` axis, the chunked path, the degree dividing the heads, a
-    ``share_from`` donor on the same mesh, no host tier), and a
-    recurrent, RWKV or MoE stack raises (ROADMAP.md, Queue A item 8b).
+    tensor parallelism, as the reference's. The weights and the decode
+    cache are split over the mesh's ranks (``launch.sharding``'s engine
+    rules and ``models.tp``'s cuts: attention and RWKV-6 by head, RG-LRU
+    by width, experts over E), ``params`` and ``cache`` become lists in
+    rank order, and every step runs the ranks in lockstep through
+    ``models.tp.TPModel``; block tables, the allocator, slots and queues
+    stay on the host, shared by all ranks, and every direct cache write (a
+    copy-on-write block, a graft of KV rows and recurrent states) acts on
+    each rank. ``params`` may then also be the shards already cut
+    (``TPModel.shard_params``, one tree per rank on its device), which the
+    engine takes as they are: a caller can cut with ``consume=True`` and
+    hand a model too large for two copies over. The checks are the
+    reference's (a ``'model'`` axis, the chunked path, the degree dividing
+    the heads, a ``share_from`` donor on the same mesh, no host tier).
 
     The engine runs on ``device`` (default ``"cuda"``, which raises
     without a GPU; pass ``device="cpu"`` for the plain versions; under a
@@ -997,11 +1002,19 @@ class ContinuousBatchingEngine:
             self.params = share_from.params
         else:
             self.model = build_model(cfg)
-            self.params = self.model.init(seed, device=self.device) \
-                if params is None else to_device(params, self.device)
-            if mesh is not None:
+            if isinstance(params, list):  # a mesh's shards, cut already
+                if mesh is None or len(params) != tp_model.tp:
+                    raise ValueError(
+                        f"params as {len(params)} shards need a mesh of "
+                        "that degree")
+                self.model, self.params = tp_model, params
+            else:
+                self.params = self.model.init(seed, device=self.device) \
+                    if params is None else to_device(params, self.device)
+            if mesh is not None and self.model is not tp_model:
                 self.model = tp_model
-                self.params = self.model.shard_params(self.params)
+                self.params = self.model.shard_params(self.params,
+                                                      consume=True)
         if kv_layout == "paged":
             self.block_size = block_size
             self.blocks_per_slot = -(-self.cache_len // block_size)

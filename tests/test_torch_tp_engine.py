@@ -8,7 +8,9 @@ devices; the port's ranks all sit on the CPU device of this process
 bridged. The bar is the reference's: greedy tokens identical across
 layouts (paged with and without the prefix cache and a token budget,
 dense, ``share_from``), speculation, and TP degrees 2 and 4; the
-rank-split forward's logits within 1e-5 of the unsplit one's.
+rank-split forward's logits within 1e-5 of the unsplit one's, the
+RG-LRU, RWKV-6 and MoE stacks' included (their engines:
+test_torch_tp_recurrent.py).
 """
 import dataclasses
 
@@ -135,9 +137,19 @@ def test_windowed_stack_token_identity():
 def _logit_cases():
     """Reduced configs with two KV heads: qk-norm and a tied,
     vocabulary-split head (qwen3), rope2d (chatglm3), sliding-window rings
-    and an untied head (starcoder2)."""
+    and an untied head (starcoder2); the hybrid RG-LRU and the RWKV-6 TINY
+    stacks (width and heads split) and reduced arctic-480b (experts split,
+    a dense residual MLP beside them)."""
     return [dataclasses.replace(get_reduced_config(a), n_kv_heads=2)
-            for a in ("qwen3-0.6b", "chatglm3-6b", "starcoder2-15b")]
+            for a in ("qwen3-0.6b", "chatglm3-6b", "starcoder2-15b",
+                      "arctic-480b")] + [
+        ModelConfig(**dataclasses.asdict(KIND_CFGS[k]))
+        for k in ("rglru", "rwkv")]
+
+
+#: the dim each cache leaf is cut along (KV by head, RG-LRU by width,
+#: RWKV-6's state by head); shifts are whole on every rank
+CACHE_CUT = {"k": 2, "v": 2, "h": -1, "conv": -1, "att_state": 1}
 
 
 @pytest.mark.parametrize("cfg", _logit_cases(), ids=lambda c: c.name)
@@ -145,7 +157,7 @@ def test_rank_split_logits_match_unsplit(cfg):
     """prefill_chunk, decode_step and verify_step of the rank-split
     forward at tp = 2 (dense cache) and 4 (paged, where the heads allow)
     within 1e-5 absolute of ``Model``'s on the same params and inputs;
-    the caches agree head for head."""
+    the caches agree slice for slice."""
     model = build_model(cfg)
     params = model.init(0, device="cpu")
     rng = np.random.default_rng(3)
@@ -165,20 +177,25 @@ def test_rank_split_logits_match_unsplit(cfg):
             a, _ = model.decode_step(params, c1, batch)
             b, _ = tpm.decode_step(shards, cn, batch)
             assert a.shape == b.shape and (a - b).abs().max() < 1e-5
-        batch = {"tokens": toks[:, :4], "pos": pos + T + 3}
-        a, _ = model.verify_step(params, c1, batch)
-        b, _ = tpm.verify_step(shards, cn, batch)
-        assert a.shape == b.shape and (a - b).abs().max() < 1e-5
+        if "rglru" not in cfg.layer_kinds() and \
+                "rwkv" not in cfg.layer_kinds():  # verify: rewindable only
+            batch = {"tokens": toks[:, :4], "pos": pos + T + 3}
+            a, _ = model.verify_step(params, c1, batch)
+            b, _ = tpm.verify_step(shards, cn, batch)
+            assert a.shape == b.shape and (a - b).abs().max() < 1e-5
         for layer, one in enumerate(c1):
-            for key in ("k", "v"):
-                whole = torch.cat([c[layer][key] for c in cn], dim=2)
-                assert (whole - one[key]).abs().max() < 1e-5
+            for key, t in one.items():
+                parts = [c[layer][key] for c in cn]
+                whole = torch.cat(parts, dim=CACHE_CUT[key]) \
+                    if key in CACHE_CUT else parts[0]
+                assert (whole - t).abs().max() < 1e-5, (layer, key)
 
 
 def test_engine_refusals():
     """The reference's refusals under a mesh: no 'model' axis, a degree
     that does not divide the heads ("must divide"), a frontend model, the
-    host tier; and the port's own for the stacks item 8b will split."""
+    host tier; and an engine device that is not the mesh's. The RG-LRU,
+    RWKV-6 and MoE stacks' own are in test_torch_tp_recurrent.py."""
     cfg = ModelConfig(**SPEC2)
     data = TPMesh((torch.device("cpu"),), ("data",), {"data": 1})
     with pytest.raises(ValueError, match="'model' axis"):
@@ -198,17 +215,3 @@ def test_engine_refusals():
         ContinuousBatchingEngine(cfg, mesh=TPMesh(
             (torch.device("meta"),) * 2, ("model",), {"model": 2}),
             device="cpu")
-
-
-@pytest.mark.parametrize("kind", ["rglru", "rwkv", "moe"])
-def test_recurrent_rwkv_and_moe_stacks_raise_item_8b(kind):
-    """RG-LRU, RWKV-6 and MoE layers under a mesh are ROADMAP's Queue A
-    item 8b: the engine raises naming it, and never serves them
-    unsplit."""
-    if kind == "moe":
-        cfg = dataclasses.replace(get_reduced_config("arctic-480b"),
-                                  n_kv_heads=2)
-    else:
-        cfg = ModelConfig(**dataclasses.asdict(KIND_CFGS[kind]))
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        ContinuousBatchingEngine(cfg, mesh=_mesh(2), device="cpu")
