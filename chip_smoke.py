@@ -51,7 +51,11 @@ and CPU alike. Before the models it drives the
 simulator path behind the paper's utility figures at the CLI's defaults
 (``phase_sim``: the edge-serving simulator with SAC and the interference
 predictor guard on the card, each baseline scheduler, the CLI, and a
-greedy episode on the card against the CPU). Last come the rope2d,
+greedy episode on the card against the CPU), then the paper's figure
+runners (``phase_figures``: the four engine figures of
+``repro_torch.figures`` at the smoke profile on the card, their own
+assertions holding and their kernels counted, and Fig. 16's decision ms
+with the agents on the card and on the host CPU). Last come the rope2d,
 M-RoPE / vision-frontend, encoder-decoder, windowed and llama-style
 families at their published widths, one on the card at a time
 (``phase_families``: chatglm3-6b paged, qwen2-vl-7b paged and dense,
@@ -75,6 +79,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -748,6 +753,7 @@ def phase_kernels(torch, device):
         del c
         torch.cuda.empty_cache()
     _family_kernels(torch, device, w, run, run_decode, errs)
+    _figure_kernels(torch, device, w, run, run_decode, errs)
     phase_grads(torch, device)
     return errs
 
@@ -912,6 +918,48 @@ def _family_kernels(torch, device, w, run, run_decode, errs):
         for B, C, mode, extra in case["decode"]:
             run_decode(C, mode, B=B, **heads, **extra)
         torch.cuda.empty_cache()
+
+
+#: the engine figures' own models (``repro_torch.figures``): hd 32 at
+#: 2 heads (fig_paged_kv, fig_prefix_cache, the multi-model figure's
+#: tiny-dense) and 4 heads (fig_preemption_chunked), hd 48 at 2 heads
+#: (the multi-model figure's tiny-wide), all MHA
+FIGURE_HEADS = ({"H": 2, "KV": 2, "hd": 32}, {"H": 2, "KV": 2, "hd": 48},
+                {"H": 4, "KV": 4, "hd": 32})
+#: (B, nb) of the figures' paged decode at block 16: the pool panel's 2
+#: slots of max_seq 128, fig_prefix_cache's 8 slots at the smoke (128) and
+#: full (704) max_seq, fig_paged_kv's 32 slots of 256
+FIGURE_SPLITK = ((2, 8), (8, 8), (8, 44), (32, 16))
+#: (T, pos, nb) of the figures' paged prefill: prompt buckets from 0, a
+#: prefix-cache hit's tail after 3 cached blocks, a one-token resume at a
+#: table's end, fig_paged_kv's 16 columns and the full prefix profile's
+#: 512-token prefix and its tail
+FIGURE_PREFILL = ((1, 63, 8), (16, 0, 8), (16, 48, 8), (32, 0, 8),
+                  (64, 0, 8), (16, 0, 16), (528, 0, 44), (16, 512, 44))
+#: (B, C) of the figures' dense decode: the multi-model figure's 2 slots
+#: of 64, fig_paged_kv's pool panel (2 x 128) and dense layout (8 x 256),
+#: fig_preemption_chunked's pool (2 x 512) and engine (4 x 768)
+FIGURE_DECODE = ((2, 64), (2, 128), (8, 256), (2, 512), (4, 768))
+
+
+def _figure_kernels(torch, device, w, run, run_decode, errs):
+    """Split-K (with the unsplit kernel), paged prefill and dense decode
+    at each head set of ``FIGURE_HEADS``, at the shapes the engine figures
+    hand them, against their plain versions on the same poisoned inputs."""
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    for heads in FIGURE_HEADS:
+        H, KV, hd = heads["H"], heads["KV"], heads["hd"]
+        tag = f"figure heads ({H},{KV},{hd})"
+        _check_splitk(torch, device, w, errs, heads, FIGURE_SPLITK, n_sm,
+                      f"{tag} ")
+        for T, pos, nb in FIGURE_PREFILL:
+            run("paged_prefill_attention", f"{tag} q (1,{T},{H},{hd}) pos "
+                f"{pos} tables (1,{nb})",
+                paged_prefill_case(torch, device, T, pos, nb=nb, **heads))
+        for B, C in FIGURE_DECODE:
+            for mode in ("linear", "round", "sparse"):
+                run_decode(C, mode, B=B, **heads)
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- phase 4
@@ -4256,6 +4304,82 @@ def phase_sim(torch, device, smi):
     return got
 
 
+# ---------------------------------------------------------------- figures
+#: the figure runners whose engines run on the card, at the smoke profile
+FIGURES_ENGINE = ("fig_paged_kv", "fig_preemption_chunked",
+                  "fig_prefix_cache", "fig_multimodel_concurrency")
+
+
+def _figure(name, device):
+    """Run ``repro_torch.figures.<name>`` at the smoke profile on
+    ``device``: its rows are logged, its own assertions raise. Returns
+    (its return value, seconds)."""
+    import contextlib
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"repro_torch.figures.{name}")
+    buf = io.StringIO()
+    before = os.environ.get("BENCH_SMOKE")
+    os.environ["BENCH_SMOKE"] = "1"
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = mod.main(device=device)
+    finally:
+        if before is None:
+            del os.environ["BENCH_SMOKE"]
+        else:
+            os.environ["BENCH_SMOKE"] = before
+    secs = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log(f"  {line}")
+    return out, secs
+
+
+def phase_figures(torch, device, smi):
+    """The paper's figure runners (``repro_torch.figures``) on the card:
+    the four engine figures at the smoke profile, each of its own
+    assertions holding (a failed one raises), with the kernels they launch
+    counted (paged prefill and paged decode or split-K must run); then
+    Fig. 16's decision ms with the agents on the card and on the host
+    CPU. Returns the launch counts."""
+    launches = {name: 0 for name in REPLACES}
+    for name in FIGURES_ENGINE:
+        reset_launches()
+        out, secs = _figure(name, device)
+        torch.cuda.synchronize()
+        got = read_launches()
+        for k, n in got.items():
+            launches[k] += n
+        log(f"figures: {name} {secs:.1f} s on the card; launches "
+            f"{ {k: n for k, n in got.items() if n} } [{smi}]")
+        if name == "fig_prefix_cache" and not out["token_identical"]:
+            fail("figures: prefix-cache outputs diverge")
+        if name == "fig_preemption_chunked" and not all(
+                r["hog_token_identical"] and r["hog_tokens_ok"]
+                for r in out["pool"]):
+            fail("figures: a preempted hog's tokens differ")
+    if not launches["paged_prefill_attention"] or not (
+            launches["paged_decode_attention"]
+            + launches["paged_decode_attention_splitk"]):
+        fail(f"figures: paged prefill and paged decode or split-K must "
+             f"launch, got {launches}")
+    ms = {}
+    for where in (device, "cpu"):
+        reset_launches()
+        out, secs = _figure("fig16_overhead", where)
+        if any(read_launches().values()):
+            fail("figures: fig16 launched kernels")
+        ms[str(where)] = out
+        log(f"figures: fig16_overhead on {where} {secs:.1f} s: decision "
+            f"ms SAC {out['sac']:.4f}, TAC {out['tac']:.4f}, EDF "
+            f"{out['edf']:.4f} [{smi}]")
+    log(f"figures: fig16 SAC decision ms, card {ms[str(device)]['sac']:.4f} "
+        f"vs host CPU {ms['cpu']['sac']:.4f}; launches {launches}")
+    return launches
+
+
 # ---------------------------------------------------------------- TP
 #: tensor parallelism on the one card: an instance of degree TP_DEGREE with
 #: both shards on it (there is one H100 here, so no tp > 1 across distinct
@@ -4738,8 +4862,9 @@ def _train_checkpoint(torch, device):
 
 
 def run(torch, device, smi):
-    """Every phase after the build: kernels vs plain, timing, the three
-    serving paths of full-width qwen3-0.6b, its online path (preemption,
+    """Every phase after the build: kernels vs plain, timing, training,
+    the simulator, the figure runners' engine figures and Fig. 16, the
+    three serving paths of full-width qwen3-0.6b, its online path (preemption,
     HTTP, seeded sampling), its prefix cache, speculative decoding and
     the host KV tier and tensor parallelism, then the dense
     continuous engine and round mode of each full-width recurrent family
@@ -4776,6 +4901,8 @@ def run(torch, device, smi):
     mark("train")
     add(phase_sim(torch, device, smi))
     mark("sim")
+    add(phase_figures(torch, device, smi))
+    mark("figures")
 
     full = get_config(FULL)
     params = init_params(full, seed=0, device=device)

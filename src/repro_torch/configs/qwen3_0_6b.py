@@ -1,5 +1,10 @@
 """Qwen3-0.6B [hf:Qwen/Qwen3-8B family] — qk_norm (RMSNorm on per-head q/k),
-GQA(kv=8), head_dim 128 decoupled from d_model, tied embeddings."""
+GQA(kv=8), head_dim 128 decoupled from d_model, tied embeddings.
+
+A beyond-paper sliding-window variant ("qwen3-0.6b-swa", w=8192) is also
+registered so a small dense arch covers long_500k."""
+import dataclasses
+
 from repro_torch.config.base import ModelConfig
 from repro_torch.config.registry import register
 
@@ -21,3 +26,6 @@ CONFIG = register(ModelConfig(
     activation="silu",
     norm="rmsnorm",
 ))
+
+SWA_VARIANT = register(dataclasses.replace(
+    CONFIG, name="qwen3-0.6b-swa", sliding_window=8192))

@@ -2303,6 +2303,14 @@ class ContinuousBatchingEngine:
         total = self.n_prefix_hit_tokens + self.n_prefill_chunk_tokens
         return self.n_prefix_hit_tokens / total if total else 0.0
 
+    @property
+    def kv_free_tokens(self) -> int:
+        """Admission headroom in tokens: unreserved blocks (paged) or
+        free slots x cache_len (dense)."""
+        if self.kv_layout == "paged":
+            return self.allocator.n_available * self.block_size
+        return len(self.free_slots) * self.cache_len
+
     def stats(self) -> Dict[str, float]:
         """Counters + KV occupancy metrics (the reference's keys for the
         features the port has, plus ``n_prefill_chunks``).

@@ -198,6 +198,11 @@ class ModelInstance:
         return len(self.requests)
 
     @property
+    def free_capacity(self) -> int:
+        """Engine slots not held by a resident request."""
+        return self.engine.n_slots - self.n_resident
+
+    @property
     def slo_sum_ms(self) -> float:
         """Σ SLO over resident requests: this instance's contribution to
         the model's Eq.-1 scheduling slot."""

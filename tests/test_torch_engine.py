@@ -324,8 +324,9 @@ def _env():
 
 def test_port_never_imports_jax_or_the_reference():
     """Importing every module of repro_torch (and chip_smoke.py) leaves
-    jax and every ``repro.`` module out of sys.modules: run in a fresh
-    interpreter, since this one imported jax through conftest.py."""
+    jax, every ``repro.`` module and the reference's ``benchmarks`` out
+    of sys.modules: run in a fresh interpreter, since this one imported
+    jax through conftest.py."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -333,9 +334,10 @@ def test_port_never_imports_jax_or_the_reference():
         "    repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         f"sys.path.insert(0, {ROOT!r}); import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
-        "             m.startswith(('jax.', 'repro.')) or m == 'repro')\n"
-        "assert len(mods) >= 74, mods\n"
+        "bad = sorted(m for m in sys.modules if m in\n"
+        "             ('jax', 'repro', 'benchmarks') or\n"
+        "             m.startswith(('jax.', 'repro.', 'benchmarks.')))\n"
+        "assert len(mods) >= 90, mods\n"
         "print('BAD', bad)\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)
