@@ -52,10 +52,15 @@ simulator path behind the paper's utility figures at the CLI's defaults
 (``phase_sim``: the edge-serving simulator with SAC and the interference
 predictor guard on the card, each baseline scheduler, the CLI, and a
 greedy episode on the card against the CPU), then the paper's figure
-runners (``phase_figures``: the four engine figures of
-``repro_torch.figures`` at the smoke profile on the card, their own
-assertions holding and their kernels counted, and Fig. 16's decision ms
-with the agents on the card and on the host CPU). Last come the rope2d,
+runners (``phase_figures``: the eight engine figures of
+``repro_torch.figures`` at the smoke profile on the card, speculative
+decoding, fused prefill, the host KV tier and a tp = 2 pool among them,
+their own assertions holding, their tokens checked and their kernels
+counted, the HTTP server smoke (``repro_torch.launch.server_smoke``) in a
+process of its own beside them, and Fig. 16's decision ms with the agents
+on the card and on the host CPU; the attention kernels are also held at
+the figures' head widths, 16 to 48, blocks of 8 and 16 and their verify
+windows). Last come the rope2d,
 M-RoPE / vision-frontend, encoder-decoder, windowed and llama-style
 families at their published widths, one on the card at a time
 (``phase_families``: chatglm3-6b paged, qwen2-vl-7b paged and dense,
@@ -922,10 +927,15 @@ def _family_kernels(torch, device, w, run, run_decode, errs):
 
 #: the engine figures' own models (``repro_torch.figures``): hd 32 at
 #: 2 heads (fig_paged_kv, fig_prefix_cache, the multi-model figure's
-#: tiny-dense) and 4 heads (fig_preemption_chunked), hd 48 at 2 heads
-#: (the multi-model figure's tiny-wide), all MHA
+#: tiny-dense, fig_speculative, fig_fused_kernels) and 4 heads
+#: (fig_preemption_chunked, fig_kv_offload), hd 48 at 2 heads (the
+#: multi-model figure's tiny-wide), hd 16 at 2 heads (fig_sharded_engine
+#: at tp = 1, the server smoke) and at 1 head (a tp = 2 rank of
+#: fig_sharded_engine), hd 24 at 2 heads (fig_async_serving), all MHA.
+#: At hd 16 and 24 the decode body's lanes past hd / 4 hold no dimension.
 FIGURE_HEADS = ({"H": 2, "KV": 2, "hd": 32}, {"H": 2, "KV": 2, "hd": 48},
-                {"H": 4, "KV": 4, "hd": 32})
+                {"H": 4, "KV": 4, "hd": 32}, {"H": 2, "KV": 2, "hd": 16},
+                {"H": 1, "KV": 1, "hd": 16}, {"H": 2, "KV": 2, "hd": 24})
 #: (B, nb) of the figures' paged decode at block 16: the pool panel's 2
 #: slots of max_seq 128, fig_prefix_cache's 8 slots at the smoke (128) and
 #: full (704) max_seq, fig_paged_kv's 32 slots of 256
@@ -938,24 +948,76 @@ FIGURE_PREFILL = ((1, 63, 8), (16, 0, 8), (16, 48, 8), (32, 0, 8),
                   (64, 0, 8), (16, 0, 16), (528, 0, 44), (16, 512, 44))
 #: (B, C) of the figures' dense decode: the multi-model figure's 2 slots
 #: of 64, fig_paged_kv's pool panel (2 x 128) and dense layout (8 x 256),
-#: fig_preemption_chunked's pool (2 x 512) and engine (4 x 768)
-FIGURE_DECODE = ((2, 64), (2, 128), (8, 256), (2, 512), (4, 768))
+#: fig_preemption_chunked's pool (2 x 512) and engine (4 x 768),
+#: fig_fused_kernels' staging engine at the smoke (4 x 128) and full
+#: (4 x 256) profiles
+FIGURE_DECODE = ((2, 64), (2, 128), (8, 256), (2, 512), (4, 768), (4, 128),
+                 (4, 256))
+#: (bs, B, nb) of split-K at the second half's figures, recorded from
+#: their smoke runs: blocks of 8 for fig_fused_kernels (4 slots of 128),
+#: fig_kv_offload (2 of 512), fig_sharded_engine (12 of 128) and
+#: fig_async_serving (3 of 96); blocks of 16 for fig_speculative (4 of 256)
+FIGURE_SPLITK_BS = ((8, 4, 16), (8, 2, 64), (8, 12, 16), (8, 3, 12),
+                    (16, 4, 16))
+#: (bs, T, pos, nb) of their paged prefill: fig_fused_kernels' chunks and
+#: tails at blocks of 8 over 16 columns, fig_kv_offload's 256-token
+#: admission and its budget-8 resume pieces over 64, the async figure's
+#: buckets over 12; at blocks of 16, fig_speculative's prompt and the
+#: server smoke's buckets over 8
+FIGURE_PREFILL_BS = ((8, 1, 14, 16), (8, 2, 12, 16), (8, 16, 16, 16),
+                     (8, 32, 0, 16), (8, 256, 0, 64), (8, 8, 101, 64),
+                     (8, 1, 174, 64), (8, 16, 0, 12), (8, 32, 0, 12),
+                     (16, 16, 0, 16), (16, 32, 0, 8))
+#: (bs, nb, W, pos) of their batched verify windows, one null column
+#: past the table as the engine widens it: fig_speculative's (4, 5) at
+#: k = 4 over 16 columns of 16 (the last slot 3 tokens from the end, so
+#: its cap is 2) and fig_fused_kernels' speculative variant, (4, 4) at
+#: k = 3 over 16 columns of 8
+FIGURE_VERIFY = ((16, 16, 5, (16, 47, 100, 253)),
+                 (8, 16, 4, (32, 33, 17, 125)))
 
 
 def _figure_kernels(torch, device, w, run, run_decode, errs):
-    """Split-K (with the unsplit kernel), paged prefill and dense decode
-    at each head set of ``FIGURE_HEADS``, at the shapes the engine figures
-    hand them, against their plain versions on the same poisoned inputs."""
+    """Split-K (with the unsplit kernel), paged prefill (chunks and batched
+    verify windows) and dense decode at each head set of
+    ``FIGURE_HEADS``, at the shapes the engine figures hand them, against
+    their plain versions on the same poisoned inputs."""
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    pre, pre_plain = w["paged_prefill_attention"]
     for heads in FIGURE_HEADS:
         H, KV, hd = heads["H"], heads["KV"], heads["hd"]
         tag = f"figure heads ({H},{KV},{hd})"
         _check_splitk(torch, device, w, errs, heads, FIGURE_SPLITK, n_sm,
                       f"{tag} ")
+        for bs, B, nb in FIGURE_SPLITK_BS:
+            _check_splitk(torch, device, w, errs, dict(heads, bs=bs),
+                          ((B, nb),), n_sm, f"{tag} blocks of {bs} ")
         for T, pos, nb in FIGURE_PREFILL:
             run("paged_prefill_attention", f"{tag} q (1,{T},{H},{hd}) pos "
                 f"{pos} tables (1,{nb})",
                 paged_prefill_case(torch, device, T, pos, nb=nb, **heads))
+        for bs, T, pos, nb in FIGURE_PREFILL_BS:
+            run("paged_prefill_attention", f"{tag} q (1,{T},{H},{hd}) pos "
+                f"{pos} tables (1,{nb}) of {bs}",
+                paged_prefill_case(torch, device, T, pos, bs=bs, nb=nb,
+                                   **heads))
+        for bs, nb, W, pos in FIGURE_VERIFY:
+            # rows past a slot's cap read the poisoned null block; the
+            # engine ignores their logits
+            c = paged_verify_case(torch, device, bs=bs, nb=nb, pos=pos, W=W,
+                                  **heads)
+            caps = verify_caps(pos, W, nb * bs)
+            keep = torch.zeros((len(pos), W), dtype=torch.bool,
+                               device=device)
+            for b, k in enumerate(caps):
+                keep[b, :k + 1] = True
+            errs["paged_prefill_attention"] = max(
+                errs["paged_prefill_attention"],
+                _check(torch, "paged_prefill_attention",
+                       pre(**c)[keep], pre_plain(**c)[keep],
+                       f"{tag} verify q ({len(pos)},{W},{H},{hd}) pos "
+                       f"{list(pos)} tables ({len(pos)},{nb + 1}) of {bs} "
+                       f"(one null column), rows <= k_i {caps}"))
         for B, C in FIGURE_DECODE:
             for mode in ("linear", "round", "sparse"):
                 run_decode(C, mode, B=B, **heads)
@@ -2239,10 +2301,11 @@ def phase_pool(torch, device, smi):
         f"idle share {1 - busy / p50:.1%}; paged decode (with the split-K "
         f"combine) {dec_ms:.3f} ms [{smi}]")
     torch.cuda.empty_cache()
+    # 5 s (10 before PR 29, cut for time): 12 requests/s overload it
     got, _, _ = _pool_run(torch, device, smi, "dense",
                           models=list(POOL_DENSE),
                           cfgs={m: get_config(m) for m in POOL_DENSE},
-                          kv_layout="dense", duration_s=10.0, rps=12.0,
+                          kv_layout="dense", duration_s=5.0, rps=12.0,
                           slo_ms=2000.0, max_new_tokens=4)
     for name, n in got.items():
         launches[name] += n
@@ -3979,7 +4042,9 @@ def phase_edge(torch, device, smi, seed=0):
 #: Xavier NX at 30 requests/s per model, SAC at batch 256 and lr 5e-4,
 #: the NN predictor as the guard): simulated ms of each learning episode
 #: and of each baseline's
-SIM_EPISODE_MS = 20_000.0
+#: (20 s before PR 29, cut for time: the second learning episode's
+#: updates take most of the phase)
+SIM_EPISODE_MS = 12_000.0
 SIM_BASELINE_MS = 10_000.0
 #: relative gap the card's and the CPU's guard predictions may have where
 #: a verdict flips (a near-tie); the greedy logit margin of a shown tie
@@ -4307,7 +4372,23 @@ def phase_sim(torch, device, smi):
 # ---------------------------------------------------------------- figures
 #: the figure runners whose engines run on the card, at the smoke profile
 FIGURES_ENGINE = ("fig_paged_kv", "fig_preemption_chunked",
-                  "fig_prefix_cache", "fig_multimodel_concurrency")
+                  "fig_prefix_cache", "fig_multimodel_concurrency",
+                  "fig_speculative", "fig_fused_kernels", "fig_kv_offload",
+                  "fig_sharded_engine")
+#: the kernels a figure of the second half must launch on the card: split-K
+#: decode and paged prefill (chunks, resumes, verify windows) in each, and
+#: dense decode in the fused figure's staging engine
+FIGURE_LAUNCHES = {
+    "fig_speculative": ("paged_decode_attention_splitk",
+                        "paged_prefill_attention"),
+    "fig_fused_kernels": ("paged_decode_attention_splitk",
+                          "paged_prefill_attention", "decode_attention"),
+    "fig_kv_offload": ("paged_decode_attention_splitk",
+                       "paged_prefill_attention"),
+    "fig_sharded_engine": ("paged_decode_attention_splitk",
+                           "paged_prefill_attention")}
+#: seconds the server smoke may take (it runs beside the engine figures)
+SERVER_SMOKE_S = 300.0
 
 
 def _figure(name, device):
@@ -4337,29 +4418,85 @@ def _figure(name, device):
     return out, secs
 
 
+def _figure_outcome(name, out):
+    """The token identity and counts a figure's payload must show on the
+    card (its own assertions have held when it returns); a message, or
+    None."""
+    if name == "fig_prefix_cache" and not out["token_identical"]:
+        return "prefix-cache outputs diverge"
+    if name == "fig_preemption_chunked" and not all(
+            r["hog_token_identical"] and r["hog_tokens_ok"]
+            for r in out["pool"]):
+        return "a preempted hog's tokens differ"
+    if name == "fig_speculative" and not (
+            out["token_identical"] and out["rows"][1]["proposed"] > 0):
+        return f"speculative rows {out['rows']}"
+    if name == "fig_fused_kernels" and out["token_identity_variants"] != {
+            v: 4 for v in ("plain", "budgeted", "prefix_cache",
+                           "speculative")}:
+        return f"fused identity {out['token_identity_variants']}"
+    if name == "fig_kv_offload" and not all(
+            r["token_identical"] and all(
+                t["device_live"] == t["host_live"] == 0
+                for t in r["trials"]) for r in out["rows"]):
+        return "a resumed hog's tokens differ, or blocks leak"
+    if name == "fig_sharded_engine":
+        tp1, tp2 = out["measured"]["tp1"], out["measured"]["tp2"]
+        if tp2["kv_pool_blocks"] != 2 * tp1["kv_pool_blocks"] or \
+                tp2["resident_capacity"] <= tp1["resident_capacity"]:
+            return f"tp = 2 pool {tp2} against tp = 1 {tp1}"
+    return None
+
+
+def _server_smoke():
+    """``python -m repro_torch.launch.server_smoke`` on the card, started
+    in a process of its own (its server thread serves until the process
+    ends): returns the running process."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.server_smoke"], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
 def phase_figures(torch, device, smi):
     """The paper's figure runners (``repro_torch.figures``) on the card:
-    the four engine figures at the smoke profile, each of its own
-    assertions holding (a failed one raises), with the kernels they launch
-    counted (paged prefill and paged decode or split-K must run); then
-    Fig. 16's decision ms with the agents on the card and on the host
-    CPU. Returns the launch counts."""
+    the eight engine figures at the smoke profile, each of its own
+    assertions holding (a failed one raises) and its tokens and counts
+    checked, with the kernels they launch counted (paged prefill and
+    paged decode or split-K must run, and each of the second half's its
+    ``FIGURE_LAUNCHES``); beside them, the HTTP server smoke in a process
+    of its own; then Fig. 16's decision ms with the agents on the card and
+    on the host CPU. Returns the launch counts."""
     launches = {name: 0 for name in REPLACES}
-    for name in FIGURES_ENGINE:
-        reset_launches()
-        out, secs = _figure(name, device)
-        torch.cuda.synchronize()
-        got = read_launches()
-        for k, n in got.items():
-            launches[k] += n
-        log(f"figures: {name} {secs:.1f} s on the card; launches "
-            f"{ {k: n for k, n in got.items() if n} } [{smi}]")
-        if name == "fig_prefix_cache" and not out["token_identical"]:
-            fail("figures: prefix-cache outputs diverge")
-        if name == "fig_preemption_chunked" and not all(
-                r["hog_token_identical"] and r["hog_tokens_ok"]
-                for r in out["pool"]):
-            fail("figures: a preempted hog's tokens differ")
+    t0 = time.perf_counter()
+    smoke = _server_smoke()
+    try:
+        for name in FIGURES_ENGINE:
+            reset_launches()
+            out, secs = _figure(name, device)
+            torch.cuda.synchronize()
+            got = read_launches()
+            for k, n in got.items():
+                launches[k] += n
+            log(f"figures: {name} {secs:.1f} s on the card; launches "
+                f"{ {k: n for k, n in got.items() if n} } [{smi}]")
+            bad = _figure_outcome(name, out)
+            if bad:
+                fail(f"figures: {name}: {bad}")
+            idle = [k for k in FIGURE_LAUNCHES.get(name, ()) if not got[k]]
+            if idle:
+                fail(f"figures: {name} never launched {idle}")
+        text, _ = smoke.communicate(timeout=SERVER_SMOKE_S)
+    finally:
+        if smoke.poll() is None:
+            smoke.kill()
+            smoke.communicate()
+    for line in text.splitlines():
+        log(f"  server smoke: {line}")
+    if smoke.returncode != 0:
+        fail(f"figures: the server smoke exited {smoke.returncode}")
+    log(f"figures: the engine figures and the server smoke beside them "
+        f"{time.perf_counter() - t0:.1f} s [{smi}]")
     if not launches["paged_prefill_attention"] or not (
             launches["paged_decode_attention"]
             + launches["paged_decode_attention_splitk"]):

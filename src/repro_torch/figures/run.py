@@ -24,9 +24,7 @@ from typing import List, Optional
 
 from repro_torch.device import resolve_device
 
-# the reference's order; its fig_speculative, fig_fused_kernels,
-# fig_sharded_engine, fig_async_serving, fig_kv_offload and
-# roofline_table are not ported yet
+# the reference's order
 MODULES = [
     "fig1_motivation",
     "fig7_utility",
@@ -41,6 +39,12 @@ MODULES = [
     "fig_paged_kv",
     "fig_preemption_chunked",
     "fig_prefix_cache",
+    "fig_speculative",
+    "fig_fused_kernels",
+    "fig_sharded_engine",
+    "fig_async_serving",
+    "fig_kv_offload",
+    "roofline_table",
 ]
 
 

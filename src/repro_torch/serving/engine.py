@@ -822,7 +822,10 @@ class ContinuousBatchingEngine:
     a table row (``paged_prefill_attention``); a hybrid stack's windowed
     rings and recurrent states stay per-slot dense beside the pool, and
     its chunks prefill a one-slot staging cache grafted into the slot's
-    blocks and rows when the prompt is done.
+    blocks and rows when the prompt is done. ``prefill_mode`` is the
+    reference's: ``"auto"`` takes the pool path wherever it can run,
+    ``"fused"`` demands it (``ValueError`` where the layout is not paged
+    or a layer is not), and any other value raises ``ValueError``.
 
     ``prefix_cache=True`` (paged, and every layer paged, else
     ``ValueError`` as in the reference): full prompt blocks are published
@@ -892,7 +895,7 @@ class ContinuousBatchingEngine:
                  token_budget: Optional[int] = None,
                  prefix_cache: bool = False, spec_k: int = 0,
                  spec_ngram: int = 2, proposer=None,
-                 mesh=None, device="cuda",
+                 prefill_mode: str = "auto", mesh=None, device="cuda",
                  params: Optional[Dict] = None,
                  share_from: Optional["ContinuousBatchingEngine"] = None):
         if cfg.enc_dec:
@@ -922,6 +925,19 @@ class ContinuousBatchingEngine:
         #: admitted by one-shot prefill (``_admit_inline``) and so cannot
         #: be preempted or resumed
         self.chunked = cfg.frontend is None
+        # the reference's gate and messages: chunks run straight against
+        # the pool where every layer is paged; dense and hybrid layouts go
+        # through a staging cache
+        if prefill_mode not in ("auto", "fused"):
+            raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
+        fused_ok = (kv_layout == "paged" and self.chunked
+                    and supports_prefix_cache(cfg))
+        if prefill_mode == "fused" and not fused_ok:
+            raise ValueError(
+                "prefill_mode='fused' needs kv_layout='paged', the "
+                "chunked-prefill path, and every layer's decode state "
+                "in the block pool")
+        self.fused_prefill = fused_ok
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         if spec_k > 0 and not supports_speculation(cfg):
@@ -973,10 +989,6 @@ class ContinuousBatchingEngine:
         #: block-pool state, so every layer must be paged (the prefix
         #: cache's gate); a hybrid stack keeps recompute on resume
         self.swap_ok = kv_host_blocks > 0 and supports_prefix_cache(cfg)
-        #: chunks run straight against the pool where every layer is
-        #: paged; dense and hybrid layouts go through a staging cache
-        self.fused_prefill = kv_layout == "paged" \
-            and supports_prefix_cache(cfg)
         self.device = resolve_device(device) if mesh is None \
             else mesh.devices[0]
         self.cfg = cfg

@@ -56,7 +56,8 @@ raises without a GPU; ``device="cpu"`` runs the kernels' plain versions).
 Tensor parallelism: ``tp_degree`` (per model, ``set_tp_degree``, the
 ``PoolScheduler``'s fifth axis) is the degree new instances of a model
 spawn at; an instance at degree d spans a ``("model",)`` mesh of d
-devices (d shards on the CPU, the first d GPUs on the card), so with
+devices (d shards on the CPU, the first d GPUs on the card, or the first
+d of ``tp_devices``, which may repeat one card), so with
 ``n_devices`` set, Σ tp over the live instances caps further spawns and
 m_c and the degree partition the device set together. A paged instance at
 degree d is charged ``ceil(grant / d)`` budget blocks, a budget block
@@ -69,7 +70,7 @@ import dataclasses
 import heapq
 import itertools
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -239,6 +240,7 @@ class ModelInstancePool:
                  spec_k: int = 0,
                  tp_degree: int = 1,
                  n_devices: Optional[int] = None,
+                 tp_devices: Optional[Sequence] = None,
                  device="cuda"):
         if preempt_mode not in ("recompute", "swap", "auto"):
             raise ValueError(
@@ -285,6 +287,7 @@ class ModelInstancePool:
         self.tp_degrees: Dict[str, int] = {
             m: max(1, tp_degree) for m in configs}
         self.n_devices = n_devices
+        self.tp_devices = None if tp_devices is None else list(tp_devices)
         self._meshes: Dict[int, object] = {}
         #: target grant for a paged instance; default = dense-equivalent
         #: worst case
@@ -453,16 +456,21 @@ class ModelInstancePool:
         return sum(i.tp_degree for i in self.live())
 
     def _tp_mesh(self, tp: int):
-        """The mesh of degree ``tp`` (None at 1): ``tp`` shards on the
-        pool's CPU, or the first ``tp`` GPUs (``make_tp_mesh`` raises when
-        fewer are visible). Cached per degree."""
+        """The mesh of degree ``tp`` (None at 1): the first ``tp`` of
+        ``tp_devices``, else ``tp`` shards on the pool's CPU, or the first
+        ``tp`` GPUs (``make_tp_mesh`` raises when fewer are given or
+        visible). Cached per degree."""
         if tp <= 1:
             return None
         mesh = self._meshes.get(tp)
         if mesh is None:
             from repro_torch.launch.mesh import make_tp_mesh
-            mesh = make_tp_mesh(tp, [self.device] * tp
-                                if self.device.type == "cpu" else None)
+            if self.tp_devices is not None:
+                devices = self.tp_devices[:tp]
+            else:
+                devices = [self.device] * tp \
+                    if self.device.type == "cpu" else None
+            mesh = make_tp_mesh(tp, devices)
             self._meshes[tp] = mesh
         return mesh
 

@@ -15,11 +15,13 @@ those it now serves as the reference does), the
 prefix cache's gate, hybrid stacks under the paged layout, and
 ``chip_smoke.py``'s refusal to run without a GPU or outside a checkout.
 """
+import ast
 import dataclasses
 import os
 import shutil
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -326,7 +328,8 @@ def test_port_never_imports_jax_or_the_reference():
     """Importing every module of repro_torch (and chip_smoke.py) leaves
     jax, every ``repro.`` module and the reference's ``benchmarks`` out
     of sys.modules: run in a fresh interpreter, since this one imported
-    jax through conftest.py."""
+    jax through conftest.py. The scripts under ``examples_torch/`` import
+    none of them either (their import statements, parsed)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -337,12 +340,25 @@ def test_port_never_imports_jax_or_the_reference():
         "bad = sorted(m for m in sys.modules if m in\n"
         "             ('jax', 'repro', 'benchmarks') or\n"
         "             m.startswith(('jax.', 'repro.', 'benchmarks.')))\n"
-        "assert len(mods) >= 90, mods\n"
+        "assert len(mods) >= 97, mods\n"
         "print('BAD', bad)\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    examples = sorted(Path(ROOT, "examples_torch").glob("*.py"))
+    assert len(examples) >= 4, examples
+    for path in examples:
+        names = []
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names += [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names.append(node.module or "")
+        assert any(n.startswith("repro_torch") for n in names), path
+        bad = [n for n in names if n in ("jax", "repro", "benchmarks")
+               or n.startswith(("jax.", "repro.", "benchmarks."))]
+        assert not bad, (path, bad)
 
 
 def test_chip_smoke_fails_without_a_gpu_or_a_checkout(tmp_path):

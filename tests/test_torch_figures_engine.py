@@ -324,8 +324,8 @@ def test_run_refuses_cuda_without_a_gpu():
 def test_run_lists_the_ported_figures_in_the_references_order():
     ref = (ROOT / "benchmarks" / "run.py").read_text()
     ref_modules = re.findall(r'^    "(\w+)",$', ref, re.M)
-    assert fig_run.MODULES == ref_modules[:len(fig_run.MODULES)]
-    assert len(fig_run.MODULES) == 13
+    assert len(ref_modules) == 19
+    assert fig_run.MODULES == ref_modules
     for name in fig_run.MODULES:
         assert (ROOT / "src" / "repro_torch" / "figures"
                 / f"{name}.py").is_file()
