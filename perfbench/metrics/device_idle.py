@@ -1,0 +1,10 @@
+"""device_idle: the share of the traced window in which no device
+operation ran (torch.profiler's kernel and copy intervals, merged), in
+%."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
