@@ -43,6 +43,16 @@ each step's tokens and whether it loaded a kernel library
 (``last_step_tokens``, ``last_step_compiled``), and prices admission
 (``request_blocks``, ``admissible``, ``kv_block_mapping``).
 
+Tracing: a continuous engine's ``step()`` run under ``torch.profiler``
+records its spans (the step, admission, each upload, each prefill piece,
+the decode or verify forward, each readback) on the host's
+``time.perf_counter()`` clock, each forward with its device interval on
+a card, into ``serving.tracing.RECORDER``; an operator runs the engine
+inside a profiler session and reads ``RECORDER.spans(engine)`` beside
+the profiler's trace. Without a session a step records nothing.
+``stats()`` counts the blocking uploads and readbacks (``n_host_syncs``)
+whether or not a session runs.
+
 Preemption (recompute: the snapshot re-prefills the padded prompt plus
 every emitted token on resume; swap: its blocks go to a pinned host tier
 and come back with no recompute), the prefix cache's host spill,
@@ -81,6 +91,7 @@ from repro_torch.models.bridge import params_from_jax
 from repro_torch.models.tp import TPModel
 from repro_torch.models.transformer import (pad_cache, paged_layer_kind,
                                             scatter_blocks)
+from repro_torch.serving import tracing
 
 
 def _bucket(n: int, buckets=(1, 2, 4, 8, 16, 32, 64, 128)) -> int:
@@ -678,6 +689,8 @@ class _Slot:
     #: engine's own counters stay monotonic
     n_spec_proposed: int = 0
     n_spec_accepted: int = 0
+    #: the bucket padding ahead of the prompt in ``seq_tokens``
+    pad: int = 0
 
     @property
     def active(self) -> bool:
@@ -720,6 +733,8 @@ class PreemptedRequest:
     pending_tok: int = 0                 # sampled-but-unwritten token
     host_blocks: Optional[List[int]] = None
     host_engine_id: int = 0              # id() of the owning engine
+    #: the bucket padding ahead of the prompt in ``seq_tokens``
+    pad: int = 0
 
     @property
     def swapped(self) -> bool:
@@ -739,7 +754,7 @@ def to_recompute(req: PreemptedRequest) -> PreemptedRequest:
         req.request_id, seq, base_len=req.base_len, max_new=req.max_new,
         submit_s=req.submit_s, requested_new=req.requested_new,
         truncated=req.truncated, n_preempted=req.n_preempted,
-        first_token_s=req.first_token_s)
+        first_token_s=req.first_token_s, pad=req.pad)
 
 
 @dataclasses.dataclass
@@ -759,6 +774,7 @@ class _WaitingReq:
     n_preempted: int = 0
     first_token_s: float = -1.0
     swap: Optional[PreemptedRequest] = None
+    pad: int = 0                # resumes only: the prompt's bucket padding
 
 
 @dataclasses.dataclass
@@ -1100,6 +1116,16 @@ class ContinuousBatchingEngine:
         #: first use of a kernel); the pool's calibration skips such steps
         self.last_step_tokens = 0
         self.last_step_compiled = False
+        #: blocking host-device transfers: each upload (``_upload``) and
+        #: each token readback (``_readback``)
+        self.n_host_syncs = 0
+        #: the running step's spans while a profiler session runs, else
+        #: None; and the anchor of the last traced step's readback
+        #: (``serving/tracing.py``)
+        self._tr: Optional[tracing.StepTrace] = None
+        self._anchor = None
+        #: this engine's key on the spans it records
+        self.span_key = tracing.engine_key()
         self._next_id = 0
         self._t0 = time.perf_counter()
 
@@ -1392,7 +1418,7 @@ class ContinuousBatchingEngine:
             requested_new=req.requested_new, truncated=req.truncated,
             n_preempted=req.n_preempted,
             first_token_s=req.first_token_s,
-            swap=req if req.swapped else None))
+            swap=req if req.swapped else None, pad=req.pad))
         return rid
 
     def admit(self) -> int:
@@ -1423,10 +1449,11 @@ class ContinuousBatchingEngine:
                 continue
             if w.prepadded:  # a preempted sequence: prompt + emitted
                 seq = w.prompt
-                base_len = w.base_len
+                base_len, pad = w.base_len, w.pad
             else:
                 seq = self._padded_seq(w.prompt)
                 base_len = len(seq)
+                pad = base_len - len(w.prompt)
             reserved = n0 = pos0 = 0
             shared: List[int] = []
             cow_key: Optional[str] = None
@@ -1489,7 +1516,8 @@ class ContinuousBatchingEngine:
                 n_shared=len(shared), seq_tokens=seq, base_len=base_len,
                 prefill_pos=pos0, staging=staging,
                 requested_new=w.requested_new, truncated=w.truncated,
-                n_preempted=w.n_preempted, first_token_s=w.first_token_s)
+                n_preempted=w.n_preempted, first_token_s=w.first_token_s,
+                pad=pad)
             self.pos[slot] = 0
             self.n_admitted += 1
             n += 1
@@ -1516,8 +1544,7 @@ class ContinuousBatchingEngine:
         batch, S, _ = make_prefill_batch(self.cfg, [w.prompt])
         self.prefill_shapes.add(tuple(batch["tokens"].shape))
         logits, one_cache = self.model.prefill(
-            self.params, {k: torch.from_numpy(v).to(self.device)
-                          for k, v in batch.items()})
+            self.params, {k: self._upload(v) for k, v in batch.items()})
         F = self._frontend_tokens()
         ids: List[int] = []
         if self.kv_layout == "paged":
@@ -1531,9 +1558,11 @@ class ContinuousBatchingEngine:
             request_id=w.request_id, remaining=w.max_new,
             submit_s=w.submit_s, admit_s=self._now(), blocks=ids,
             n_outstanding=reserved - len(ids),
-            requested_new=w.requested_new, truncated=w.truncated)
+            requested_new=w.requested_new, truncated=w.truncated,
+            pad=S - len(w.prompt))
         self.pos[slot] = F + S
-        self.pending_tok[slot] = int(sample_tokens(logits[0, -1, :]))
+        self.pending_tok[slot] = int(self._readback(logits[0, -1, :],
+                                                    w.request_id))
         self.n_admitted += 1
         if self.on_state is not None:
             # one-shot prefill: the slot decodes the moment admission
@@ -1570,7 +1599,8 @@ class ContinuousBatchingEngine:
             n_shared=0, seq_tokens=np.asarray(req.seq_tokens, np.int32),
             base_len=req.base_len, prefill_pos=len(req.seq_tokens),
             requested_new=req.requested_new, truncated=req.truncated,
-            n_preempted=req.n_preempted, first_token_s=req.first_token_s)
+            n_preempted=req.n_preempted, first_token_s=req.first_token_s,
+            pad=w.pad)
         self.pos[slot] = req.pos
         self.pending_tok[slot] = req.pending_tok
         if self.prefix_cache:
@@ -1711,9 +1741,38 @@ class ContinuousBatchingEngine:
         self._swap_in_blocks([hid], [bid])
 
     # ---- chunked prefill (docs/ARCHITECTURE.md §5) -----------------------
-    def _int_tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
-            self.device)
+    def _int_tensor(self, a: np.ndarray, request: int = -1) -> torch.Tensor:
+        return self._upload(np.ascontiguousarray(a, np.int32), request)
+
+    def _upload(self, a: np.ndarray, request: int = -1) -> torch.Tensor:
+        """``a`` on the engine's device. From pageable host memory the
+        copy blocks: the host waits for the stream to drain. Counted in
+        ``n_host_syncs`` on every device, and an ``upload`` span while
+        tracing (``serving/tracing.py``)."""
+        self.n_host_syncs += 1
+        tr = self._tr
+        if tr is None:
+            return torch.from_numpy(a).to(self.device)
+        sp = tr.open("upload", request, bytes=a.nbytes)
+        out = torch.from_numpy(a).to(self.device)
+        tr.close(sp)
+        return out
+
+    def _readback(self, logits: torch.Tensor, request: int = -1
+                  ) -> np.ndarray:
+        """``sample_tokens(logits)``: the greedy tokens on the host, which
+        waits for the stream to drain. Counted in ``n_host_syncs``; while
+        tracing a ``readback`` span, and the drained stream anchors the
+        next step's device intervals."""
+        self.n_host_syncs += 1
+        tr = self._tr
+        if tr is None:
+            return sample_tokens(logits)
+        sp = tr.open("readback", request)
+        out = sample_tokens(logits)
+        tr.close(sp)
+        tr.readback_done()
+        return out
 
     def _prefill_step(self, budget_left: int) -> int:
         """Advance in-slot chunked prefills by at most ``budget_left``
@@ -1724,8 +1783,10 @@ class ContinuousBatchingEngine:
         cache. A slot whose last chunk lands joins the decode batch of
         this same iteration. Returns tokens processed."""
         done_tokens = 0
+        tr = self._tr
         for i in list(self.prefilling_slots):
             s = self.slots[i]
+            rid = s.request_id
             logits = None
             while s.prefilling and budget_left > 0:
                 rem = len(s.seq_tokens) - s.prefill_pos
@@ -1733,17 +1794,23 @@ class ContinuousBatchingEngine:
                 c = 1 << (c.bit_length() - 1)  # largest power of two <= c
                 toks = s.seq_tokens[s.prefill_pos:s.prefill_pos + c]
                 self.prefill_shapes.add((c, self.cache_len))
-                batch = {"tokens": self._int_tensor(toks[None, :]),
-                         "pos": self._int_tensor([s.prefill_pos])}
+                batch = {"tokens": self._int_tensor(toks[None, :], rid),
+                         "pos": self._int_tensor([s.prefill_pos], rid)}
                 if self.fused_prefill:
                     tbl = np.zeros((1, self.blocks_per_slot), np.int32)
                     tbl[0, :len(s.blocks)] = s.blocks
-                    batch["block_tables"] = self._int_tensor(tbl)
+                    batch["block_tables"] = self._int_tensor(tbl, rid)
+                fw = None if tr is None else tr.forward(
+                    "prefill", rid, **tracing.piece(
+                        c, s.prefill_pos, s.pad, len(s.seq_tokens)))
+                if self.fused_prefill:
                     logits, self.cache = self.model.prefill_chunk(
                         self.params, self.cache, batch)
                 else:
                     logits, s.staging = self.model.prefill_chunk(
                         self.params, s.staging, batch)
+                if fw is not None:
+                    tr.forward_done(fw)
                 self.n_prefill_chunks += 1
                 s.prefill_pos += c
                 budget_left -= c
@@ -1773,7 +1840,8 @@ class ContinuousBatchingEngine:
             self._graft(s.staging, slot)
         s.staging = None
         self.pos[slot] = s.prefill_pos
-        self.pending_tok[slot] = int(sample_tokens(logits[0, -1, :]))
+        self.pending_tok[slot] = int(self._readback(logits[0, -1, :],
+                                                    s.request_id))
         if self.on_state is not None:
             self.on_state(s.request_id, "decode")
 
@@ -1912,7 +1980,7 @@ class ContinuousBatchingEngine:
                 first_token_s=s.first_token_s, tokens=list(s.tokens),
                 pos=int(self.pos[slot]),
                 pending_tok=int(self.pending_tok[slot]),
-                host_blocks=host_ids, host_engine_id=id(self))
+                host_blocks=host_ids, host_engine_id=id(self), pad=s.pad)
             self.n_swap_preempts += 1
         else:
             req = PreemptedRequest(
@@ -1921,7 +1989,7 @@ class ContinuousBatchingEngine:
                 base_len=s.base_len, max_new=s.remaining,
                 submit_s=s.submit_s, requested_new=s.requested_new,
                 truncated=s.truncated, n_preempted=s.n_preempted + 1,
-                first_token_s=s.first_token_s)
+                first_token_s=s.first_token_s, pad=s.pad)
         self._free_slot(slot)
         self.n_preempted += 1
         if requeue:
@@ -1931,7 +1999,7 @@ class ContinuousBatchingEngine:
                 requested_new=req.requested_new, truncated=req.truncated,
                 n_preempted=req.n_preempted,
                 first_token_s=req.first_token_s,
-                swap=req if req.swapped else None))
+                swap=req if req.swapped else None, pad=req.pad))
         return req
 
     def release_swap(self, req: PreemptedRequest) -> PreemptedRequest:
@@ -2038,14 +2106,34 @@ class ContinuousBatchingEngine:
         tokens, ``1 + k`` a slot when speculating. Returns the sequences
         that finished. Inactive slots decode a dummy token at position 0
         (into the null block, or their own row, which admission's graft
-        overwrites), keeping the decode shape fixed at (n_slots, 1)."""
+        overwrites), keeping the decode shape fixed at (n_slots, 1).
+
+        While a ``torch.profiler`` session runs in this thread the step
+        records its spans (``serving/tracing.py``); otherwise it records
+        nothing."""
         loads = _build.n_loads
-        finished = self._step()
+        if torch.autograd._profiler_enabled():
+            tr = self._tr = tracing.StepTrace(self, self.n_iters,
+                                              self._anchor)
+            try:
+                finished = self._step()
+            finally:
+                self._tr = None
+                self._anchor = tr.finish()
+        else:
+            self._anchor = None
+            finished = self._step()
         self.last_step_compiled = _build.n_loads != loads
         return finished
 
     def _step(self) -> List[ContinuousResult]:
-        self.admit()
+        tr = self._tr
+        if tr is None:
+            self.admit()
+        else:
+            sp = tr.open("admit")
+            sp.attrs["slots"] = self.admit()
+            tr.close(sp)
         n_dec = len(self.decoding_slots)
         budget = self.token_budget if self.token_budget is not None \
             else 1 << 62
@@ -2071,9 +2159,16 @@ class ContinuousBatchingEngine:
             for i in active:
                 self._alloc_through(i, int(self.pos[i]))
             batch["block_tables"] = self._int_tensor(self.block_tables)
+        fw = None if tr is None else tr.forward(
+            "decode", rows=self.n_slots,
+            contexts_active=[int(self.pos[i]) + 1 for i in active],
+            real_contexts=[int(self.pos[i]) + 1 - self.slots[i].pad
+                           for i in active])
         logits, self.cache = self.model.decode_step(self.params, self.cache,
                                                     batch)
-        nxt = sample_tokens(logits[:, -1, :])
+        if fw is not None:
+            tr.forward_done(fw)
+        nxt = self._readback(logits[:, -1, :])
         self.n_iters += 1
         finished: List[ContinuousResult] = []
         now = self._now()
@@ -2150,9 +2245,14 @@ class ContinuousBatchingEngine:
                           np.int32)
             vt[:, :self.blocks_per_slot] = self.block_tables
             batch["block_tables"] = self._int_tensor(vt)
+        tr = self._tr
+        fw = None if tr is None else tr.forward("verify", rows=self.n_slots,
+                                                width=W)
         logits, self.cache = self.model.verify_step(self.params, self.cache,
                                                     batch)
-        nxt_all = sample_tokens(logits)  # (n_slots, W): one readback
+        if fw is not None:
+            tr.forward_done(fw)
+        nxt_all = self._readback(logits)  # (n_slots, W): one readback
         self.n_iters += 1
         self.n_spec_steps += 1
         finished: List[ContinuousResult] = []
@@ -2325,7 +2425,8 @@ class ContinuousBatchingEngine:
 
     def stats(self) -> Dict[str, float]:
         """Counters + KV occupancy metrics (the reference's keys for the
-        features the port has, plus ``n_prefill_chunks``).
+        features the port has, plus ``n_prefill_chunks``, ``n_host_syncs``
+        and the span recorder's drops, ``n_spans_dropped``).
         ``kv_waste_frac`` counts a shared block once; ``kv_used_tokens``
         stays per sequence, so used over allocated can pass 1 under
         sharing: the capacity the prefix cache buys."""
@@ -2375,4 +2476,6 @@ class ContinuousBatchingEngine:
             "n_spec_accepted": float(self.n_spec_accepted),
             "n_spec_steps": float(self.n_spec_steps),
             "tp_degree": float(self.tp_degree),
+            "n_host_syncs": float(self.n_host_syncs),
+            "n_spans_dropped": float(tracing.RECORDER.n_dropped),
         }

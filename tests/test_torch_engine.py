@@ -340,7 +340,7 @@ def test_port_never_imports_jax_or_the_reference():
         "bad = sorted(m for m in sys.modules if m in\n"
         "             ('jax', 'repro', 'benchmarks') or\n"
         "             m.startswith(('jax.', 'repro.', 'benchmarks.')))\n"
-        "assert len(mods) >= 97, mods\n"
+        "assert len(mods) >= 98, mods\n"
         "print('BAD', bad)\n")
     out = subprocess.run([sys.executable, "-c", code], env=_env(),
                          capture_output=True, text=True, timeout=120)
